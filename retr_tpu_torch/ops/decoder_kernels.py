@@ -1,0 +1,381 @@
+"""Decode-step kernels: hand-written CUDA on the GPU, plain PyTorch on the CPU.
+
+Four functions, one per Pallas kernel of retr_tpu/ops/decoder_kernels.py that
+the greedy serving path runs:
+
+- :func:`fused_stack_step` <- ``fused_stack_step`` (all decoder layers, one launch)
+- :func:`self_attn_block`  <- ``self_attn_block``
+- :func:`cross_attn_block` <- ``cross_attn_block``
+- :func:`ff_block`         <- ``ff_block``
+
+Each takes the JAX package's parameter dicts (linear weights ``[in, out]``) and
+its XLA-path layouts: self caches ``[B, H, T, D]`` (stacked ``[L, B, H, T, D]``),
+cross K/V ``[B, H, S, D]``, key bias ``[B, S]``. The TPU kernels' ``[H, B, D, T]``
+lane layout, batch blocking and ``b <= 32`` limit were VMEM rules and are not
+copied: the CUDA kernels take any batch.
+
+Dispatch: a CPU tensor goes to the plain version (``*_plain``), which repeats
+the TPU kernel's arithmetic with torch ops; a CUDA tensor launches the kernel or
+raises. ``LAUNCHES`` counts kernel launches per wrapper (plain calls never count).
+
+Numerics shared by both versions (the TPU kernels'): products cast the
+activation to the weight's type and accumulate in f32; LayerNorm (eps 1e-5) and
+softmax run in f32; q is ``(x @ Wq + bq) * D**-0.5``; the key bias is clamped at
+-1e30 and positions after ``step`` are masked; the current position attends
+with the unrounded f32 k/v while the cache stores them rounded. The split blocks
+return ``x.dtype`` and round after each head's out-projection part; the stacked
+step carries the residual in f32 across all layers.
+
+The self-attention functions update the caches IN PLACE (only the slot at
+``step`` is written) and return them, where the JAX functions return new arrays.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import numpy as np
+import torch
+
+Params = Dict
+
+# Decode dispatch (models/transformer.decode_step): True runs all decoder layers
+# in one fused_stack_step launch per position, False runs the per-layer trio.
+LAYER_GRID = True
+
+# Kernel launches per wrapper since the last reset_launches().
+LAUNCHES = {"fused_stack_step": 0, "self_attn_block": 0, "cross_attn_block": 0, "ff_block": 0}
+
+WIDTH, HEADS = 256, 8  # the widths the CUDA kernels are written for
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------------
+# Plain versions (CPU path, and the reference the kernels are held against)
+# ---------------------------------------------------------------------------------
+
+
+def _ln(x, scale, bias, eps=1e-5):
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    return (x32 - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
+def _dot(a, w):
+    """a cast to w's type, product accumulated in f32 (retr_tpu ``_dot``)."""
+    return a.to(w.dtype).float() @ w.float()
+
+
+def _scale(d: int) -> float:
+    return float(np.float32(d) ** np.float32(-0.5))
+
+
+def _add_heads(x, out_p, attn):
+    """x + bo + sum_h attn_h @ Wo[h], accumulated head by head in x's type."""
+    h, d = attn.shape[1], attn.shape[2]
+    w = out_p["w"]
+    out = None
+    for hi in range(h):
+        part = _dot(attn[:, hi], w[hi * d:(hi + 1) * d])
+        out = (x + out_p["b"] + part).to(x.dtype) if hi == 0 else out + part.to(x.dtype)
+    return out
+
+
+def ff_block_plain(p: Params, x: torch.Tensor) -> torch.Tensor:
+    nx = _ln(x, p["norm"]["scale"], p["norm"]["bias"])
+    hmid = torch.relu(_dot(nx, p["lin1"]["w"]) + p["lin1"]["b"].float())
+    return x + (_dot(hmid, p["lin2"]["w"]) + p["lin2"]["b"].float()).to(x.dtype)
+
+
+def cross_attn_block_plain(p: Params, x, qpos, k, v, key_bias, *, num_heads: int):
+    b, c = x.shape
+    h = num_heads
+    d = c // h
+    m = p["mha"]
+    nx = _ln(x, p["norm"]["scale"], p["norm"]["bias"])
+    q = (_dot(nx + qpos.float(), m["q"]["w"]) + m["q"]["b"].float()) * _scale(d)
+    scores = torch.einsum("bhd,bhsd->bhs", q.view(b, h, d), k.float())
+    scores = scores + key_bias.clamp_min(-1e30)[:, None, :]
+    attn = torch.einsum("bhs,bhsd->bhd", torch.softmax(scores, dim=-1), v.float())
+    return _add_heads(x, m["out"], attn)
+
+
+def self_attn_block_plain(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: int):
+    b, c = x.shape
+    h = num_heads
+    d = c // h
+    t = k_cache.shape[2]
+    m = p["mha"]
+    nx = _ln(x, p["norm"]["scale"], p["norm"]["bias"])
+    qk_in = nx + qpos.float()
+    q = (_dot(qk_in, m["q"]["w"]) + m["q"]["b"].float()) * _scale(d)
+    k_new = (_dot(qk_in, m["k"]["w"]) + m["k"]["b"].float()).view(b, h, 1, d)
+    v_new = (_dot(nx, m["v"]["w"]) + m["v"]["b"].float()).view(b, h, 1, d)
+    at = step.reshape(1).long()
+    k_cache.index_copy_(2, at, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(2, at, v_new.to(v_cache.dtype))
+
+    pos = torch.arange(t, device=x.device)
+    cur = (pos == step)[None, None, :, None]
+    kc = torch.where(cur, k_new, k_cache.float())
+    vc = torch.where(cur, v_new, v_cache.float())
+    scores = torch.einsum("bhd,bhtd->bht", q.view(b, h, d), kc)
+    scores = torch.where(pos <= step, scores, -1e30)
+    attn = torch.einsum("bht,bhtd->bhd", torch.softmax(scores, dim=-1), vc)
+    return _add_heads(x, m["out"], attn), k_cache, v_cache
+
+
+def layer_params(slp: Params, li: int) -> Params:
+    """Layer ``li`` of a leaf-stacked parameter dict (views, no copies)."""
+    if isinstance(slp, dict):
+        return {k: layer_params(v, li) for k, v in slp.items()}
+    return slp[li]
+
+
+def stack_layer_params(layer_params_list) -> Params:
+    """Stack per-layer parameter dicts leaf-wise on a new leading axis."""
+    first = layer_params_list[0]
+    if isinstance(first, dict):
+        return {k: stack_layer_params([lp[k] for lp in layer_params_list]) for k in first}
+    return torch.stack(list(layer_params_list)).contiguous()
+
+
+def fused_stack_step_plain(slp: Params, x, qpos, k_cache, v_cache, cross_k, cross_v,
+                           key_bias, step, *, num_heads: int):
+    xs = x.float()  # the residual stays f32 across all layers
+    for li in range(k_cache.shape[0]):
+        lp = layer_params(slp, li)
+        xs, _, _ = self_attn_block_plain(lp["self_attn"], xs, qpos, k_cache[li], v_cache[li],
+                                         step, num_heads=num_heads)
+        xs = cross_attn_block_plain(lp["cross_attn"], xs, qpos, cross_k[li], cross_v[li],
+                                    key_bias, num_heads=num_heads)
+        xs = ff_block_plain(lp["ff"], xs)
+    return xs.to(x.dtype), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------------
+# CUDA launch plumbing (csrc/decoder_kernels.cu through ctypes)
+# ---------------------------------------------------------------------------------
+
+_PTRS = ("x", "y", "qpos", "ln1s", "ln1b", "swq", "sbq", "swk", "sbk", "swv", "sbv", "swo", "sbo",
+         "ln2s", "ln2b", "cwq", "cbq", "cwo", "cbo", "ln3s", "ln3b", "w1", "b1", "w2", "b2",
+         "kc", "vc", "ck", "cv", "key_bias", "step")
+
+
+class _Args(ctypes.Structure):
+    """Mirror of ``struct Args`` in csrc/decoder_kernels.cu (same field order)."""
+
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "T", "S", "F", "L")] + [
+        (n, ctypes.c_void_p) for n in _PTRS
+    ]
+
+
+_ENTRY = {"fused_stack_step": "rt_stack_step", "self_attn_block": "rt_self_attn_block",
+          "cross_attn_block": "rt_cross_attn_block", "ff_block": "rt_ff_block"}
+_lib_handle = None
+
+
+def _lib():
+    global _lib_handle
+    if _lib_handle is None:
+        from retr_tpu_torch.ops import cuda_build
+
+        lib = cuda_build.load("decoder_kernels")
+        for fn in _ENTRY.values():
+            f = getattr(lib, fn)
+            f.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
+            f.restype = ctypes.c_int
+        lib.rt_error_string.argtypes = [ctypes.c_int]
+        lib.rt_error_string.restype = ctypes.c_char_p
+        _lib_handle = lib
+    return _lib_handle
+
+
+def build() -> None:
+    """Compile (if needed) and load the kernels now instead of at first launch."""
+    _lib()
+
+
+def _param_shapes(f: int = WIDTH, nl=None) -> Dict[str, tuple]:
+    """Shapes of the Args parameter fields (a leading layer axis when ``nl``)."""
+    lead = () if nl is None else (nl,)
+    vec, sq = lead + (WIDTH,), lead + (WIDTH, WIDTH)
+    shapes = {"qpos": (WIDTH,), "w1": lead + (WIDTH, f), "b1": lead + (f,), "w2": lead + (f, WIDTH)}
+    for n in ("ln1s", "ln1b", "sbq", "sbk", "sbv", "sbo", "ln2s", "ln2b", "cbq", "cbo", "ln3s", "ln3b",
+              "b2"):
+        shapes[n] = vec
+    for n in ("swq", "swk", "swv", "swo", "cwq", "cwo"):
+        shapes[n] = sq
+    return shapes
+
+
+def _check(kernel: str, dtype: torch.dtype, shapes: Dict[str, tuple], **tensors) -> None:
+    """Device, type, contiguity, 16-byte alignment (the kernels load 16 bytes at
+    a time) and, for parameters, shape of every tensor handed to a kernel."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{kernel}: storage type {dtype} (float32 or bfloat16 only)")
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, the kernel needs CUDA tensors")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must be contiguous and 16-byte aligned")
+        want = torch.float32 if name == "key_bias" else torch.int32 if name == "step" else dtype
+        if t.dtype != want:
+            raise ValueError(f"{kernel}: {name} is {t.dtype}, expected {want}")
+        if name in shapes and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {shapes[name]}")
+
+
+def _check_width(kernel: str, c: int, num_heads: int, f: int = 256) -> None:
+    if c != WIDTH or num_heads != HEADS or f % 256:
+        raise ValueError(f"{kernel}: the CUDA kernel is written for width {WIDTH}, {HEADS} heads "
+                         f"and an FF width that is a multiple of 256 (got {c}, {num_heads}, {f})")
+
+
+def _launch(kernel: str, ref: torch.Tensor, /, **fields) -> None:
+    """Launch ``kernel`` on the current stream of ``ref``'s device; ``fields``
+    are the Args members (ints, or tensors passed by data pointer)."""
+    args = _Args(**{k: (v if k in ("B", "T", "S", "F", "L") else v.data_ptr())
+                    for k, v in fields.items()})
+    lib = _lib()
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        rc = getattr(lib, _ENTRY[kernel])(ctypes.byref(args), int(ref.dtype == torch.bfloat16),
+                                          stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed: {lib.rt_error_string(rc).decode()}")
+    LAUNCHES[kernel] += 1
+
+
+# ---------------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------------
+
+
+def ff_block(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x: [B, C] -> x + Linear(F, C)(ReLU(Linear(C, F)(LN(x)))), in x's type.
+
+    Replaces retr_tpu/ops/decoder_kernels.py ``ff_block`` (``_ff_kernel``). Bound
+    on the card: bytes — the two [256, F] weights against 2*B*C*F operations, so
+    below ~300 rows it moves more than it computes. Design: one block per row
+    tile streams each weight once per tile, keeps the LN input and each 256-wide
+    hidden chunk in shared memory, and never writes the [B, F] hidden state out.
+    """
+    if x.device.type == "cpu":
+        return ff_block_plain(p, x)
+    b, c = x.shape
+    f = p["lin1"]["w"].shape[1]
+    _check_width("ff_block", c, HEADS, f)
+    t = dict(ln3s=p["norm"]["scale"], ln3b=p["norm"]["bias"], w1=p["lin1"]["w"],
+             b1=p["lin1"]["b"], w2=p["lin2"]["w"], b2=p["lin2"]["b"])
+    _check("ff_block", x.dtype, _param_shapes(f), x=x, **t)
+    y = torch.empty_like(x)
+    _launch("ff_block", x, B=b, F=f, L=1, x=x, y=y, **t)
+    return y
+
+
+def cross_attn_block(p: Params, x, qpos, k, v, key_bias, *, num_heads: int) -> torch.Tensor:
+    """x: [B, C]; k, v: [B, H, S, D] memory keys/values; key_bias: [B, S] f32.
+
+    Replaces retr_tpu/ops/decoder_kernels.py ``cross_attn_block``
+    (``_cross_kernel``). Bound on the card: bytes — the memory K/V (2*B*H*S*D
+    elements) dominate, read once for one query per head. Design: one block per
+    row tile; q, scores and probabilities stay in shared memory; K/V rows are
+    read with 16-byte loads; the out-projection is summed head by head on chip.
+    """
+    if x.device.type == "cpu":
+        return cross_attn_block_plain(p, x, qpos, k, v, key_bias, num_heads=num_heads)
+    b, c = x.shape
+    _check_width("cross_attn_block", c, num_heads)
+    s = k.shape[2]
+    if k.shape != (b, num_heads, s, c // num_heads) or v.shape != k.shape or key_bias.shape != (b, s):
+        raise ValueError(f"cross_attn_block: k/v {tuple(k.shape)} / key_bias {tuple(key_bias.shape)} "
+                         f"do not match x {tuple(x.shape)}")
+    m = p["mha"]
+    t = dict(qpos=qpos, ln2s=p["norm"]["scale"], ln2b=p["norm"]["bias"], cwq=m["q"]["w"],
+             cbq=m["q"]["b"], cwo=m["out"]["w"], cbo=m["out"]["b"], ck=k, cv=v, key_bias=key_bias)
+    _check("cross_attn_block", x.dtype, _param_shapes(), x=x, **t)
+    y = torch.empty_like(x)
+    _launch("cross_attn_block", x, B=b, S=s, L=1, x=x, y=y, **t)
+    return y
+
+
+def self_attn_block(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: int):
+    """x: [B, C]; caches [B, H, T, D] updated in place at ``step`` (int32 tensor on
+    the device). Returns (x_out, k_cache, v_cache).
+
+    Replaces retr_tpu/ops/decoder_kernels.py ``self_attn_block``
+    (``_self_kernel``). Bound on the card: bytes — the four [C, C] weights and
+    the cache rows up to ``step``. Design: one block per row tile computes
+    q/k/v, writes only the new cache slot (the TPU kernel rewrote whole cache
+    blocks), attends over positions <= step from shared-memory scores, and sums
+    the out-projection head by head.
+    """
+    if x.device.type == "cpu":
+        return self_attn_block_plain(p, x, qpos, k_cache, v_cache, step, num_heads=num_heads)
+    b, c = x.shape
+    _check_width("self_attn_block", c, num_heads)
+    tmax = k_cache.shape[2]
+    if k_cache.shape != (b, num_heads, tmax, c // num_heads) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"self_attn_block: caches {tuple(k_cache.shape)} do not match x {tuple(x.shape)}")
+    m = p["mha"]
+    t = dict(qpos=qpos, ln1s=p["norm"]["scale"], ln1b=p["norm"]["bias"],
+             swq=m["q"]["w"], sbq=m["q"]["b"], swk=m["k"]["w"], sbk=m["k"]["b"],
+             swv=m["v"]["w"], sbv=m["v"]["b"], swo=m["out"]["w"], sbo=m["out"]["b"],
+             kc=k_cache, vc=v_cache, step=step)
+    _check("self_attn_block", x.dtype, _param_shapes(), x=x, **t)
+    y = torch.empty_like(x)
+    _launch("self_attn_block", x, B=b, T=tmax, L=1, x=x, y=y, **t)
+    return y, k_cache, v_cache
+
+
+def fused_stack_step(slp: Params, x, qpos, k_cache, v_cache, cross_k, cross_v, key_bias, step,
+                     *, num_heads: int):
+    """All L decoder layers for one position. slp: leaf-stacked layer params;
+    caches [L, B, H, T, D] (updated in place at ``step``); cross K/V
+    [L, B, H, S, D]. Returns (x_out [B, C] before the final norm, k_cache, v_cache).
+
+    Replaces retr_tpu/ops/decoder_kernels.py ``fused_stack_step``
+    (``_stack_kernel``). Bound on the card: bytes — every layer's weights plus
+    the cross K/V and the self caches, against ~2 operations per weight byte per
+    row. Design: one launch; each block owns a row tile for all layers and keeps
+    the f32 residual in shared memory, looping over layers and heads inside the
+    block (the TPU carried them across grid steps in scratch); FF runs in
+    256-wide hidden chunks; only the new cache slots are written.
+    """
+    if x.device.type == "cpu":
+        return fused_stack_step_plain(slp, x, qpos, k_cache, v_cache, cross_k, cross_v,
+                                      key_bias, step, num_heads=num_heads)
+    b, c = x.shape
+    nl, _, _, tmax, _ = k_cache.shape
+    s = cross_k.shape[3]
+    sp, cp, fp = slp["self_attn"], slp["cross_attn"], slp["ff"]
+    f = fp["lin1"]["w"].shape[2]
+    _check_width("fused_stack_step", c, num_heads, f)
+    d = c // num_heads
+    if (k_cache.shape != (nl, b, num_heads, tmax, d) or v_cache.shape != k_cache.shape
+            or cross_k.shape != (nl, b, num_heads, s, d) or cross_v.shape != cross_k.shape
+            or key_bias.shape != (b, s)):
+        raise ValueError("fused_stack_step: cache / cross K/V shapes do not match x")
+    t = dict(qpos=qpos,
+             ln1s=sp["norm"]["scale"], ln1b=sp["norm"]["bias"],
+             swq=sp["mha"]["q"]["w"], sbq=sp["mha"]["q"]["b"],
+             swk=sp["mha"]["k"]["w"], sbk=sp["mha"]["k"]["b"],
+             swv=sp["mha"]["v"]["w"], sbv=sp["mha"]["v"]["b"],
+             swo=sp["mha"]["out"]["w"], sbo=sp["mha"]["out"]["b"],
+             ln2s=cp["norm"]["scale"], ln2b=cp["norm"]["bias"],
+             cwq=cp["mha"]["q"]["w"], cbq=cp["mha"]["q"]["b"],
+             cwo=cp["mha"]["out"]["w"], cbo=cp["mha"]["out"]["b"],
+             ln3s=fp["norm"]["scale"], ln3b=fp["norm"]["bias"],
+             w1=fp["lin1"]["w"], b1=fp["lin1"]["b"], w2=fp["lin2"]["w"], b2=fp["lin2"]["b"],
+             kc=k_cache, vc=v_cache, ck=cross_k, cv=cross_v, key_bias=key_bias, step=step)
+    _check("fused_stack_step", x.dtype, _param_shapes(f, nl), x=x, **t)
+    y = torch.empty_like(x)
+    _launch("fused_stack_step", x, B=b, T=tmax, S=s, F=f, L=nl, x=x, y=y, **t)
+    return y, k_cache, v_cache

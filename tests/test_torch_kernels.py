@@ -1,0 +1,161 @@
+"""The port's decode-step kernels (plain PyTorch versions, the CPU path) held
+against the Pallas kernels of retr_tpu run in interpret mode.
+
+Same seeded numpy inputs through both; the TPU-layout caches [H, B, D, T] /
+[L, H, B, D, T] are transposed to the port's [B, H, T, D] / [L, B, H, T, D].
+
+Tolerances: f32 atol 3e-5 (the JAX package's own kernel tests; the two sides
+sum in different orders). bf16 storage: both sides round at the same points
+(activation cast to bf16 at each product, per-head residual rounding in the
+split blocks) and accumulate in f32, so outputs may differ only where an f32
+sum order difference flips one bf16 rounding: atol of one bf16 ulp at the
+output's magnitude (2**-8 relative, 0.0625 at |x| < 16).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from retr_tpu.models import layers
+from retr_tpu.ops import decoder_kernels as dk
+from retr_tpu_torch.ops import decoder_kernels as tk
+
+C, H, F, B, S, T, L = 64, 4, 128, 8, 23, 12, 2
+D = C // H
+STEP = 5
+DTYPES = {"f32": (jnp.float32, torch.float32, 3e-5), "bf16": (jnp.bfloat16, torch.bfloat16, 0.0625)}
+
+
+def _norm(rng):
+    return {"scale": jnp.asarray(1 + 0.1 * rng.standard_normal(C), jnp.float32),
+            "bias": jnp.asarray(0.1 * rng.standard_normal(C), jnp.float32)}
+
+
+def _layer(rng, seed):
+    return {
+        "self_attn": {"norm": _norm(rng), "mha": layers.mha_init(jax.random.key(seed), C)},
+        "cross_attn": {"norm": _norm(rng), "mha": layers.mha_init(jax.random.key(seed + 1), C)},
+        "ff": {"norm": _norm(rng),
+               "lin1": layers.xavier_linear_init(jax.random.key(seed + 2), C, F),
+               "lin2": layers.xavier_linear_init(jax.random.key(seed + 3), F, C)},
+    }
+
+
+def _torch_tree(p, dtype):
+    if isinstance(p, dict):
+        return {k: _torch_tree(v, dtype) for k, v in p.items()}
+    return torch.tensor(np.asarray(p, np.float32)).to(dtype)
+
+
+def _t(a, dtype=torch.float32):
+    return torch.tensor(np.asarray(jnp.asarray(a, jnp.float32))).to(dtype)
+
+
+@pytest.fixture(params=sorted(DTYPES))
+def case(request):
+    jdt, tdt, atol = DTYPES[request.param]
+    rng = np.random.default_rng(7)
+    lps = [jax.tree.map(lambda a: a.astype(jdt), _layer(rng, 10 * (i + 1))) for i in range(L)]
+    pad = rng.random((B, S)) < 0.3
+    pad[:, 0] = False
+    arr = lambda *shape: jnp.asarray(rng.standard_normal(shape), jdt)  # noqa: E731
+    return dict(
+        jdt=jdt, tdt=tdt, atol=atol, lps=lps,
+        x=arr(B, C), qpos=arr(C),
+        kc=arr(L, H, B, D, T), vc=arr(L, H, B, D, T),   # TPU layout
+        ck=arr(L, B, H, S, D), cv=arr(L, B, H, S, D),
+        kb=jnp.where(jnp.asarray(pad), -jnp.inf, 0.0).astype(jnp.float32),
+    )
+
+
+def _close(got, ref, atol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref.astype(jnp.float32)), atol=atol, rtol=0)
+
+
+def test_ff_block_plain_matches_pallas(case):
+    p = case["lps"][0]["ff"]
+    ref = dk.ff_block(p, case["x"], interpret=True)
+    got = tk.ff_block(_torch_tree(jax.tree.map(np.asarray, p), case["tdt"]), _t(case["x"], case["tdt"]))
+    assert got.dtype == case["tdt"]
+    _close(got, ref, case["atol"])
+
+
+def test_cross_attn_block_plain_matches_pallas(case):
+    p, tdt = case["lps"][0]["cross_attn"], case["tdt"]
+    ref = dk.cross_attn_block(p, case["x"], case["qpos"], case["ck"][0], case["cv"][0], case["kb"],
+                              num_heads=H, interpret=True)
+    got = tk.cross_attn_block(_torch_tree(jax.tree.map(np.asarray, p), tdt), _t(case["x"], tdt),
+                              _t(case["qpos"], tdt), _t(case["ck"][0], tdt), _t(case["cv"][0], tdt),
+                              _t(case["kb"]), num_heads=H)
+    _close(got, ref, case["atol"])
+
+
+def test_self_attn_block_plain_matches_pallas(case):
+    p, tdt = case["lps"][0]["self_attn"], case["tdt"]
+    ref, kc_ref, vc_ref = dk.self_attn_block(p, case["x"], case["qpos"], case["kc"][0], case["vc"][0],
+                                             jnp.int32(STEP), num_heads=H, interpret=True)
+    kc = _t(case["kc"][0], tdt).permute(1, 0, 3, 2).contiguous()   # [H,B,D,T] -> [B,H,T,D]
+    vc = _t(case["vc"][0], tdt).permute(1, 0, 3, 2).contiguous()
+    got, kc_out, vc_out = tk.self_attn_block(
+        _torch_tree(jax.tree.map(np.asarray, p), tdt), _t(case["x"], tdt), _t(case["qpos"], tdt),
+        kc, vc, torch.tensor(STEP, dtype=torch.int32), num_heads=H)
+    _close(got, ref, case["atol"])
+    assert kc_out is kc and vc_out is vc  # updated in place
+    _close(kc.permute(1, 0, 3, 2), kc_ref, case["atol"])
+    _close(vc.permute(1, 0, 3, 2), vc_ref, case["atol"])
+
+
+def test_fused_stack_step_plain_matches_pallas(case):
+    tdt = case["tdt"]
+    slp = dk.stack_layer_params(case["lps"])
+    ref, kc_ref, vc_ref = dk.fused_stack_step(
+        slp, case["x"], case["qpos"], case["kc"], case["vc"], case["ck"], case["cv"], case["kb"],
+        jnp.int32(STEP), num_heads=H, interpret=True)
+    tslp = tk.stack_layer_params([_torch_tree(jax.tree.map(np.asarray, lp), tdt) for lp in case["lps"]])
+    kc = _t(case["kc"], tdt).permute(0, 2, 1, 4, 3).contiguous()   # -> [L,B,H,T,D]
+    vc = _t(case["vc"], tdt).permute(0, 2, 1, 4, 3).contiguous()
+    got, _, _ = tk.fused_stack_step(tslp, _t(case["x"], tdt), _t(case["qpos"], tdt), kc, vc,
+                                    _t(case["ck"], tdt), _t(case["cv"], tdt), _t(case["kb"]),
+                                    torch.tensor(STEP, dtype=torch.int32), num_heads=H)
+    _close(got, ref, case["atol"])
+    _close(kc.permute(0, 2, 1, 4, 3), kc_ref, case["atol"])
+    _close(vc.permute(0, 2, 1, 4, 3), vc_ref, case["atol"])
+
+
+def test_plain_calls_do_not_count_as_launches(case):
+    tk.reset_launches()
+    p = case["lps"][0]["ff"]
+    tk.ff_block(_torch_tree(jax.tree.map(np.asarray, p), case["tdt"]), _t(case["x"], case["tdt"]))
+    assert tk.LAUNCHES == {k: 0 for k in tk.LAUNCHES}
+
+
+def test_build_needs_nvcc_and_keys_the_library_by_source(monkeypatch, tmp_path):
+    """The CUDA sources are built only on first launch, with nvcc; without it the
+    build raises. The library's name carries a hash of source and flags."""
+    from retr_tpu_torch.ops import cuda_build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_build.nvcc_path()
+    path = cuda_build.library_path("decoder_kernels")
+    assert os.path.dirname(path) == cuda_build.BUILD_DIR
+    assert os.path.basename(path).startswith("libdecoder_kernels-")
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS + ["-lineinfo"])
+    assert cuda_build.library_path("decoder_kernels") != path
+
+
+def test_layer_params_views_share_the_stack():
+    rng = np.random.default_rng(3)
+    lps = [_torch_tree(jax.tree.map(np.asarray, _layer(rng, 10 * (i + 1))), torch.float32)
+           for i in range(L)]
+    slp = tk.stack_layer_params(lps)
+    one = tk.layer_params(slp, 1)
+    assert one["ff"]["lin1"]["w"].data_ptr() == slp["ff"]["lin1"]["w"][1].data_ptr()
+    torch.testing.assert_close(one["self_attn"]["mha"]["q"]["w"], lps[1]["self_attn"]["mha"]["q"]["w"],
+                               rtol=0, atol=0)
