@@ -5,23 +5,42 @@
 
 Phases (any failure raises, exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA decode kernels from retr_tpu_torch/csrc with nvcc;
+  2. build the CUDA kernels from retr_tpu_torch/csrc with nvcc, one process per
+     source, all at once;
   3. hold each kernel against its plain PyTorch version at full width
-     (C=256, 8 heads, F=2048, T=128, S=196, L=6) at batch 32 and 512, in f32 and
-     bf16, and time kernel, plain version and a library yardstick (CUDA events);
+     (C=256, 8 heads, F=2048, T=128, S=196, L=6, MLP 256-512-512-30522) in f32
+     and bf16, and time kernel, plain version and a library yardstick (CUDA
+     events): the decoder-layer kernels at batch 32 and 512, the beam block and
+     the top-k head at 160 and 2560 rows (batch 32 and 512 x beam 5), the
+     argmax head at 32 and 512 rows;
   4. serve requests through Predictor at the served width (ResNet-50 dilated,
-     6+6 layers, d=256, vocab 30522, bf16, random weights from a seed), once with
-     the one-launch stacked kernel and once with the per-layer kernel trio, with
-     the launch counts reset before and read after each; then time greedy at
-     batch 32 and 512 for all 127 steps with EOS out of range, and trace 32
-     steps with torch.profiler (device time by kernel, idle share);
-  5. one f32 batch of 4 on the GPU and on the CPU (plain path): equal token
-     buffers, except where the CPU logits' top-2 margin is below 1e-4;
+     6+6 layers, d=256, vocab 30522, bf16, random weights from a seed): greedy
+     with the one-launch stacked kernel, with the per-layer trio, with
+     HEAD_KERNEL, and with MERGED_LAYER (LAYER_GRID off); beam search (beam 5)
+     with BEAM_TOPK_KERNEL off and on; the launch counts are reset before and
+     read after each run. Then time greedy at batch 32 and 512 and beam at
+     batch 32 x 5 (head kernel off and on) for all 127 steps with EOS out of
+     range, and trace 32 steps of each with torch.profiler (device time by
+     kernel, idle share);
+  5. f32 on the GPU and on the CPU (plain path): a greedy batch of 4 has equal
+     token buffers except where the CPU logits' top-2 margin is below 1e-4; a
+     beam batch of 2 has equal top hypotheses except where the CPU search had
+     a near-tie (gap below 1e-4 between its k-th and (k+1)-th candidate, or
+     between its two best final scores);
   6. every kernel's launch count from its path's run must be > 0.
 
-The line before the last holds {"kernels": [...]}, one entry per kernel; the
-last line is {"ok": true, "device": {...}}. It needs the rest of the repository
-beside it and a CUDA device.
+The card's line, then a line {"kernels": [...]} with one entry per kernel,
+come before the last line, {"ok": true, "device": {...}}. It needs the rest of
+the repository beside it and a CUDA device.
+
+    python3 chip_smoke.py --compare PARENT_TREE CHANGE_TREE
+
+compares two checkouts on one card: in turns (parent, change, change, parent,
+parent, change), a process per turn times the decode loops of the
+retr_tpu_torch package under that tree (`--loop-times TREE`: greedy stacked
+and trio at batch 32 and 512, beam 5 at batch 32 where the tree has it, 127
+steps, EOS out of range, encode outside the timing, median of 5 runs after
+one warm-up) with this file's measuring code.
 """
 
 from __future__ import annotations
@@ -35,18 +54,23 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 C, H, D, F, T, S, L, V = 256, 8, 32, 2048, 128, 196, 6, 30522
+MLP = 512                                         # the MLP head's hidden width
+BEAM = 5                                          # Config.beam_size
 HBM_BYTES_PER_S = 3.35e12                         # H100 SXM data sheet
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 CHECK_STEP = 63                                   # mid-decode position for the kernel checks
-KERNELS = {  # wrapper -> the Pallas kernel it replaces
-    "fused_stack_step": "retr_tpu/ops/decoder_kernels.py:1026",
-    "self_attn_block": "retr_tpu/ops/decoder_kernels.py:228",
-    "cross_attn_block": "retr_tpu/ops/decoder_kernels.py:450",
-    "ff_block": "retr_tpu/ops/decoder_kernels.py:96",
+DEC_SRC, HEAD_SRC = "retr_tpu_torch/csrc/decoder_kernels.cu", "retr_tpu_torch/csrc/head_kernels.cu"
+KERNELS = {  # wrapper -> (the Pallas kernel it replaces, CUDA source, serving shape (dtype, rows))
+    "fused_stack_step": ("retr_tpu/ops/decoder_kernels.py:1026", DEC_SRC, 32),
+    "self_attn_block": ("retr_tpu/ops/decoder_kernels.py:228", DEC_SRC, 32),
+    "cross_attn_block": ("retr_tpu/ops/decoder_kernels.py:450", DEC_SRC, 32),
+    "ff_block": ("retr_tpu/ops/decoder_kernels.py:96", DEC_SRC, 32),
+    "self_attn_block_beam": ("retr_tpu/ops/decoder_kernels.py:380", DEC_SRC, 32 * BEAM),
+    "mlp_head_argmax": ("retr_tpu/ops/decoder_kernels.py:525", HEAD_SRC, 32),
+    "mlp_head_topk": ("retr_tpu/ops/decoder_kernels.py:615", HEAD_SRC, 32 * BEAM),
+    "fused_layer_step": ("retr_tpu/ops/decoder_kernels.py:774", DEC_SRC, 32),
 }
-# Tolerance of kernel vs plain version, as a fraction of max(1, max|plain|):
-# f32 differs only by summation order; bf16 rounds at the same points on both
-# sides, but an f32 order difference can flip one rounding and propagate.
+# Tolerance of kernel vs plain version, as a fraction of max(1, max|plain|).
 TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
 
 
@@ -105,8 +129,10 @@ def random_decoder(gen, dev, dtype):
 
 
 def kernel_work(name, b, esize, step):
-    """(bytes, operations) the function needs: each input read once, each output
-    written once; self caches read at the positions before ``step``."""
+    """(bytes, operations) the function needs for ``b`` rows: each input read
+    once, each output written once; self caches read at the positions before
+    ``step``. The heads count their weights and products (the top-k head's
+    trunk runs outside the kernel, as on the TPU)."""
     attn_w = 4 * C * C + 6 * C          # q/k/v/out weights and biases, LN, qpos share
     cross_w = 2 * C * C + 5 * C
     ff_w = 2 * C * F + F + 3 * C
@@ -122,17 +148,65 @@ def kernel_work(name, b, esize, step):
         return io + cross_w * esize + cross_kv + b * S * 4, cross_ops
     if name == "self_attn_block":
         return io + attn_w * esize + self_cache + 4, self_ops
-    return (io + L * ((attn_w + cross_w + ff_w) * esize + self_cache + cross_kv) + b * S * 4 + 4,
-            L * (self_ops + cross_ops + ff_ops))
+    if name == "self_attn_block_beam":                  # + the [rows, T] int32 ancestry
+        return io + attn_w * esize + self_cache + 4 + b * T * 4, self_ops
+    if name == "mlp_head_argmax":
+        w = C * MLP + MLP * MLP + MLP * V + 2 * MLP + V
+        return b * C * esize + w * esize + b * 4, 2 * b * (C * MLP + MLP * MLP + MLP * V)
+    if name == "mlp_head_topk":
+        return b * MLP * esize + (MLP * V + V) * esize + b * BEAM * 8, 2 * b * MLP * V
+    nl = 1 if name == "fused_layer_step" else L
+    return (io + nl * ((attn_w + cross_w + ff_w) * esize + self_cache + cross_kv) + b * S * 4 + 4,
+            nl * (self_ops + cross_ops + ff_ops))
+
+
+def _tensor_err(got, want, dname):
+    """Largest difference over the outputs, and its tolerance as a fraction of
+    max(1, max|plain|): f32 differs only by summation order; bf16 rounds at
+    the same points on both sides, but an f32 order difference can flip one
+    rounding and propagate."""
+    import torch
+
+    got = [g.float() for g in (got if isinstance(got, tuple) else (got,))]
+    want = [w.float() for w in (want if isinstance(want, tuple) else (want,))]
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    return (err if finite else float("inf")), TOL[dname] * max(1.0, float(want[0].abs().max()))
+
+
+def measure(name, dname, rows, kern, plain, lib, nl, err_fn=None):
+    """Hold kern(0) against plain(0), then time kernel, plain version and library
+    yardstick (each a function of the layer index, cycled over ``nl`` layers as
+    the decode loop does). Returns the record; raises if they disagree."""
+    import torch
+
+    from retr_tpu_torch.precision import matmul_precision
+
+    with matmul_precision(torch.float32):   # plain versions in full f32
+        got, want = kern(0), plain(0)
+        torch.cuda.synchronize()
+        err, tol = (err_fn or _tensor_err)(got, want, dname)
+        cyc = lambda fn: (lambda: [fn(li) for li in range(nl)])  # noqa: E731
+        ms = time_ms(cyc(kern)) / nl
+        plain_ms = time_ms(cyc(plain), reps=5, rounds=3) / nl
+        lib_ms = None if lib is None else time_ms(cyc(lib)) / nl
+    nbytes, ops = kernel_work(name, rows, 4 if dname == "float32" else 2, CHECK_STEP)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
+    rec = dict(name=name, dtype=dname, batch=rows, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log("kernel", json.dumps(rec))
+    if not err <= tol:
+        raise AssertionError(f"{name} {dname} rows={rows}: max_abs_err {err} > {tol}")
+    return rec
 
 
 def check_kernels(dev):
-    """Returns {(name, dtype, batch): record}."""
+    """The decoder-layer kernels at batch 32 and 512. Returns {(name, dtype, rows): record}."""
     import torch
     import torch.nn.functional as Fn
 
     from retr_tpu_torch.ops import decoder_kernels as dk
-    from retr_tpu_torch.precision import matmul_precision
 
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
@@ -169,34 +243,103 @@ def check_kernels(dev):
                         x.view(b, H, 1, D), ck[li], cv[li], attn_mask=kb.clamp_min(-1e30).to(dtype)[:, None, None, :])),
                 "ff_block": (lambda li: dk.ff_block(layers_[li]["ff"], x),
                              lambda li: dk.ff_block_plain(layers_[li]["ff"], x), None),
+                "fused_layer_step": (
+                    lambda li: dk.fused_layer_step(layers_[li], x, qpos, kc_k[li], vc_k[li], ck[li], cv[li], kb, step,
+                                                   num_heads=H),
+                    lambda li: dk.fused_layer_step_plain(layers_[li], x, qpos, kc_p[li], vc_p[li], ck[li], cv[li], kb,
+                                                         step, num_heads=H),
+                    None),
             }
-            with matmul_precision(torch.float32):   # plain versions in full f32
-                for name, (kern, plain, lib) in cases.items():
-                    got, want = kern(0), plain(0)
-                    torch.cuda.synchronize()
-                    got = [g.float() for g in (got if isinstance(got, tuple) else (got,))]
-                    want = [w.float() for w in (want if isinstance(want, tuple) else (want,))]
-                    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-                    scale = max(1.0, float(want[0].abs().max()))
-                    finite = all(bool(torch.isfinite(g).all()) for g in got)
-                    ok = finite and err <= TOL[dname] * scale
-                    # split kernels cycle over the 6 layers' weights and K/V, as
-                    # the decode loop does; the stacked one covers them per launch
-                    nl = 1 if name == "fused_stack_step" else L
-                    cyc = lambda fn: (lambda: [fn(li) for li in range(nl)])  # noqa: E731
-                    ms = time_ms(cyc(kern)) / nl
-                    plain_ms = time_ms(cyc(plain), reps=5, rounds=3) / nl
-                    lib_ms = None if lib is None else time_ms(cyc(lib)) / nl
-                    nbytes, ops = kernel_work(name, b, torch.finfo(dtype).bits // 8, CHECK_STEP)
-                    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
-                    rec = dict(name=name, dtype=dname, batch=b, max_abs_err=err, tol=TOL[dname] * scale,
-                               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
-                    log("kernel", json.dumps(rec))
-                    if not ok:
-                        raise AssertionError(f"{name} {dname} b={b}: max_abs_err {err} > {TOL[dname] * scale}"
-                                             f" (finite={finite})")
-                    out[(name, dname, b)] = rec
+            for name, (kern, plain, lib) in cases.items():
+                # split kernels cycle over the 6 layers' weights and K/V, as
+                # the decode loop does; the stacked one covers them per launch
+                nl = 1 if name == "fused_stack_step" else L
+                out[(name, dname, b)] = measure(name, dname, b, kern, plain, lib, nl)
+    return out
+
+
+def random_head(gen, dev, dtype):
+    """The MLP head 256 -> 512 -> 512 -> 30522 with PyTorch's default Linear scales."""
+    import torch
+
+    def lin(i, o):
+        bound = i ** -0.5
+        return {"w": ((torch.rand(i, o, generator=gen, device=dev) * 2 - 1) * bound).to(dtype),
+                "b": ((torch.rand(o, generator=gen, device=dev) * 2 - 1) * bound).to(dtype)}
+
+    return {"layers": [lin(C, MLP), lin(MLP, MLP), lin(MLP, V)]}
+
+
+def check_beam_and_heads(dev):
+    """The beam block and the top-k head at 160 and 2560 rows (batch 32 and 512
+    x beam 5), the argmax head at 32 and 512 rows. Returns {(name, dtype, rows): record}."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from retr_tpu_torch.models import caption
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        layers_ = [dk.layer_params(random_decoder(gen, dev, dtype), li) for li in range(L)]
+        head = random_head(gen, dev, dtype)
+        l3 = head["layers"][2]
+
+        def argmax_err(got, want, dname):
+            """f32 logit the kernel's pick gives up against the plain pick."""
+            lg = dk._dot(dk._head_trunk(head, xh), l3["w"]) + l3["b"].float()
+            lost = lg.gather(1, want.long()[:, None]) - lg.gather(1, got.long()[:, None])
+            return float(lost.abs().max()), TOL[dname] * max(1.0, float(lg.abs().max()))
+
+        def topk_err(got, want, dname):
+            """Kernel scores against the plain ones, and against the plain
+            log-softmax of the tokens the kernel chose."""
+            lg = dk._dot(dk._torch_trunk(head, xk), l3["w"]) + l3["b"].float()
+            own = torch.log_softmax(lg, dim=1).gather(1, got[1].long())
+            err = max(float((got[0] - want[0]).abs().max()), float((got[0] - own).abs().max()))
+            return err, TOL[dname] * max(1.0, float(want[0].abs().max()))
+
+        for b in (32, 512):
+            bk = b * BEAM
+            rn = lambda *shape, s=1.0: (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)  # noqa: E731
+            x, qpos = rn(bk, C), rn(C, s=0.5)
+            kc, vc = rn(L, bk, H, T, D), rn(L, bk, H, T, D)
+            # an ancestry that crosses rows in every group, at `step` too
+            anc = torch.randint(0, BEAM, (bk, T), generator=gen, device=dev, dtype=torch.int32)
+            step = torch.tensor(CHECK_STEP, dtype=torch.int32, device=dev)
+            kc_k, vc_k, kc_p, vc_p = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            src = (torch.arange(bk, device=dev) // BEAM * BEAM)[:, None] + anc[:, :CHECK_STEP + 1].long()
+            pos = torch.arange(CHECK_STEP + 1, device=dev)
+            # yardstick: PyTorch's attention over the ancestry-gathered prefix
+            # (the gather done once, outside the timing)
+            kg = kc.transpose(2, 3)[:, src, pos].transpose(2, 3).contiguous()   # [L, rows, H, step+1, D]
+            vg = vc.transpose(2, 3)[:, src, pos].transpose(2, 3).contiguous()
+            out[("self_attn_block_beam", dname, bk)] = measure(
+                "self_attn_block_beam", dname, bk,
+                lambda li: dk.self_attn_block_beam(layers_[li]["self_attn"], x, anc, qpos, kc_k[li], vc_k[li], step,
+                                                   num_heads=H, num_beams=BEAM),
+                lambda li: dk.self_attn_block_beam_plain(layers_[li]["self_attn"], x, anc, qpos, kc_p[li], vc_p[li],
+                                                         step, num_heads=H, num_beams=BEAM),
+                lambda li: Fn.scaled_dot_product_attention(x.view(bk, H, 1, D), kg[li], vg[li]), L)
+            del kg, vg, kc, vc, kc_k, vc_k, kc_p, vc_p
+
+            xk = rn(bk, C)
+            out[("mlp_head_topk", dname, bk)] = measure(
+                "mlp_head_topk", dname, bk, lambda li: dk.mlp_head_topk(head, xk, BEAM),
+                lambda li: dk.mlp_head_topk_plain(head, xk, BEAM),
+                # yardstick (several calls): cuBLAS head, topk, logsumexp
+                lambda li: (lambda lg: (lg.topk(BEAM, dim=-1), lg.logsumexp(dim=-1)))(
+                    caption.mlp_head(head, xk).float()),
+                1, topk_err)
+            xh = rn(b, C)
+            out[("mlp_head_argmax", dname, b)] = measure(
+                "mlp_head_argmax", dname, b, lambda li: dk.mlp_head_argmax(head, xh),
+                lambda li: dk.mlp_head_argmax_plain(head, xh),
+                # yardstick (several calls): cuBLAS head and argmax
+                lambda li: caption.mlp_head(head, xh).argmax(dim=-1), 1, argmax_err)
+            torch.cuda.empty_cache()
     return out
 
 
@@ -242,6 +385,36 @@ def requests(n, seed=0):
     return imgs, boxes
 
 
+# Predictor runs: (label, decoder, flags of ops/decoder_kernels.py, the kernels
+# whose launches that run shows)
+SERVE_RUNS = [
+    ("greedy, stacked kernel", "greedy", {}, ["fused_stack_step"]),
+    ("greedy, per-layer trio", "greedy", {"LAYER_GRID": False}, ["self_attn_block", "cross_attn_block", "ff_block"]),
+    ("greedy, HEAD_KERNEL", "greedy", {"HEAD_KERNEL": True}, ["mlp_head_argmax"]),
+    ("greedy, MERGED_LAYER", "greedy", {"LAYER_GRID": False, "MERGED_LAYER": True}, ["fused_layer_step"]),
+    ("beam 5", "beam", {}, ["self_attn_block_beam"]),
+    ("beam 5, BEAM_TOPK_KERNEL", "beam", {"BEAM_TOPK_KERNEL": True}, ["mlp_head_topk"]),
+]
+
+
+class flags:
+    """Set flags of ops/decoder_kernels.py for a block, restoring them after."""
+
+    def __init__(self, **values):
+        from retr_tpu_torch.ops import decoder_kernels as dk
+
+        self.dk, self.values = dk, values
+        self.old = {k: getattr(dk, k) for k in values}
+
+    def __enter__(self):
+        for k, v in self.values.items():
+            setattr(self.dk, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            setattr(self.dk, k, v)
+
+
 def serve(dev, state, tok):
     """Predictor runs with each kernel dispatch; returns launch counts per path."""
     import torch
@@ -258,91 +431,108 @@ def serve(dev, state, tok):
         pred._preprocess_one(im, bb)
     log("preprocess", json.dumps({"requests": len(imgs), "host_seconds": time.perf_counter() - t0}))
     launches = {}
-    for grid in (True, False):
-        dk.LAYER_GRID = grid
-        dk.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        texts = pred.predict_batch(imgs, boxes)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+    for label, decoder, fl, path in SERVE_RUNS:
+        with flags(**fl):
+            dk.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            texts = pred.predict_batch(imgs, boxes, beam=decoder == "beam")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         counts = dict(dk.LAUNCHES)
-        path = ["fused_stack_step"] if grid else ["self_attn_block", "cross_attn_block", "ff_block"]
         for k in path:
             launches[k] = counts[k]
-        log("serve", json.dumps({"layer_grid": grid, "requests": len(imgs), "seconds": dt,
+        log("serve", json.dumps({"run": label, "requests": len(imgs), "seconds": dt,
                                  "requests_per_s": len(imgs) / dt, "launches": counts,
                                  "first_captions": [t[:60] for t in texts[:3]]}))
         if len(texts) != len(imgs) or not all(isinstance(t, str) for t in texts):
-            raise AssertionError("Predictor returned malformed captions")
-    dk.LAYER_GRID = True
+            raise AssertionError(f"Predictor returned malformed captions ({label})")
     return pred.params, launches
 
 
-def throughput(dev, params, card):
-    """Greedy at batch 32 and 512, all 127 steps (EOS out of range), with the
-    stacked kernel and with the per-layer trio."""
+def random_samples(b, gen, dev):
+    import torch
+
+    from retr_tpu_torch.masking import Masked
+
+    return Masked(torch.randn(b, 3, 224, 224, generator=gen, device=dev),
+                  torch.zeros(b, 224, 224, dtype=torch.bool, device=dev))
+
+
+def encode_for_decode(params, cfg, samples):
+    """bf16 encode and the decode loop's cast: (params, memory, mask, pos)."""
     import torch
 
     from retr_tpu_torch import decode
-    from retr_tpu_torch.masking import Masked
     from retr_tpu_torch.models import caption
-    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    memory, mask, pos = caption.encode(params, cfg, samples, compute_dtype=torch.bfloat16)
+    p, memory, pos = decode._cast_for_decode(params, memory, pos, torch.bfloat16)
+    return p, memory, mask, pos
+
+
+def throughput(dev, params, card):
+    """Greedy at batch 32 and 512 with the stacked kernel and with the per-layer
+    trio, and beam at batch 32 x 5 with the head kernel off and on: all 127
+    steps (EOS out of range), encode and loop timed apart."""
+    import torch
+
+    from retr_tpu_torch import decode
 
     cfg = served_config("bfloat16")
     gen = torch.Generator(device=dev).manual_seed(1)
-    for b in (32, 512):
-        samples = Masked(torch.randn(b, 3, 224, 224, generator=gen, device=dev),
-                         torch.zeros(b, 224, 224, dtype=torch.bool, device=dev))
-        for grid in (True, False):
-            dk.LAYER_GRID = grid
-            runs = []
-            for _ in range(4):                                  # first run warms up
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                memory, mask, pos = caption.encode(params, cfg, samples, compute_dtype=torch.bfloat16)
-                p, memory, pos = decode._cast_for_decode(params, memory, pos, torch.bfloat16)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                ids = decode.greedy_from_memory(p, cfg, memory, mask, pos, max_len=128, bos_token=101,
-                                                eos_token=V)
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
-                runs.append((t2 - t0, t1 - t0, t2 - t1))
-            if tuple(ids.shape) != (b, 128) or int(ids.min()) < 0 or int(ids.max()) >= V:
-                raise AssertionError(f"greedy returned a malformed buffer {tuple(ids.shape)}")
-            total, enc, loop = sorted(runs[1:])[1]
-            log("throughput", json.dumps({"batch": b, "layer_grid": grid, "steps": 127, "seconds": total,
-                                          "encode_s": enc, "decode_loop_s": loop,
-                                          "ms_per_step": loop / 127 * 1e3, "captions_per_s": b / total,
-                                          "card": card}))
-    dk.LAYER_GRID = True
+    runs = [(32, "greedy", {"LAYER_GRID": True}), (32, "greedy", {"LAYER_GRID": False}),
+            (512, "greedy", {"LAYER_GRID": True}), (512, "greedy", {"LAYER_GRID": False}),
+            (32, "beam", {"BEAM_TOPK_KERNEL": False}), (32, "beam", {"BEAM_TOPK_KERNEL": True})]
+    samples = {b: random_samples(b, gen, dev) for b in (32, 512)}
+    for b, decoder, fl in runs:
+        times = []
+        for _ in range(4):                                  # first run warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, memory, mask, pos = encode_for_decode(params, cfg, samples[b])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with flags(**fl):
+                if decoder == "greedy":
+                    ids = decode.greedy_from_memory(p, cfg, memory, mask, pos, max_len=128, bos_token=101,
+                                                    eos_token=V)
+                else:
+                    ids, _ = decode.beam_search_from_memory(p, cfg, memory, mask, pos, max_len=128, bos_token=101,
+                                                            eos_token=V, beam_size=BEAM)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            times.append((t2 - t0, t1 - t0, t2 - t1))
+        want = (b, 128) if decoder == "greedy" else (b, BEAM, 128)
+        if tuple(ids.shape) != want or int(ids.min()) < 0 or int(ids.max()) >= V:
+            raise AssertionError(f"{decoder} returned a malformed buffer {tuple(ids.shape)}")
+        total, enc, loop = sorted(times[1:])[1]
+        log("throughput", json.dumps({"decoder": decoder, "batch": b, **fl, "steps": 127, "seconds": total,
+                                      "encode_s": enc, "decode_loop_s": loop, "ms_per_step": loop / 127 * 1e3,
+                                      "captions_per_s": b / total, "card": card}))
 
 
 def step_profile(dev, params, steps=32):
     """Where a decode loop's device time goes: torch.profiler over ``steps``
-    greedy steps with the stacked kernel, at batch 32 and 512. Prints device
-    time by kernel name and the device's idle share over the loop's span (first
-    kernel start to last kernel end)."""
+    steps of greedy (stacked kernel) at batch 32 and 512 and of beam at batch
+    32 x 5. Prints device time by kernel name and the device's idle share over
+    the loop's span (first kernel start to last kernel end)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from retr_tpu_torch import decode
-    from retr_tpu_torch.masking import Masked
-    from retr_tpu_torch.models import caption
 
     cfg = served_config("bfloat16")
     gen = torch.Generator(device=dev).manual_seed(3)
-    for b in (32, 512):
-        samples = Masked(torch.randn(b, 3, 224, 224, generator=gen, device=dev),
-                         torch.zeros(b, 224, 224, dtype=torch.bool, device=dev))
-        memory, mask, pos = caption.encode(params, cfg, samples, compute_dtype=torch.bfloat16)
-        p, memory, pos = decode._cast_for_decode(params, memory, pos, torch.bfloat16)
+    for b, decoder in ((32, "greedy"), (512, "greedy"), (32, "beam")):
+        p, memory, mask, pos = encode_for_decode(params, cfg, random_samples(b, gen, dev))
 
         def loop():
-            return decode.greedy_from_memory(p, cfg, memory, mask, pos, max_len=steps + 1, bos_token=101,
-                                             eos_token=V)
+            kw = dict(max_len=steps + 1, bos_token=101, eos_token=V)
+            if decoder == "greedy":
+                return decode.greedy_from_memory(p, cfg, memory, mask, pos, **kw)
+            return decode.beam_search_from_memory(p, cfg, memory, mask, pos, beam_size=BEAM, **kw)
 
         loop()
         torch.cuda.synchronize()
@@ -355,7 +545,8 @@ def step_profile(dev, params, steps=32):
                 spans.append((e.time_range.start, e.time_range.end))
                 by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
         if not spans:
-            log("profile", json.dumps({"batch": b, "device_time": "not measured (no CUDA events traced)"}))
+            log("profile", json.dumps({"decoder": decoder, "batch": b,
+                                       "device_time": "not measured (no CUDA events traced)"}))
             continue
         spans.sort()
         busy, cur_s, cur_e = 0.0, *spans[0]
@@ -368,7 +559,7 @@ def step_profile(dev, params, steps=32):
         span = spans[-1][1] - spans[0][0]
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         log("profile", json.dumps({
-            "batch": b, "steps": steps, "span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
+            "decoder": decoder, "batch": b, "steps": steps, "span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
             "idle_share": 1 - busy / span,
             "top_kernels_ms_per_step": {n[:80]: t / 1e3 / steps for n, t in top}}))
 
@@ -402,18 +593,23 @@ def greedy_with_margins(params, cfg, samples, eos):
     return ids, margins
 
 
-def f32_parity(dev, state):
+def parity_images(n):
     import torch
 
+    gen = torch.Generator().manual_seed(2)
+    img = torch.randn(n, 3, 224, 224, generator=gen)
+    mask = torch.zeros(n, 224, 224, dtype=torch.bool)
+    mask[1, :, 150:] = True
+    return img, mask
+
+
+def f32_parity(dev, state):
     from retr_tpu_torch import decode
     from retr_tpu_torch.masking import Masked
     from retr_tpu_torch.models import weights
 
     cfg = served_config("float32")
-    gen = torch.Generator().manual_seed(2)
-    img = torch.randn(4, 3, 224, 224, generator=gen)
-    mask = torch.zeros(4, 224, 224, dtype=torch.bool)
-    mask[1, :, 150:] = True
+    img, mask = parity_images(4)
     gpu_params = weights.to_params(state, cfg, device=dev)
     gpu_ids = decode.greedy(gpu_params, cfg, Masked(img.to(dev), mask.to(dev)), max_len=128,
                             bos_token=101, eos_token=102).cpu()
@@ -432,6 +628,97 @@ def f32_parity(dev, state):
     for d in diffs:
         if not d["cpu_top2_margin"] < 1e-4:
             raise AssertionError(f"f32 GPU and CPU tokens differ at a clear argmax: {d}")
+
+
+def f32_beam_parity(dev, state):
+    """Beam 5 over a batch of 2 in f32 on the GPU and on the CPU. Where the top
+    hypotheses differ, the CPU search must have had a near-tie: a gap below
+    1e-4 between its k-th and (k+1)-th candidate at some step (a flip at any
+    step, not only at the first differing slot, can change which hypothesis
+    ranks first), or between its two best final scores."""
+    import torch
+
+    from retr_tpu_torch import decode
+    from retr_tpu_torch.masking import Masked
+    from retr_tpu_torch.models import caption, weights
+
+    cfg = served_config("float32")
+    img, mask = parity_images(2)
+    kw = dict(max_len=128, bos_token=101, eos_token=102, beam_size=BEAM)
+    gpu_t, gpu_s = decode.beam_search(weights.to_params(state, cfg, device=dev), cfg,
+                                      Masked(img.to(dev), mask.to(dev)), **kw)
+    t0 = time.perf_counter()
+    cpu_params = weights.to_params(state, cfg, device="cpu")
+    memory, mem_mask, pos = caption.encode(cpu_params, cfg, Masked(img, mask))
+    margins = []
+    cpu_t, cpu_s = decode.beam_search_from_memory(cpu_params, cfg, memory, mem_mask, pos, margins=margins, **kw)
+    cpu_sec = time.perf_counter() - t0
+    gaps = torch.stack(margins, dim=1)                      # [B, steps]
+    diffs = []
+    for r in range(2):
+        bad = (gpu_t[r, 0].cpu() != cpu_t[r, 0]).nonzero().flatten().tolist()
+        if bad:
+            j = bad[0]
+            diffs.append({"row": r, "first_differing_step": j - 1,
+                          "cpu_gap_kth_k1th_there": float(gaps[r, j - 1]) if j - 1 < gaps.shape[1] else None,
+                          "cpu_min_gap": min(float(gaps[r].min()), float(cpu_s[r, 0] - cpu_s[r, 1]))})
+    log("f32_beam_parity", json.dumps({
+        "rows": 2, "beam": BEAM, "equal_top_rows": 2 - len(diffs), "first_differences": diffs,
+        "steps": gaps.shape[1], "max_score_diff_where_equal": max(
+            [float((gpu_s[r].cpu() - cpu_s[r]).abs().max()) for r in range(2) if r not in [d["row"] for d in diffs]],
+            default=None),
+        "cpu_seconds": cpu_sec}))
+    for d in diffs:
+        if not d["cpu_min_gap"] < 1e-4:
+            raise AssertionError(f"f32 GPU and CPU beam hypotheses differ without a near-tie: {d}")
+
+
+def loop_times(tree) -> int:
+    """One turn of --compare: the decode-loop times of the package under ``tree``."""
+    import statistics
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from retr_tpu_torch import decode
+    from retr_tpu_torch.models import weights
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    card = gpu_line()
+    cfg = served_config("bfloat16")
+    params = weights.to_params(random_state(cfg), cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    runs = [(32, "greedy", "LAYER_GRID", True), (32, "greedy", "LAYER_GRID", False),
+            (512, "greedy", "LAYER_GRID", True), (512, "greedy", "LAYER_GRID", False)]
+    if hasattr(decode, "beam_search_from_memory"):
+        runs += [(32, "beam", "BEAM_TOPK_KERNEL", False), (32, "beam", "BEAM_TOPK_KERNEL", True)]
+    memory = {b: encode_for_decode(params, cfg, random_samples(b, gen, "cuda")) for b in (32, 512)}
+    for b, decoder, flag, value in runs:
+        p, mem, mask, pos = memory[b]
+        setattr(dk, flag, value)
+        times = []
+        for _ in range(6):                                  # first run warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if decoder == "greedy":
+                decode.greedy_from_memory(p, cfg, mem, mask, pos, max_len=128, bos_token=101, eos_token=V)
+            else:
+                decode.beam_search_from_memory(p, cfg, mem, mask, pos, max_len=128, bos_token=101, eos_token=V,
+                                               beam_size=BEAM)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / 127 * 1e3)
+        log("loop_times", json.dumps({"tree": tree, "package": os.path.dirname(decode.__file__), "decoder": decoder, "batch": b, flag: value,
+                                      "ms_per_step_median": statistics.median(times[1:]), "ms_per_step": times[1:],
+                                      "card": card}))
+    return 0
+
+
+def compare(parent, change) -> int:
+    for tree in (parent, change, change, parent, parent, change):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--loop-times", tree])
+        if proc.returncode != 0:
+            return proc.returncode
+    return 0
 
 
 def main() -> int:
@@ -456,7 +743,8 @@ def main() -> int:
     dk.build()                                                             # phase 2
     log("build", json.dumps({"seconds": time.perf_counter() - t0}))
 
-    checks = check_kernels(dev)                                            # phase 3
+    checks = {**check_kernels(dev), **check_beam_and_heads(dev)}           # phase 3
+    torch.cuda.empty_cache()
 
     state = random_state(served_config("bfloat16"))                        # phase 4
     params, launches = serve(dev, state, synthetic_tokenizer())
@@ -466,29 +754,34 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     f32_parity(dev, state)                                                 # phase 5
+    f32_beam_parity(dev, state)
 
     entries = []                                                           # phase 6
-    for name, replaces in KERNELS.items():
+    for name, (replaces, source, rows) in KERNELS.items():
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was never launched on its serving path: {launches}")
-        main_rec = checks[(name, "bfloat16", 32)]                          # the serving shape
+        main_rec = checks[(name, "bfloat16", rows)]                        # the serving shape
         entries.append({
-            "name": name, "route": "cuda", "source": "retr_tpu_torch/csrc/decoder_kernels.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": main_rec["max_abs_err"], "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
-            "shape": "bf16, batch 32, step 63",
+            "shape": f"bf16, {rows} rows, step {CHECK_STEP}",
             "cases": [{k: r[k] for k in ("dtype", "batch", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                           "library_ms")}
                       for (n, _, _), r in checks.items() if n == name],
         })
-    print(json.dumps({"kernels": entries}))
     print(card)
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--loop-times"]:
+        sys.exit(loop_times(sys.argv[2]))
+    if sys.argv[1:2] == ["--compare"]:
+        sys.exit(compare(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -1,14 +1,17 @@
 // Decode-step kernels for Hopper (sm_90a): one KV-cached greedy position through
 // the pre-norm decoder layers of the caption transformer.
 //
-// Four entry points, each the counterpart of one Pallas kernel of
+// Five entry points, each the counterpart of Pallas kernels of
 // retr_tpu/ops/decoder_kernels.py:
 //   rt_ff_block          <- ff_block          (LN -> Linear(C,F) -> ReLU -> Linear(F,C) -> +x)
 //   rt_cross_attn_block  <- cross_attn_block  (LN -> +qpos -> Q -> attention over memory K/V
 //                                              -> out-proj -> +x)
 //   rt_self_attn_block   <- self_attn_block   (LN -> +qpos -> Q/K/V -> write one cache slot
 //                                              -> attention over positions <= step -> out-proj -> +x)
+//   rt_self_attn_block_beam <- self_attn_block_beam (as rt_self_attn_block, but row i reads
+//                                              position t from its group's row anc[i, t])
 //   rt_stack_step        <- fused_stack_step  (all L layers, self -> cross -> FF each, one launch)
+//                        <- fused_layer_step  (the same kernel with L = 1)
 //
 // Design. The work of one decode position is a chain of skinny products
 // ([rows, 256] x [256, N]) plus one-query attention over per-row caches. On the
@@ -30,8 +33,19 @@
 // each head's out-projection part (head order), the stacked kernel keeps it in
 // f32 across all layers and rounds only its output.
 //
+// Beam search (rt_self_attn_block_beam). Each row writes only its own cache slot;
+// row i reads position t from row anc[i, t] of its beam group of K rows. A block
+// owns whole beam groups (5-row tiles for the served beam of 5), so the slot at
+// `step` of any ancestor is the block's own fresh f32 k/v in shared memory, as in
+// the TPU kernel, which updated the whole group's cache in VMEM before reading
+// it; positions before `step` are read from global memory, where no block writes
+// this step. Only the ancestor's K/V row is read at each position (the TPU
+// kernel formed q.K for all K rows and kept one through an exact one-hot
+// select, so the values are the same and K times fewer bytes are read).
+//
 // Fixed widths: C = 256, 8 heads of 32 (the served model). F must be a multiple
-// of 256. The wrappers in ops/decoder_kernels.py check every shape.
+// of 256; the beam group is 1..8 rows. The wrappers in ops/decoder_kernels.py
+// check every shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,7 +53,7 @@
 
 // Launch arguments, mirrored field for field by _Args in ops/decoder_kernels.py.
 struct Args {
-  int B, T, S, F, L;
+  int B, T, S, F, L, K;  // K: rows of a beam group (rt_self_attn_block_beam only)
   const void* x;
   void* y;
   const void* qpos;
@@ -54,6 +68,7 @@ struct Args {
   const void* ck; const void* cv;
   const float* key_bias;
   const int* step;
+  const int* anc;        // [B, T] ancestry, row within the beam group (beam only)
 };
 
 namespace {
@@ -114,7 +129,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Shared-memory working set of one row tile (all f32).
+// Floats of the shared reduction area: product partials or attention scores.
+template <int R>
+__host__ __device__ size_t red_floats(int smax) {
+  const size_t prod = (size_t)NW * R * 256, sc = (size_t)R * NH * smax;
+  return prod > sc ? prod : sc;
+}
+
+// Shared-memory working set of one row tile (all f32, then the beam's ancestry).
 template <int R>
 struct Smem {
   float* x;    // [R][C] residual
@@ -125,7 +147,8 @@ struct Smem {
   float* vn;   // [R][C] new value (f32)
   float* att;  // [R][C] attention output (f32)
   float* red;  // union: [NW][R][256] product partials | [R][NH][smax] scores
-  __device__ Smem(float* base) {
+  int* anc;    // [R][T] local source row of each position (beam only)
+  __device__ Smem(float* base, size_t nred) {
     x = base;
     t = x + R * C;
     a = t + R * C;
@@ -134,6 +157,7 @@ struct Smem {
     vn = kn + R * C;
     att = vn + R * C;
     red = att + R * C;
+    anc = reinterpret_cast<int*>(red + nred);
   }
 };
 
@@ -253,32 +277,45 @@ __device__ void softmax_rows(float* sc, int smax, int n) {
 }
 
 // att[r][h*HD + d] = sum_{t<n} p[r,h,t] * V[b,h,t,d]; position `cur` (if >= 0) reads
-// the f32 value vn instead of the cache.
-template <int R, typename T>
+// the f32 value vn instead of the cache. BEAM: row r reads position t of the
+// block's local row anc[r][t] (anc has row stride tstride).
+template <int R, typename T, bool BEAM>
 __device__ void attend_values(const float* p, int smax, int n, int cur, const T* V, int tstride,
-                              const float* vn, float* att, int B, int row0) {
+                              const float* vn, float* att, int nrows, int row0, const int* anc) {
   for (int i = threadIdx.x; i < R * NH * (HD / 8); i += NT) {
     const int g = i & (HD / 8 - 1), rh = i / (HD / 8);
-    const int r = rh / NH, h = rh % NH, b = row0 + r;
+    const int r = rh / NH, h = rh % NH;
     const float* pr = p + rh * smax;
     float acc[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-    if (b < B) {
-      const T* vp = V + ((size_t)b * NH + h) * (size_t)tstride * HD + g * 8;
-#pragma unroll 4
-      for (int t = 0; t < n; ++t) {
-        if (t == cur) continue;
-        float v8[8];
-        load8(vp + (size_t)t * HD, v8);
-        const float pt = pr[t];
+    if (r < nrows) {
+      if constexpr (BEAM) {
+        for (int t = 0; t < n; ++t) {
+          if (t == cur) continue;
+          float v8[8];
+          load8(V + (((size_t)(row0 + anc[r * tstride + t]) * NH + h) * tstride + t) * HD + g * 8, v8);
+          const float pt = pr[t];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[j] = fmaf(pt, v8[j], acc[j]);
+          for (int j = 0; j < 8; ++j) acc[j] = fmaf(pt, v8[j], acc[j]);
+        }
+      } else {
+        const T* vp = V + ((size_t)(row0 + r) * NH + h) * (size_t)tstride * HD + g * 8;
+#pragma unroll 4
+        for (int t = 0; t < n; ++t) {
+          if (t == cur) continue;
+          float v8[8];
+          load8(vp + (size_t)t * HD, v8);
+          const float pt = pr[t];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[j] = fmaf(pt, v8[j], acc[j]);
+        }
       }
     }
-    if (cur >= 0) {
+    if (cur >= 0 && r < nrows) {
       const float pt = pr[cur];
-      const float* v8 = vn + r * C + h * HD + g * 8;
+      const int src = BEAM ? anc[r * tstride + cur] : r;
+      const float* v8 = vn + src * C + h * HD + g * 8;
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[j] = fmaf(pt, v8[j], acc[j]);
     }
@@ -287,17 +324,28 @@ __device__ void attend_values(const float* p, int smax, int n, int cur, const T*
   }
 }
 
-// Self-attention residual block of layer `l` for the block's rows.
-template <int R, typename T, bool SPLIT>
-__device__ void self_phase(Smem<R>& s, const Args& a, int l, int row0, int step, int smax) {
+// Self-attention residual block of layer `l` for the block's rows. BEAM: rows
+// read each position through the ancestry (the block holds whole beam groups).
+template <int R, typename T, bool SPLIT, bool BEAM>
+__device__ void self_phase(Smem<R>& s, const Args& a, int l, int row0, int nrows, int step, int smax) {
   const size_t lc = (size_t)l * C, lcc = (size_t)l * C * C;
   const T* qpos = static_cast<const T*>(a.qpos);
+  const int n = step + 1;
+  if constexpr (BEAM) {
+    // local source row of (row, position): the row's group base + its ancestor,
+    // clamped into the group so no value of anc can reach outside it
+    for (int i = threadIdx.x; i < nrows * n; i += NT) {
+      const int r = i / n, t = i % n;
+      const int j = a.anc[(size_t)(row0 + r) * a.T + t];
+      s.anc[r * a.T + t] = (r / a.K) * a.K + min(max(j, 0), a.K - 1);
+    }
+  }
   layer_norm_rows<R, T>(s.x, static_cast<const T*>(a.ln1s) + lc, static_cast<const T*>(a.ln1b) + lc, s.t);
   __syncthreads();
   for (int i = threadIdx.x; i < R * C; i += NT) {
-    const float n = s.t[i];
-    s.a[i] = rnd<T>(n + to_f(qpos[i & (C - 1)]));  // q/k input: LN + query pos
-    s.b[i] = rnd<T>(n);                            // v input: LN only
+    const float nx = s.t[i];
+    s.a[i] = rnd<T>(nx + to_f(qpos[i & (C - 1)]));  // q/k input: LN + query pos
+    s.b[i] = rnd<T>(nx);                             // v input: LN only
   }
   __syncthreads();
   mv_partials<R, T>(s.a, static_cast<const T*>(a.swq) + lcc, C, 0, s.red);
@@ -319,27 +367,29 @@ __device__ void self_phase(Smem<R>& s, const Args& a, int l, int row0, int step,
   T* vc = static_cast<T*>(a.vc) + lcache;
   for (int i = threadIdx.x; i < R * C; i += NT) {
     const int r = i >> 8, c = i & 255, b = row0 + r;
-    if (b < a.B) {
+    if (r < nrows) {
       const size_t off = (((size_t)b * NH + c / HD) * a.T + step) * HD + (c % HD);
       kc[off] = from_f<T>(s.kn[i]);
       vc[off] = from_f<T>(s.vn[i]);
     }
   }
 
-  // Scores over positions 0..step; the current one uses the f32 key.
-  const int n = step + 1;
+  // Scores over positions 0..step; the current one uses the f32 key (of the
+  // ancestor row, in the block's shared memory).
   float* sc = s.red;
   for (int i = threadIdx.x; i < R * NH * n; i += NT) {
     const int t = i % n, rh = i / n;
-    const int r = rh / NH, h = rh % NH, b = row0 + r;
+    const int r = rh / NH, h = rh % NH;
+    const int src = BEAM ? s.anc[r * a.T + t] : r;
     const float* qv = s.t + r * C + h * HD;
     float acc = 0.f;
-    if (t == step) {
-      const float* kv = s.kn + r * C + h * HD;
+    if (r >= nrows) {
+    } else if (t == step) {
+      const float* kv = s.kn + src * C + h * HD;
 #pragma unroll
       for (int d = 0; d < HD; ++d) acc = fmaf(qv[d], kv[d], acc);
-    } else if (b < a.B) {
-      const T* kp = kc + (((size_t)b * NH + h) * a.T + t) * HD;
+    } else {
+      const T* kp = kc + (((size_t)(row0 + src) * NH + h) * a.T + t) * HD;
 #pragma unroll
       for (int g = 0; g < HD / 8; ++g) {
         float k8[8];
@@ -353,7 +403,7 @@ __device__ void self_phase(Smem<R>& s, const Args& a, int l, int row0, int step,
   __syncthreads();
   softmax_rows<R>(sc, smax, n);
   __syncthreads();
-  attend_values<R, T>(sc, smax, n, step, vc, a.T, s.vn, s.att, a.B, row0);
+  attend_values<R, T, BEAM>(sc, smax, n, step, vc, a.T, s.vn, s.att, nrows, row0, s.anc);
   __syncthreads();
   for (int i = threadIdx.x; i < R * C; i += NT) s.a[i] = rnd<T>(s.att[i]);
   __syncthreads();
@@ -365,7 +415,7 @@ __device__ void self_phase(Smem<R>& s, const Args& a, int l, int row0, int step,
 
 // Cross-attention residual block of layer `l` against the precomputed memory K/V.
 template <int R, typename T, bool SPLIT>
-__device__ void cross_phase(Smem<R>& s, const Args& a, int l, int row0, int smax) {
+__device__ void cross_phase(Smem<R>& s, const Args& a, int l, int row0, int nrows, int smax) {
   const size_t lc = (size_t)l * C, lcc = (size_t)l * C * C;
   const T* qpos = static_cast<const T*>(a.qpos);
   layer_norm_rows<R, T>(s.x, static_cast<const T*>(a.ln2s) + lc, static_cast<const T*>(a.ln2b) + lc, s.t);
@@ -385,7 +435,7 @@ __device__ void cross_phase(Smem<R>& s, const Args& a, int l, int row0, int smax
     const int t = i % a.S, rh = i / a.S;
     const int r = rh / NH, h = rh % NH, b = row0 + r;
     float acc = 0.f;
-    if (b < a.B) {
+    if (r < nrows) {
       const float* qv = s.t + r * C + h * HD;
       const T* kp = ck + (((size_t)b * NH + h) * a.S + t) * HD;
 #pragma unroll
@@ -402,7 +452,7 @@ __device__ void cross_phase(Smem<R>& s, const Args& a, int l, int row0, int smax
   __syncthreads();
   softmax_rows<R>(sc, smax, a.S);
   __syncthreads();
-  attend_values<R, T>(sc, smax, a.S, -1, cv, a.S, nullptr, s.att, a.B, row0);
+  attend_values<R, T, false>(sc, smax, a.S, -1, cv, a.S, nullptr, s.att, nrows, row0, nullptr);
   __syncthreads();
   for (int i = threadIdx.x; i < R * C; i += NT) s.a[i] = rnd<T>(s.att[i]);
   __syncthreads();
@@ -458,61 +508,66 @@ __device__ void ff_phase(Smem<R>& s, const Args& a, int l, int row0) {
 }
 
 template <int R, typename T>
-__device__ void load_rows(Smem<R>& s, const Args& a, int row0) {
+__device__ void load_rows(Smem<R>& s, const Args& a, int row0, int nrows) {
   const T* x = static_cast<const T*>(a.x);
-  for (int i = threadIdx.x; i < R * C; i += NT) {
-    const int b = row0 + (i >> 8);
-    s.x[i] = b < a.B ? to_f(x[(size_t)row0 * C + i]) : 0.f;
-  }
+  for (int i = threadIdx.x; i < R * C; i += NT)
+    s.x[i] = (i >> 8) < nrows ? to_f(x[(size_t)row0 * C + i]) : 0.f;
   __syncthreads();
 }
 
 template <int R, typename T>
-__device__ void store_rows(Smem<R>& s, const Args& a, int row0) {
+__device__ void store_rows(Smem<R>& s, const Args& a, int row0, int nrows) {
   T* y = static_cast<T*>(a.y);
-  for (int i = threadIdx.x; i < R * C; i += NT) {
-    const int b = row0 + (i >> 8);
-    if (b < a.B) y[(size_t)row0 * C + i] = from_f<T>(s.x[i]);
-  }
+  for (int i = threadIdx.x; i < R * C; i += NT)
+    if ((i >> 8) < nrows) y[(size_t)row0 * C + i] = from_f<T>(s.x[i]);
 }
 
-enum Kind { kStack = 0, kSelf = 1, kCross = 2, kFF = 3 };
+enum Kind { kStack = 0, kSelf = 1, kCross = 2, kFF = 3, kSelfBeam = 4 };
+
+// Rows a block owns: R, or for the beam block the whole beam groups that fit in R.
+template <int R, int K>
+__host__ __device__ int block_rows(const Args& a) {
+  return K == kSelfBeam ? (R / a.K) * a.K : R;
+}
 
 template <int R, typename T, int K>
 __global__ void __launch_bounds__(NT) decode_kernel(const Args a) {
   extern __shared__ float4 smem_raw[];
-  Smem<R> s(reinterpret_cast<float*>(smem_raw));
-  const int row0 = blockIdx.x * R;
   const int smax = a.T > a.S ? a.T : a.S;
-  load_rows<R, T>(s, a, row0);
+  Smem<R> s(reinterpret_cast<float*>(smem_raw), red_floats<R>(smax));
+  const int rows = block_rows<R, K>(a);
+  const int row0 = blockIdx.x * rows;
+  const int nrows = min(rows, a.B - row0);
+  load_rows<R, T>(s, a, row0, nrows);
   if constexpr (K == kStack) {
     const int step = *a.step;
     for (int l = 0; l < a.L; ++l) {
-      self_phase<R, T, false>(s, a, l, row0, step, smax);
-      cross_phase<R, T, false>(s, a, l, row0, smax);
+      self_phase<R, T, false, false>(s, a, l, row0, nrows, step, smax);
+      cross_phase<R, T, false>(s, a, l, row0, nrows, smax);
       ff_phase<R, T, false>(s, a, l, row0);
     }
   } else if constexpr (K == kSelf) {
-    self_phase<R, T, true>(s, a, 0, row0, *a.step, smax);
+    self_phase<R, T, true, false>(s, a, 0, row0, nrows, *a.step, smax);
+  } else if constexpr (K == kSelfBeam) {
+    self_phase<R, T, true, true>(s, a, 0, row0, nrows, *a.step, smax);
   } else if constexpr (K == kCross) {
-    cross_phase<R, T, true>(s, a, 0, row0, smax);
+    cross_phase<R, T, true>(s, a, 0, row0, nrows, smax);
   } else {
     ff_phase<R, T, true>(s, a, 0, row0);
   }
-  store_rows<R, T>(s, a, row0);
+  store_rows<R, T>(s, a, row0, nrows);
 }
 
-template <int R>
+template <int R, int K>
 size_t smem_bytes(const Args& a) {
   const int smax = a.T > a.S ? a.T : a.S;
-  const size_t red = (size_t)NW * R * 256 > (size_t)R * NH * smax ? (size_t)NW * R * 256
-                                                                   : (size_t)R * NH * smax;
-  return (7 * (size_t)R * C + red) * sizeof(float);
+  const size_t anc = K == kSelfBeam ? (size_t)R * a.T * sizeof(int) : 0;
+  return (7 * (size_t)R * C + red_floats<R>(smax)) * sizeof(float) + anc;
 }
 
 template <int R, typename T, int K>
 int launch_t(const Args& a, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<R>(a);
+  const size_t bytes = smem_bytes<R, K>(a);
   auto kern = decode_kernel<R, T, K>;
   static size_t granted = 0;  // dynamic shared memory already allowed for this kernel
   if (bytes > granted) {
@@ -521,15 +576,27 @@ int launch_t(const Args& a, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     granted = bytes;
   }
-  const int grid = (a.B + R - 1) / R;
+  const int rows = block_rows<R, K>(a);
+  const int grid = (a.B + rows - 1) / rows;
   kern<<<grid, NT, bytes, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int R, int K>
+int launch_r(const Args& a, int bf16, cudaStream_t st) {
+  return bf16 ? launch_t<R, __nv_bfloat16, K>(a, st) : launch_t<R, float, K>(a, st);
 }
 
 template <int K>
 int launch(const Args* a, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_t<kRows, __nv_bfloat16, K>(*a, st) : launch_t<kRows, float, K>(*a, st);
+  if constexpr (K == kSelfBeam) {
+    // tiles of whole beam groups: the served beam of 5 gets 5-row tiles
+    if (a->K < 1 || a->K > 8) return (int)cudaErrorInvalidValue;
+    if (a->K == 5) return launch_r<5, K>(*a, bf16, st);
+    return a->K <= 4 ? launch_r<4, K>(*a, bf16, st) : launch_r<8, K>(*a, bf16, st);
+  }
+  return launch_r<kRows, K>(*a, bf16, st);
 }
 
 }  // namespace
@@ -539,6 +606,7 @@ extern "C" {
 // Each returns cudaGetLastError() after the launch (0 = launched).
 int rt_stack_step(const Args* a, int bf16, void* stream) { return launch<kStack>(a, bf16, stream); }
 int rt_self_attn_block(const Args* a, int bf16, void* stream) { return launch<kSelf>(a, bf16, stream); }
+int rt_self_attn_block_beam(const Args* a, int bf16, void* stream) { return launch<kSelfBeam>(a, bf16, stream); }
 int rt_cross_attn_block(const Args* a, int bf16, void* stream) { return launch<kCross>(a, bf16, stream); }
 int rt_ff_block(const Args* a, int bf16, void* stream) { return launch<kFF>(a, bf16, stream); }
 const char* rt_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

@@ -1,33 +1,41 @@
-"""Greedy decoding: encode once, then the KV-cached loop (retr_tpu/decode.py).
+"""Greedy and beam decoding: encode once, then the KV-cached loop (retr_tpu/decode.py).
 
-Token semantics are the reference's, exactly: BOS in slot 0; the logits of
-position i are argmaxed into slot i+1; rows that produced EOS keep receiving
+Greedy token semantics are the reference's, exactly: BOS in slot 0; the logits
+of position i are argmaxed into slot i+1; rows that produced EOS keep receiving
 (ignored) tokens; when every row has finished the pending write is skipped and
 the loop stops; at most ``max_len - 1`` steps. The buffer, post-EOS junk
 included, equals retr_tpu.decode.greedy's.
 
-On the GPU the loop does not wait for the host each step: ``finished`` and the
-write decision stay on the device, the step index the kernels read is a device
-int32, and the host looks at "all finished" only every ``CHECK_EVERY`` steps.
-Steps run after every row finished are no-ops (the write is skipped), so the
-buffer is unchanged by them. Unlike the JAX package, no rows are padded: the
-CUDA kernels take any batch.
+Beam search is retr_tpu.decode.beam_search's: memory tiled across the beams,
+caches never reordered (ancestry addressing), the two-stage top-k on raw
+logits, frozen finished beams, ``early_stop`` and the length-normalised final
+ranking. Every top-k and sort breaks ties to the lowest index, as
+``jax.lax.top_k`` and the stable ``jnp.argsort`` do (``ops.decoder_kernels.topk_first``).
+
+On the GPU neither loop waits for the host each step: the stop condition stays
+on the device, the step index the kernels read is a device int32, and the host
+looks at it only every ``CHECK_EVERY`` steps. Greedy steps run after every row
+finished are no-ops (the write is skipped). A beam step is not a no-op, so each
+beam step's carry update is gated by the device bool ``running`` (the JAX
+loop's condition, which stays false once false). Unlike the JAX package, no
+rows are padded: the CUDA kernels take any batch.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from retr_tpu_torch.config import Config
 from retr_tpu_torch.masking import Masked
 from retr_tpu_torch.models import caption, transformer
+from retr_tpu_torch.ops import decoder_kernels as dk
 from retr_tpu_torch.precision import dtype_of, matmul_precision
 
 Params = Dict[str, Any]
 
-CHECK_EVERY = 16  # steps between host checks of "all rows finished"
+CHECK_EVERY = 16  # steps between host checks of the loop's stop condition
 
 
 def _cast_tree(tree, dtype):
@@ -68,7 +76,10 @@ def greedy_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, *,
             if i and i % CHECK_EVERY == 0 and bool(finished.all()):
                 break
             hs, cache = transformer.decode_step(tparams, cache, cross, captions[:, i], step, cfg)
-            pred = caption.mlp_head(params["mlp"], hs).argmax(dim=-1).to(torch.int32)
+            if dk.HEAD_KERNEL:
+                pred = dk.mlp_head_argmax(params["mlp"], hs)
+            else:
+                pred = caption.mlp_head(params["mlp"], hs).argmax(dim=-1).to(torch.int32)
             finished |= pred == eos_token
             write = ~finished.all()  # all just finished: the reference skips this write
             captions[:, i + 1] = torch.where(write, pred, captions[:, i + 1])
@@ -89,6 +100,137 @@ def greedy(params: Params, cfg: Config, samples: Masked, *,
     params, memory, pos = _cast_for_decode(params, memory, pos, compute_dtype)
     return greedy_from_memory(params, cfg, memory, mem_mask, pos, max_len=max_len,
                               bos_token=bos_token, eos_token=eos_token)
+
+
+def _beam_active(scores, finished, fin_len, step: int, *, length_penalty: float,
+                 early_stop: bool) -> torch.Tensor:
+    """The JAX beam loop's condition on the state after ``step`` steps, as a
+    device bool (retr_tpu/decode.py beam_search_from_memory ``cond``; the
+    bound ``step < max_len - 1`` is the caller's loop range)."""
+    if not early_stop:
+        return ~finished.all()
+    inf = float("inf")
+    all_fin, any_fin = finished.all(dim=-1), finished.any(dim=-1)
+    # finished beams' final normalised scores, and the raw score they hold
+    fin_norm = scores / fin_len.clamp_min(1.0) ** length_penalty
+    worst_fin = torch.where(finished, fin_norm, inf).min(dim=-1, keepdim=True).values
+    fin_raw_min = torch.where(finished, scores, inf).min(dim=-1, keepdim=True).values
+    # a live beam's best case: finish now (raw log-prob only decreases), in f32
+    live = ~finished
+    len_lo = torch.tensor(float(step) + 1.0, dtype=torch.float32) ** length_penalty
+    can_win = torch.where(live, scores / len_lo, -inf).ge(worst_fin).any(dim=-1)
+    can_evict = torch.where(live, scores, -inf).ge(fin_raw_min).any(dim=-1)
+    return (~all_fin & (~any_fin | can_win | can_evict)).any()
+
+
+def beam_search_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, *, max_len: int,
+                            bos_token: int, eos_token: int, beam_size: int,
+                            length_penalty: float = 1.0, early_stop: bool = True,
+                            margins: Optional[list] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search with length normalisation score / length**length_penalty.
+
+    Returns (tokens [B, K, max_len] int32 best first, normalised scores [B, K]).
+    Finished beams are frozen (they re-emit EOS at no cost). The self caches are
+    never reordered: each beam row writes its own slot, and the [B, K, T]
+    ancestry matrix says which row of the group wrote each position
+    (transformer.decode_step_beam). ``early_stop`` ends the loop, per batch
+    element, once no live beam can outrank the worst finished one (finishing
+    now) or evict a finished one under the raw score, as in the JAX package.
+
+    ``margins``: if a list, each step appends the [B] gap between the k-th and
+    (k+1)-th candidate of the k*k shortlist (a diagnostic for parity checks).
+    """
+    b = memory.shape[0]
+    k = beam_size
+    dev = memory.device
+    neg_inf = -1e9
+    # beams share their element's memory, so the cross K/V are tiled and never
+    # reordered; the self caches use ancestry addressing instead of reordering
+    mem_t = memory.repeat_interleave(k, dim=0)
+    mask_t = mem_mask.repeat_interleave(k, dim=0)
+    tparams = transformer.prepare_decoder(params["transformer"])
+    cache, cross = transformer.init_decode_state(tparams, mem_t, mask_t, pos, cfg, max_len)
+
+    tokens = torch.zeros((b, k, max_len), dtype=torch.int32, device=dev)
+    tokens[:, :, 0] = bos_token
+    beams = torch.arange(k, dtype=torch.int32, device=dev)
+    scores = torch.where(beams == 0, 0.0, neg_inf).float().expand(b, k).contiguous()
+    finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    fin_len = torch.zeros((b, k), dtype=torch.float32, device=dev)
+    anc = torch.zeros((b, k, max_len), dtype=torch.int32, device=dev)
+    first_slot = beams == 0
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    running = _beam_active(scores, finished, fin_len, 0, length_penalty=length_penalty,
+                           early_stop=early_stop)
+    with matmul_precision(memory.dtype):
+        for i in range(max_len - 1):
+            if i % CHECK_EVERY == 0 and not bool(running):
+                break
+            # Steps past the JAX loop's stop still run until the next host check:
+            # their carry updates are gated off below, and the cache slots they
+            # write (at positions no kept token reaches) are never read by a step
+            # whose result is kept.
+            anc_i = anc.clone()
+            anc_i[:, :, i] = beams          # position i is written by each beam's own row
+            hs, cache = transformer.decode_step_beam(tparams, cache, cross, tokens[:, :, i].reshape(b * k),
+                                                     step, cfg, anc_i, k)
+            if dk.BEAM_TOPK_KERNEL:
+                row_scores, row_tokens = dk.mlp_head_topk(params["mlp"], hs, k)
+            else:
+                row_scores, row_tokens = dk.topk_log_softmax(caption.mlp_head(params["mlp"], hs).float(), k)
+            row_scores, row_tokens = row_scores.view(b, k, k), row_tokens.view(b, k, k)
+
+            # finished beams: one EOS continuation at no cost
+            fin = finished[:, :, None]
+            row_scores = torch.where(fin, torch.where(first_slot, 0.0, neg_inf), row_scores)
+            row_tokens = torch.where(fin, eos_token, row_tokens)
+
+            cand = (scores[:, :, None] + row_scores).view(b, k * k)
+            if margins is not None:
+                top = dk.topk_first(cand, min(k + 1, k * k))[0]
+                margins.append(top[:, k - 1] - top[:, -1])
+            top_scores, top_idx = dk.topk_first(cand, k)
+            beam_idx = top_idx // k
+            tok = row_tokens.view(b, k * k).gather(1, top_idx)
+            rows = beam_idx[:, :, None].expand(b, k, max_len)
+            new_tokens = tokens.gather(1, rows)
+            new_tokens[:, :, i + 1] = tok
+            prev_fin = finished.gather(1, beam_idx)
+            ends = tok == eos_token
+            new_fin_len = torch.where(~prev_fin & ends, float(i + 1), fin_len.gather(1, beam_idx))
+
+            tokens = torch.where(running, new_tokens, tokens)
+            scores = torch.where(running, top_scores, scores)
+            finished = torch.where(running, prev_fin | ends, finished)
+            fin_len = torch.where(running, new_fin_len, fin_len)
+            anc = torch.where(running, anc_i.gather(1, rows), anc)
+            running = running & _beam_active(scores, finished, fin_len, i + 1,
+                                             length_penalty=length_penalty, early_stop=early_stop)
+            step += 1
+
+    # length-normalised ranking: tokens after BOS up to and including the first EOS
+    is_eos = tokens == eos_token
+    length = torch.where(is_eos.any(dim=-1), is_eos.int().argmax(dim=-1), max_len - 1).float()
+    norm = scores / length.clamp_min(1.0) ** length_penalty
+    norm, order = dk.topk_first(norm, k)
+    return tokens.gather(1, order[:, :, None].expand(b, k, max_len)), norm
+
+
+def beam_search(params: Params, cfg: Config, samples: Masked, *,
+                global_samples: Optional[Masked] = None, loc_feats: Optional[torch.Tensor] = None,
+                max_len: int = 128, bos_token: int = 101, eos_token: int = 102, beam_size: int = 5,
+                length_penalty: float = 1.0, compute_dtype=torch.float32, early_stop: bool = True,
+                filler_idx=None):
+    """Batched beam search: encode once, then the KV-cached beam loop. Runs on
+    the device the samples are on."""
+    memory, mem_mask, pos = caption.encode(
+        params, cfg, samples, global_samples=global_samples, loc_feats=loc_feats,
+        compute_dtype=compute_dtype, filler_idx=filler_idx,
+    )
+    params, memory, pos = _cast_for_decode(params, memory, pos, compute_dtype)
+    return beam_search_from_memory(params, cfg, memory, mem_mask, pos, max_len=max_len,
+                                   bos_token=bos_token, eos_token=eos_token, beam_size=beam_size,
+                                   length_penalty=length_penalty, early_stop=early_stop)
 
 
 def prune_token_ids(idx_seqs: Sequence[Sequence[int]], clean: bool = True, pad_token: int = 0,

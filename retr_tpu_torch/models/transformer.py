@@ -5,10 +5,12 @@ only; the decoder's query position is the learned position table; residual
 LayerNorms use eps 1e-5 and the embedding LayerNorm ``cfg.layer_norm_eps``.
 
 The decode step runs the decoder layers through ops/decoder_kernels.py: one
-``fused_stack_step`` launch per position when ``LAYER_GRID`` is on, else the
-per-layer ``self_attn_block`` / ``cross_attn_block`` / ``ff_block`` trio. The
-teacher-forced ``decode_full`` and ``forward`` belong to the training slice and
-are not ported yet.
+``fused_stack_step`` launch per position when ``LAYER_GRID`` is on, else one
+``fused_layer_step`` per layer when ``MERGED_LAYER`` is on, else the per-layer
+``self_attn_block`` / ``cross_attn_block`` / ``ff_block`` trio. The beam step
+runs ``self_attn_block_beam`` / ``cross_attn_block`` / ``ff_block`` per layer.
+The teacher-forced ``decode_full`` and ``forward`` belong to the training slice
+and are not ported yet.
 """
 
 from __future__ import annotations
@@ -133,6 +135,11 @@ def decode_step(params: Params, state: DecodeCache, cross: CrossContext,
             dec["stacked"], x, qpos, state.self_k, state.self_v, cross.cross_k, cross.cross_v,
             cross.mem_bias, step, num_heads=cfg.nheads,
         )
+    elif dk.MERGED_LAYER:
+        for li, lp in enumerate(dec["layers"]):
+            x, _, _ = dk.fused_layer_step(lp, x, qpos, state.self_k[li], state.self_v[li],
+                                          cross.cross_k[li], cross.cross_v[li], cross.mem_bias, step,
+                                          num_heads=cfg.nheads)
     else:
         for li, lp in enumerate(dec["layers"]):
             x, _, _ = dk.self_attn_block(lp["self_attn"], x, qpos, state.self_k[li],
@@ -140,4 +147,31 @@ def decode_step(params: Params, state: DecodeCache, cross: CrossContext,
             x = dk.cross_attn_block(lp["cross_attn"], x, qpos, cross.cross_k[li],
                                     cross.cross_v[li], cross.mem_bias, num_heads=cfg.nheads)
             x = dk.ff_block(lp["ff"], x)
+    return layers.layer_norm(dec["norm"], x), state
+
+
+def decode_step_beam(params: Params, state: DecodeCache, cross: CrossContext,
+                     token_ids: torch.Tensor, step: torch.Tensor, cfg: Config,
+                     anc: torch.Tensor, num_beams: int):
+    """Beam-search step with ancestry-addressed self-attention.
+
+    token_ids [B*K], beam-major within each batch element; anc [B, K, T] int32,
+    the beam row of the group that wrote each position. Each row writes its own
+    cache slot at ``step`` and reads position t from row ``anc[b, k, t]`` of its
+    group, so beam reorders never move the caches ([L, B*K, H, T, D], written in
+    place). Cross K/V are tiled over the beams and FF is per row, so both run
+    the greedy blocks. Returns (final-normed hidden [B*K, C], state).
+    """
+    emb = params["embeddings"]
+    x = decoder_embed(emb, token_ids, cfg, step)
+    qpos = emb["pos"]["table"].index_select(0, step.reshape(1))[0]
+    anc_rows = anc.reshape(token_ids.shape[0], -1)
+    dec = params["decoder"]
+    for li, lp in enumerate(dec["layers"]):
+        x, _, _ = dk.self_attn_block_beam(lp["self_attn"], x, anc_rows, qpos, state.self_k[li],
+                                          state.self_v[li], step, num_heads=cfg.nheads,
+                                          num_beams=num_beams)
+        x = dk.cross_attn_block(lp["cross_attn"], x, qpos, cross.cross_k[li], cross.cross_v[li],
+                                cross.mem_bias, num_heads=cfg.nheads)
+        x = dk.ff_block(lp["ff"], x)
     return layers.layer_norm(dec["norm"], x), state

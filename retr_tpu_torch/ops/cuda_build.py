@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -46,21 +46,36 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
 
 
+def build_all(names: Sequence[str]) -> None:
+    """Compile each ``csrc/<name>.cu`` whose hashed library does not exist yet,
+    one nvcc process per source, all started together. Each output is written
+    under a temporary name and renamed, so concurrent processes never load a
+    half-written file."""
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+        jobs.append((name, out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                      stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless the hashed library exists; returns its path.
-    The output is written under a temporary name and renamed, so concurrent
-    processes never load a half-written file."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    """Compile ``csrc/<name>.cu`` unless the hashed library exists; returns its path."""
+    build_all([name])
+    return library_path(name)
 
 
 def load(name: str) -> ctypes.CDLL:

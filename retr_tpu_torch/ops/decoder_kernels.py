@@ -1,12 +1,20 @@
 """Decode-step kernels: hand-written CUDA on the GPU, plain PyTorch on the CPU.
 
-Four functions, one per Pallas kernel of retr_tpu/ops/decoder_kernels.py that
-the greedy serving path runs:
+Eight functions, one per Pallas kernel of retr_tpu/ops/decoder_kernels.py that
+the greedy and beam serving paths run:
 
 - :func:`fused_stack_step` <- ``fused_stack_step`` (all decoder layers, one launch)
 - :func:`self_attn_block`  <- ``self_attn_block``
 - :func:`cross_attn_block` <- ``cross_attn_block``
 - :func:`ff_block`         <- ``ff_block``
+- :func:`self_attn_block_beam` <- ``self_attn_block_beam`` (ancestry-addressed caches)
+- :func:`mlp_head_argmax`  <- ``mlp_head_argmax`` (flag ``HEAD_KERNEL``)
+- :func:`mlp_head_topk`    <- ``mlp_head_topk`` (flag ``BEAM_TOPK_KERNEL``)
+- :func:`fused_layer_step` <- ``fused_layer_step`` (flag ``MERGED_LAYER``; the
+  stacked kernel with one layer)
+
+The decoder-layer kernels are csrc/decoder_kernels.cu, the head kernels
+csrc/head_kernels.cu.
 
 Each takes the JAX package's parameter dicts (linear weights ``[in, out]``) and
 its XLA-path layouts: self caches ``[B, H, T, D]`` (stacked ``[L, B, H, T, D]``),
@@ -43,9 +51,20 @@ Params = Dict
 # Decode dispatch (models/transformer.decode_step): True runs all decoder layers
 # in one fused_stack_step launch per position, False runs the per-layer trio.
 LAYER_GRID = True
+# With LAYER_GRID off: one fused_layer_step launch per layer instead of the trio.
+MERGED_LAYER = False
+# Greedy tail (decode.greedy_from_memory): mlp_head_argmax instead of the MLP
+# head's products and an argmax.
+HEAD_KERNEL = False
+# Beam tail (decode.beam_search_from_memory): mlp_head_topk instead of the MLP
+# head, a top-k and a log-softmax over the whole vocabulary.
+BEAM_TOPK_KERNEL = False
+# The three flags default to False, as in the JAX package.
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"fused_stack_step": 0, "self_attn_block": 0, "cross_attn_block": 0, "ff_block": 0}
+LAUNCHES = {"fused_stack_step": 0, "self_attn_block": 0, "cross_attn_block": 0, "ff_block": 0,
+            "self_attn_block_beam": 0, "mlp_head_argmax": 0, "mlp_head_topk": 0,
+            "fused_layer_step": 0}
 
 WIDTH, HEADS = 256, 8  # the widths the CUDA kernels are written for
 
@@ -131,6 +150,103 @@ def self_attn_block_plain(p: Params, x, qpos, k_cache, v_cache, step, *, num_hea
     return _add_heads(x, m["out"], attn), k_cache, v_cache
 
 
+def self_attn_block_beam_plain(p: Params, x, anc, qpos, k_cache, v_cache, step, *, num_heads: int,
+                              num_beams: int):
+    """As self_attn_block_plain, but row i reads position t from row
+    ``anc[i, t]`` of its beam group (rows ``(i // K) * K ..``); the slot at
+    ``step`` of any row holds that row's unrounded f32 k/v, as the TPU kernel
+    updated the whole group's cache before reading it."""
+    bk, c = x.shape
+    h = num_heads
+    d = c // h
+    t = k_cache.shape[2]
+    m = p["mha"]
+    nx = _ln(x, p["norm"]["scale"], p["norm"]["bias"])
+    qk_in = nx + qpos.float()
+    q = (_dot(qk_in, m["q"]["w"]) + m["q"]["b"].float()) * _scale(d)
+    k_new = (_dot(qk_in, m["k"]["w"]) + m["k"]["b"].float()).view(bk, h, 1, d)
+    v_new = (_dot(nx, m["v"]["w"]) + m["v"]["b"].float()).view(bk, h, 1, d)
+    at = step.reshape(1).long()
+    k_cache.index_copy_(2, at, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(2, at, v_new.to(v_cache.dtype))
+
+    pos = torch.arange(t, device=x.device)
+    cur = (pos == step)[None, None, :, None]
+    kc = torch.where(cur, k_new, k_cache.float())
+    vc = torch.where(cur, v_new, v_cache.float())
+    # source row of each (row, position); positions after `step` are masked below
+    own = torch.arange(bk, device=x.device)[:, None]
+    src = torch.where(pos <= step, own // num_beams * num_beams + anc.long(), own)
+    src = src[:, None, :, None].expand(bk, h, t, d)
+    scores = torch.einsum("bhd,bhtd->bht", q.view(bk, h, d), kc.gather(0, src))
+    scores = torch.where(pos <= step, scores, -1e30)
+    attn = torch.einsum("bht,bhtd->bhd", torch.softmax(scores, dim=-1), vc.gather(0, src))
+    return _add_heads(x, m["out"], attn), k_cache, v_cache
+
+
+def topk_first(values: torch.Tensor, k: int):
+    """Top ``k`` along the last dim, largest first, ties to the lowest index:
+    ``jax.lax.top_k``'s order, which also puts 0.0 above -0.0 (``torch.topk``
+    promises no order on ties). Ranks an int64 key (the f32 value's bits made
+    order-preserving, then the reversed index), whose entries are all distinct.
+    Returns (values, int64 indices)."""
+    v = values.float()
+    bits = v.view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    n = v.shape[-1]
+    key = key * (1 << 32) + (n - 1 - torch.arange(n, device=v.device))
+    idx = key.topk(k, dim=-1).indices
+    return values.gather(-1, idx), idx
+
+
+def topk_log_softmax(logits: torch.Tensor, k: int):
+    """f32 logits [N, V] -> (log-softmax of the top ``k`` [N, k], their ids
+    int32), with the exact log_softmax association ``(v - max) - log(sum(exp(x - max)))``."""
+    vals, idx = topk_first(logits, k)
+    m = logits.max(dim=-1, keepdim=True).values
+    log_z = torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True))
+    return (vals - m) - log_z, idx.to(torch.int32)
+
+
+def _head_trunk(p: Params, x):
+    """mlp_head_argmax's trunk: ReLU(ReLU(x W1 + b1) W2 + b2), f32."""
+    l1, l2 = p["layers"][0], p["layers"][1]
+    h1 = torch.relu(_dot(x, l1["w"]) + l1["b"].float())
+    return torch.relu(_dot(h1, l2["w"]) + l2["b"].float())
+
+
+def mlp_head_argmax_plain(p: Params, x) -> torch.Tensor:
+    l3 = p["layers"][2]
+    logits = _dot(_head_trunk(p, x), l3["w"]) + l3["b"].float()
+    return logits.argmax(dim=-1).to(torch.int32)  # first index on ties
+
+
+def _torch_trunk(p: Params, x):
+    """mlp_head_topk's trunk, the MLP head's first two layers in x's type."""
+    for lp in p["layers"][:2]:
+        x = torch.relu(x @ lp["w"] + lp["b"])
+    return x
+
+
+def mlp_head_topk_plain(p: Params, x, k: int):
+    l3 = p["layers"][2]
+    return topk_log_softmax(_dot(_torch_trunk(p, x), l3["w"]) + l3["b"].float(), k)
+
+
+def _lead(tree):
+    """A leading axis of 1 on every leaf (views)."""
+    if isinstance(tree, dict):
+        return {key: _lead(v) for key, v in tree.items()}
+    return tree[None]
+
+
+def fused_layer_step_plain(lp: Params, x, qpos, k_cache, v_cache, cross_k, cross_v, key_bias, step,
+                           *, num_heads: int):
+    y, _, _ = fused_stack_step_plain(_lead(lp), x, qpos, k_cache[None], v_cache[None], cross_k[None],
+                                     cross_v[None], key_bias, step, num_heads=num_heads)
+    return y, k_cache, v_cache
+
+
 def layer_params(slp: Params, li: int) -> Params:
     """Layer ``li`` of a leaf-stacked parameter dict (views, no copies)."""
     if isinstance(slp, dict):
@@ -160,46 +276,67 @@ def fused_stack_step_plain(slp: Params, x, qpos, k_cache, v_cache, cross_k, cros
 
 
 # ---------------------------------------------------------------------------------
-# CUDA launch plumbing (csrc/decoder_kernels.cu through ctypes)
+# CUDA launch plumbing (csrc/*.cu through ctypes)
 # ---------------------------------------------------------------------------------
 
 _PTRS = ("x", "y", "qpos", "ln1s", "ln1b", "swq", "sbq", "swk", "sbk", "swv", "sbv", "swo", "sbo",
          "ln2s", "ln2b", "cwq", "cbq", "cwo", "cbo", "ln3s", "ln3b", "w1", "b1", "w2", "b2",
-         "kc", "vc", "ck", "cv", "key_bias", "step")
+         "kc", "vc", "ck", "cv", "key_bias", "step", "anc")
 
 
 class _Args(ctypes.Structure):
     """Mirror of ``struct Args`` in csrc/decoder_kernels.cu (same field order)."""
 
-    _fields_ = [(n, ctypes.c_int) for n in ("B", "T", "S", "F", "L")] + [
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "T", "S", "F", "L", "K")] + [
         (n, ctypes.c_void_p) for n in _PTRS
     ]
 
 
+class _HeadArgs(ctypes.Structure):
+    """Mirror of ``struct HeadArgs`` in csrc/head_kernels.cu (same field order)."""
+
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "C", "Hd", "V", "k")] + [
+        (n, ctypes.c_void_p) for n in ("x", "w1", "b1", "w2", "b2", "h2", "w3", "b3",
+                                       "vals", "idx", "mx", "se")
+    ]
+
+
+# source -> (argument struct, entry points, error-string function)
+_LIBS = {
+    "decoder_kernels": (_Args, ("rt_stack_step", "rt_self_attn_block", "rt_self_attn_block_beam",
+                                "rt_cross_attn_block", "rt_ff_block"), "rt_error_string"),
+    "head_kernels": (_HeadArgs, ("rt_head_trunk", "rt_head_blocks"), "rt_head_error_string"),
+}
 _ENTRY = {"fused_stack_step": "rt_stack_step", "self_attn_block": "rt_self_attn_block",
-          "cross_attn_block": "rt_cross_attn_block", "ff_block": "rt_ff_block"}
-_lib_handle = None
+          "cross_attn_block": "rt_cross_attn_block", "ff_block": "rt_ff_block",
+          "self_attn_block_beam": "rt_self_attn_block_beam", "fused_layer_step": "rt_stack_step"}
+_handles: Dict[str, ctypes.CDLL] = {}
 
 
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _handles:
         from retr_tpu_torch.ops import cuda_build
 
-        lib = cuda_build.load("decoder_kernels")
-        for fn in _ENTRY.values():
+        struct, entries, err = _LIBS[name]
+        lib = cuda_build.load(name)
+        for fn in entries:
             f = getattr(lib, fn)
-            f.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
+            f.argtypes = [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_void_p]
             f.restype = ctypes.c_int
-        lib.rt_error_string.argtypes = [ctypes.c_int]
-        lib.rt_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
+        getattr(lib, err).argtypes = [ctypes.c_int]
+        getattr(lib, err).restype = ctypes.c_char_p
+        _handles[name] = lib
+    return _handles[name]
 
 
 def build() -> None:
-    """Compile (if needed) and load the kernels now instead of at first launch."""
-    _lib()
+    """Compile (one nvcc per source, all at once, where not built yet) and load
+    the kernels now instead of at first launch."""
+    from retr_tpu_torch.ops import cuda_build
+
+    cuda_build.build_all(list(_LIBS))
+    for name in _LIBS:
+        _lib(name)
 
 
 def _param_shapes(f: int = WIDTH, nl=None) -> Dict[str, tuple]:
@@ -225,7 +362,8 @@ def _check(kernel: str, dtype: torch.dtype, shapes: Dict[str, tuple], **tensors)
             raise ValueError(f"{kernel}: {name} is on {t.device}, the kernel needs CUDA tensors")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{kernel}: {name} must be contiguous and 16-byte aligned")
-        want = torch.float32 if name == "key_bias" else torch.int32 if name == "step" else dtype
+        want = (torch.float32 if name in ("key_bias", "vals", "mx", "se")
+                else torch.int32 if name in ("step", "anc", "idx") else dtype)
         if t.dtype != want:
             raise ValueError(f"{kernel}: {name} is {t.dtype}, expected {want}")
         if name in shapes and tuple(t.shape) != shapes[name]:
@@ -238,18 +376,23 @@ def _check_width(kernel: str, c: int, num_heads: int, f: int = 256) -> None:
                          f"and an FF width that is a multiple of 256 (got {c}, {num_heads}, {f})")
 
 
-def _launch(kernel: str, ref: torch.Tensor, /, **fields) -> None:
-    """Launch ``kernel`` on the current stream of ``ref``'s device; ``fields``
-    are the Args members (ints, or tensors passed by data pointer)."""
-    args = _Args(**{k: (v if k in ("B", "T", "S", "F", "L") else v.data_ptr())
-                    for k, v in fields.items()})
-    lib = _lib()
+def _run(lib_name: str, entry: str, ref: torch.Tensor, /, **fields) -> None:
+    """Launch ``entry`` of ``lib_name`` on the current stream of ``ref``'s device
+    (bf16 when ``ref`` is); ``fields`` are the argument struct's members (ints,
+    or tensors passed by data pointer)."""
+    struct, _, err = _LIBS[lib_name]
+    args = struct(**{k: (v if isinstance(v, int) else v.data_ptr()) for k, v in fields.items()})
+    lib = _lib(lib_name)
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
-        rc = getattr(lib, _ENTRY[kernel])(ctypes.byref(args), int(ref.dtype == torch.bfloat16),
-                                          stream)
+        rc = getattr(lib, entry)(ctypes.byref(args), int(ref.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"{kernel}: kernel launch failed: {lib.rt_error_string(rc).decode()}")
+        raise RuntimeError(f"{entry}: kernel launch failed: {getattr(lib, err)(rc).decode()}")
+
+
+def _launch(kernel: str, ref: torch.Tensor, /, **fields) -> None:
+    """Launch the decoder-layer kernel behind wrapper ``kernel`` and count it."""
+    _run("decoder_kernels", _ENTRY[kernel], ref, **fields)
     LAUNCHES[kernel] += 1
 
 
@@ -352,17 +495,24 @@ def fused_stack_step(slp: Params, x, qpos, k_cache, v_cache, cross_k, cross_v, k
     if x.device.type == "cpu":
         return fused_stack_step_plain(slp, x, qpos, k_cache, v_cache, cross_k, cross_v,
                                       key_bias, step, num_heads=num_heads)
+    y = _stack_launch("fused_stack_step", slp, x, qpos, k_cache, v_cache, cross_k, cross_v, key_bias,
+                      step, num_heads)
+    return y, k_cache, v_cache
+
+
+def _stack_launch(kernel, slp, x, qpos, k_cache, v_cache, cross_k, cross_v, key_bias, step, num_heads):
+    """Check and launch rt_stack_step over the layer-stacked ``slp`` / caches."""
     b, c = x.shape
     nl, _, _, tmax, _ = k_cache.shape
     s = cross_k.shape[3]
     sp, cp, fp = slp["self_attn"], slp["cross_attn"], slp["ff"]
     f = fp["lin1"]["w"].shape[2]
-    _check_width("fused_stack_step", c, num_heads, f)
+    _check_width(kernel, c, num_heads, f)
     d = c // num_heads
     if (k_cache.shape != (nl, b, num_heads, tmax, d) or v_cache.shape != k_cache.shape
             or cross_k.shape != (nl, b, num_heads, s, d) or cross_v.shape != cross_k.shape
             or key_bias.shape != (b, s)):
-        raise ValueError("fused_stack_step: cache / cross K/V shapes do not match x")
+        raise ValueError(f"{kernel}: cache / cross K/V shapes do not match x")
     t = dict(qpos=qpos,
              ln1s=sp["norm"]["scale"], ln1b=sp["norm"]["bias"],
              swq=sp["mha"]["q"]["w"], sbq=sp["mha"]["q"]["b"],
@@ -375,7 +525,145 @@ def fused_stack_step(slp: Params, x, qpos, k_cache, v_cache, cross_k, cross_v, k
              ln3s=fp["norm"]["scale"], ln3b=fp["norm"]["bias"],
              w1=fp["lin1"]["w"], b1=fp["lin1"]["b"], w2=fp["lin2"]["w"], b2=fp["lin2"]["b"],
              kc=k_cache, vc=v_cache, ck=cross_k, cv=cross_v, key_bias=key_bias, step=step)
-    _check("fused_stack_step", x.dtype, _param_shapes(f, nl), x=x, **t)
+    _check(kernel, x.dtype, _param_shapes(f, nl), x=x, **t)
     y = torch.empty_like(x)
-    _launch("fused_stack_step", x, B=b, T=tmax, S=s, F=f, L=nl, x=x, y=y, **t)
+    _launch(kernel, x, B=b, T=tmax, S=s, F=f, L=nl, x=x, y=y, **t)
+    return y
+
+
+def fused_layer_step(lp: Params, x, qpos, k_cache, v_cache, cross_k, cross_v, key_bias, step,
+                     *, num_heads: int):
+    """One whole decoder layer (self + cross + FF) for one position, the f32
+    residual rounded only at the output. lp: one layer's params (contiguous,
+    e.g. views of the stack); caches [B, H, T, D] updated in place at ``step``;
+    cross K/V [B, H, S, D]. Returns (x_out [B, C], k_cache, v_cache).
+
+    Replaces retr_tpu/ops/decoder_kernels.py ``fused_layer_step``
+    (``_layer_kernel``), which computes what ``fused_stack_step`` computes for
+    one layer; so does this wrapper, launching ``rt_stack_step`` with L = 1 on
+    views of the layer (no new CUDA). Bound and design: see fused_stack_step.
+    """
+    if x.device.type == "cpu":
+        return fused_layer_step_plain(lp, x, qpos, k_cache, v_cache, cross_k, cross_v, key_bias,
+                                      step, num_heads=num_heads)
+    y = _stack_launch("fused_layer_step", _lead(lp), x, qpos, k_cache[None], v_cache[None],
+                      cross_k[None], cross_v[None], key_bias, step, num_heads)
     return y, k_cache, v_cache
+
+
+def self_attn_block_beam(p: Params, x, anc, qpos, k_cache, v_cache, step, *, num_heads: int,
+                         num_beams: int):
+    """x: [B*K, C], rows beam-major within each batch element's group of K;
+    anc: [B*K, T] int32, the row within the group that wrote each position
+    (entries at positions <= ``step`` must lie in [0, K)); caches [B*K, H, T, D]
+    updated in place at ``step`` (each row writes its own slot only). Returns
+    (x_out, k_cache, v_cache).
+
+    Replaces retr_tpu/ops/decoder_kernels.py ``self_attn_block_beam``
+    (``_make_self_beam_kernel``). Bound on the card: bytes, as self_attn_block.
+    Design: one block owns whole beam groups (5-row tiles at K = 5), so the
+    fresh slot at ``step`` of any ancestor is in its shared memory; each row
+    reads only its ancestor's K/V at each earlier position (the TPU kernel
+    formed q.K against all K rows and selected one).
+    """
+    if x.device.type == "cpu":
+        return self_attn_block_beam_plain(p, x, anc, qpos, k_cache, v_cache, step,
+                                          num_heads=num_heads, num_beams=num_beams)
+    bk, c = x.shape
+    _check_width("self_attn_block_beam", c, num_heads)
+    tmax = k_cache.shape[2]
+    if not 1 <= num_beams <= 8 or bk % num_beams:
+        raise ValueError(f"self_attn_block_beam: {bk} rows are not whole groups of {num_beams} "
+                         "beams, or the beam is outside 1..8")
+    if (k_cache.shape != (bk, num_heads, tmax, c // num_heads) or v_cache.shape != k_cache.shape
+            or anc.shape != (bk, tmax)):
+        raise ValueError(f"self_attn_block_beam: caches {tuple(k_cache.shape)} / anc "
+                         f"{tuple(anc.shape)} do not match x {tuple(x.shape)}")
+    m = p["mha"]
+    t = dict(qpos=qpos, ln1s=p["norm"]["scale"], ln1b=p["norm"]["bias"],
+             swq=m["q"]["w"], sbq=m["q"]["b"], swk=m["k"]["w"], sbk=m["k"]["b"],
+             swv=m["v"]["w"], sbv=m["v"]["b"], swo=m["out"]["w"], sbo=m["out"]["b"],
+             kc=k_cache, vc=v_cache, step=step, anc=anc)
+    _check("self_attn_block_beam", x.dtype, _param_shapes(), x=x, **t)
+    y = torch.empty_like(x)
+    _launch("self_attn_block_beam", x, B=bk, T=tmax, L=1, K=num_beams, x=x, y=y, **t)
+    return y, k_cache, v_cache
+
+
+_SLAB = 256  # vocab columns per block of csrc/head_kernels.cu
+
+
+def _head_slabs(kernel: str, p: Params, h2, k: int):
+    """rt_head_blocks on h2 [N, Hd]: per row and 256-wide vocab slab the top-k
+    logits and ids [N, G, k], the slab max and sum(exp(x - max)) [N, G]."""
+    l3 = p["layers"][2]
+    n, hd = h2.shape
+    v = l3["w"].shape[1]
+    if hd % 32 or not 1 <= k <= min(v, _SLAB):
+        raise ValueError(f"{kernel}: hidden width {hd} must be a multiple of 32 and k = {k} "
+                         f"within 1..min(vocab {v}, {_SLAB})")
+    g = (v + _SLAB - 1) // _SLAB
+    vals = torch.empty((n, g, k), dtype=torch.float32, device=h2.device)
+    idx = torch.empty((n, g, k), dtype=torch.int32, device=h2.device)
+    mx = torch.empty((n, g), dtype=torch.float32, device=h2.device)
+    se = torch.empty_like(mx)
+    t = dict(w3=l3["w"], b3=l3["b"], vals=vals, idx=idx, mx=mx, se=se)
+    _check(kernel, h2.dtype, {"w3": (hd, v), "b3": (v,)}, h2=h2, **t)
+    _run("head_kernels", "rt_head_blocks", h2, B=n, Hd=hd, V=v, k=k, h2=h2, **t)
+    return vals, idx, mx, se
+
+
+def mlp_head_argmax(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x: [B, C] post-final-norm hidden -> greedy token ids [B] int32, equal to
+    argmax of the MLP head's f32 logits (first index on ties).
+
+    Replaces retr_tpu/ops/decoder_kernels.py ``mlp_head_argmax``
+    (``_head_kernel``). Bound on the card: bytes — W3 (Hd x V) against 2
+    operations per element per row. Design: a trunk kernel writes h2 (the
+    [B, Hd] activations), then one block per (8-row tile, 256-wide vocab slab)
+    emits the slab's (max, first argmax); the [B, V] logits never reach device
+    memory. The pick across slabs (first slab on ties) is one torch argmax.
+    """
+    if x.device.type == "cpu":
+        return mlp_head_argmax_plain(p, x)
+    l1, l2 = p["layers"][0], p["layers"][1]
+    b, c = x.shape
+    hd = l1["w"].shape[1]
+    if c % 32 or hd % 32:
+        raise ValueError(f"mlp_head_argmax: widths {c}, {hd} must be multiples of 32")
+    t = dict(w1=l1["w"], b1=l1["b"], w2=l2["w"], b2=l2["b"])
+    _check("mlp_head_argmax", x.dtype, {"w1": (c, hd), "b1": (hd,), "w2": (hd, hd), "b2": (hd,)},
+           x=x, **t)
+    h2 = torch.empty((b, hd), dtype=x.dtype, device=x.device)
+    _run("head_kernels", "rt_head_trunk", x, B=b, C=c, Hd=hd, x=x, h2=h2, **t)
+    vals, idx, _, _ = _head_slabs("mlp_head_argmax", p, h2, 1)
+    best = vals[:, :, 0].argmax(dim=1, keepdim=True)       # first slab on ties
+    LAUNCHES["mlp_head_argmax"] += 1
+    return idx[:, :, 0].gather(1, best)[:, 0]
+
+
+def mlp_head_topk(p: Params, x: torch.Tensor, k: int):
+    """x: [N, C] hidden -> (log-softmax of the top ``k`` tokens [N, k] f32, their
+    ids [N, k] int32), first index on ties.
+
+    Replaces retr_tpu/ops/decoder_kernels.py ``mlp_head_topk``
+    (``_head_topk_kernel``). The trunk runs in torch (the MLP head's first two
+    layers), as it ran in XLA outside the TPU kernel. Bound on the card: bytes,
+    as mlp_head_argmax. Design: one block per (8-row tile, 256-wide vocab slab)
+    emits the slab's top-k (value, first index), max and sum(exp(x - max)); the
+    combine across slabs (online logsumexp, top-k of the G*k candidates in
+    (slab, slot) order) runs in torch. Token choice is exact on the f32 logits;
+    the log-softmax differs from the flat one only by the logsumexp's summation
+    order.
+    """
+    if x.device.type == "cpu":
+        return mlp_head_topk_plain(p, x, k)
+    vals, idx, mx, se = _head_slabs("mlp_head_topk", p, _torch_trunk(p, x).contiguous(), k)
+    n = x.shape[0]
+    m = mx.max(dim=1, keepdim=True).values
+    log_z = torch.log((se * torch.exp(mx - m)).sum(dim=1, keepdim=True))
+    # (slab, slot) order is (value desc, id asc) within a slab and ids ascend
+    # across slabs, so position ties break as id ties
+    top, pos = topk_first(vals.view(n, -1), k)
+    LAUNCHES["mlp_head_topk"] += 1
+    return (top - m) - log_z, idx.view(n, -1).gather(1, pos)

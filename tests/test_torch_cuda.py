@@ -48,6 +48,15 @@ def _decoder(gen, dev, dtype):
             "ff": {"norm": norm(), "lin1": lin(C, F), "lin2": lin(F, C)}}
 
 
+def _close_to_plain(got, want, tol):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    scale = max(1.0, float(want[0].float().abs().max()))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)])
 def test_kernels_match_plain_versions(dev, dtype, tol):
     """Tolerance as a fraction of max(1, max|plain|): f32 differs by summation
@@ -81,12 +90,7 @@ def test_kernels_match_plain_versions(dev, dtype, tol):
     torch.cuda.synchronize()
     assert dk.LAUNCHES["fused_stack_step"] == 1
     for got, want in pairs:
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        scale = max(1.0, float(want[0].float().abs().max()))
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype and g.shape == w.shape
-            assert float((g.float() - w.float()).abs().max()) <= tol * scale
+        _close_to_plain(got, want, tol)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -130,3 +134,123 @@ def test_greedy_through_kernels_matches_cpu(dev, layer_grid):
     assert (dk.LAUNCHES["fused_stack_step"] > 0) == layer_grid
     assert (dk.LAUNCHES["ff_block"] > 0) != layer_grid
     assert torch.equal(gpu.cpu(), cpu)
+
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)])
+@pytest.mark.parametrize("beams", [2, 3, 5, 7])
+def test_beam_block_matches_plain_version(dev, dtype, tol, beams):
+    """Groups of 2, 3, 5 and 7 rows (4-, 3-, 5- and 7-row tiles); the ancestry
+    crosses rows at earlier positions and at ``step``."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    lp = dk.layer_params(_decoder(gen, dev, dtype), 0)["self_attn"]
+    bk = 3 * beams
+    x = torch.randn(bk, C, generator=gen, device=dev).to(dtype)
+    qpos = torch.randn(C, generator=gen, device=dev).to(dtype)
+    kc = torch.randn(bk, H, T, D, generator=gen, device=dev).to(dtype)
+    vc = torch.randn(bk, H, T, D, generator=gen, device=dev).to(dtype)
+    anc = torch.randint(0, beams, (bk, T), generator=gen, device=dev, dtype=torch.int32)
+    step = torch.tensor(11, dtype=torch.int32, device=dev)
+    caches = [t.clone() for t in (kc, vc, kc, vc)]
+    dk.reset_launches()
+    got = dk.self_attn_block_beam(lp, x, anc, qpos, caches[0], caches[1], step, num_heads=H, num_beams=beams)
+    with matmul_precision(torch.float32):
+        want = dk.self_attn_block_beam_plain(lp, x, anc, qpos, caches[2], caches[3], step, num_heads=H,
+                                             num_beams=beams)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["self_attn_block_beam"] == 1
+    _close_to_plain(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)])
+def test_fused_layer_step_matches_plain_version(dev, dtype, tol):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lp = dk.layer_params(_decoder(gen, dev, dtype), 1)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    x, qpos, ck, cv = rn(B, C), rn(C), rn(B, H, S, D), rn(B, H, S, D)
+    kc, vc = rn(B, H, T, D), rn(B, H, T, D)
+    kb = torch.zeros(B, S, device=dev)
+    kb[:, -3:] = float("-inf")
+    step = torch.tensor(7, dtype=torch.int32, device=dev)
+    caches = [t.clone() for t in (kc, vc, kc, vc)]
+    dk.reset_launches()
+    got = dk.fused_layer_step(lp, x, qpos, caches[0], caches[1], ck, cv, kb, step, num_heads=H)
+    with matmul_precision(torch.float32):
+        want = dk.fused_layer_step_plain(lp, x, qpos, caches[2], caches[3], ck, cv, kb, step, num_heads=H)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["fused_layer_step"] == 1 and dk.LAUNCHES["fused_stack_step"] == 0
+    _close_to_plain(got, want, tol)
+
+
+def _head(gen, dev, dtype, vocab, ties=()):
+    def lin(i, o):
+        return {"w": (torch.randn(i, o, generator=gen, device=dev) * i ** -0.5).to(dtype),
+                "b": (torch.randn(o, generator=gen, device=dev) * 0.1).to(dtype)}
+    p = {"layers": [lin(C, 512), lin(512, 512), lin(512, vocab)]}
+    for col in ties:
+        p["layers"][2]["w"][:, col] = 1.0
+        p["layers"][2]["b"][col] = 5.0
+    return p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ties", [(), (3, 255, 256, 4096, 4999)])
+def test_head_kernels_match_plain_versions(dev, dtype, ties):
+    """Vocab 5000 (a ragged last slab). Tokens: the plain logit of each chosen
+    token is within summation-order tolerance of the plain choice's (exactly
+    equal tokens where ties are built in); scores within 1e-4 of max(1, |s|)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    p = _head(gen, dev, dtype, 5000, ties)
+    x = torch.randn(19, C, generator=gen, device=dev).to(dtype)
+    dk.reset_launches()
+    ids = dk.mlp_head_argmax(p, x)
+    scores, tokens = dk.mlp_head_topk(p, x, 5)
+    with matmul_precision(torch.float32):
+        want_ids = dk.mlp_head_argmax_plain(p, x)
+        want_scores, _ = dk.mlp_head_topk_plain(p, x, 5)
+        # the f32 logits of each head (their trunks round differently in bf16)
+        l3 = p["layers"][2]
+        logits = dk._dot(dk._head_trunk(p, x), l3["w"]) + l3["b"].float()
+        logits_k = dk._dot(dk._torch_trunk(p, x), l3["w"]) + l3["b"].float()
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["mlp_head_argmax"] == 1 and dk.LAUNCHES["mlp_head_topk"] == 1
+    assert ids.dtype == tokens.dtype == torch.int32
+    if ties:
+        assert (ids == 3).all() and (tokens == torch.tensor(ties, device=dev, dtype=torch.int32)).all()
+    tol = 1e-4 * max(1.0, float(logits.abs().max()))
+    gap = logits.gather(1, want_ids.long()[:, None]) - logits.gather(1, ids.long()[:, None])
+    assert float(gap.abs().max()) <= tol
+    # each returned token carries its own log-probability, and the k values
+    # are the plain version's
+    own = torch.log_softmax(logits_k, dim=1).gather(1, tokens.long())
+    assert float((scores - own).abs().max()) <= tol
+    assert float((scores - want_scores).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("topk_kernel", [False, True])
+def test_beam_through_kernels_matches_cpu(dev, topk_kernel):
+    cfg = Config(backbone="ResNet18", dilation=False, hidden_dim=C, nheads=H, enc_layers=1, dec_layers=L,
+                 dim_feedforward=F, vocab_size=96, max_position_embeddings=20, dropout=0.0, image_size=64)
+    torch.manual_seed(0)
+    state = weights.reference_module(cfg).state_dict()
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn(3, 3, 64, 64, generator=gen)
+    mask = torch.zeros(3, 64, 64, dtype=torch.bool)
+    mask[1, :, 40:] = True
+    kw = dict(max_len=20, bos_token=1, eos_token=3, beam_size=3, length_penalty=0.7)
+    old = dk.BEAM_TOPK_KERNEL
+    dk.BEAM_TOPK_KERNEL = topk_kernel
+    try:
+        cpu_t, cpu_s = decode.beam_search(weights.to_params(state, cfg, device="cpu"), cfg, Masked(img, mask), **kw)
+        dk.reset_launches()
+        gpu_t, gpu_s = decode.beam_search(weights.to_params(state, cfg, device=dev), cfg,
+                                          Masked(img.to(dev), mask.to(dev)), **kw)
+    finally:
+        dk.BEAM_TOPK_KERNEL = old
+    assert dk.LAUNCHES["self_attn_block_beam"] > 0 and dk.LAUNCHES["fused_stack_step"] == 0
+    assert (dk.LAUNCHES["mlp_head_topk"] > 0) == topk_kernel
+    assert torch.equal(gpu_t.cpu(), cpu_t)
+    assert float((gpu_s.cpu() - cpu_s).abs().max()) <= 1e-4

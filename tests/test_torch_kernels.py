@@ -49,6 +49,8 @@ def _layer(rng, seed):
 def _torch_tree(p, dtype):
     if isinstance(p, dict):
         return {k: _torch_tree(v, dtype) for k, v in p.items()}
+    if isinstance(p, list):
+        return [_torch_tree(v, dtype) for v in p]
     return torch.tensor(np.asarray(p, np.float32)).to(dtype)
 
 
@@ -159,3 +161,98 @@ def test_layer_params_views_share_the_stack():
     assert one["ff"]["lin1"]["w"].data_ptr() == slp["ff"]["lin1"]["w"][1].data_ptr()
     torch.testing.assert_close(one["self_attn"]["mha"]["q"]["w"], lps[1]["self_attn"]["mha"]["q"]["w"],
                                rtol=0, atol=0)
+
+
+def test_self_attn_block_beam_plain_matches_pallas(case):
+    """Two groups of 4 beams; the ancestry crosses rows inside each group, at
+    earlier positions and at ``step`` itself (where the Pallas kernel reads
+    the other row's fresh, unrounded k/v)."""
+    p, tdt, k = case["lps"][0]["self_attn"], case["tdt"], 4
+    anc = np.random.default_rng(9).integers(0, k, (B, T)).astype(np.int32)
+    anc[:, STEP] = [1, 0, 3, 3, 2, 2, 0, 1]
+    ref, kc_ref, vc_ref = dk.self_attn_block_beam(
+        p, case["x"], jnp.asarray(anc), case["qpos"], case["kc"][0], case["vc"][0], jnp.int32(STEP),
+        num_heads=H, num_beams=k, interpret=True)
+    kc = _t(case["kc"][0], tdt).permute(1, 0, 3, 2).contiguous()
+    vc = _t(case["vc"][0], tdt).permute(1, 0, 3, 2).contiguous()
+    got, kc_out, vc_out = tk.self_attn_block_beam(
+        _torch_tree(jax.tree.map(np.asarray, p), tdt), _t(case["x"], tdt), torch.from_numpy(anc),
+        _t(case["qpos"], tdt), kc, vc, torch.tensor(STEP, dtype=torch.int32), num_heads=H, num_beams=k)
+    _close(got, ref, case["atol"])
+    assert kc_out is kc and vc_out is vc
+    _close(kc.permute(1, 0, 3, 2), kc_ref, case["atol"])
+    _close(vc.permute(1, 0, 3, 2), vc_ref, case["atol"])
+
+
+def test_fused_layer_step_plain_matches_pallas(case):
+    tdt, lp = case["tdt"], case["lps"][1]
+    ref, kc_ref, vc_ref = dk.fused_layer_step(
+        lp, case["x"], case["qpos"], case["kc"][1], case["vc"][1], case["ck"][1], case["cv"][1], case["kb"],
+        jnp.int32(STEP), num_heads=H, interpret=True)
+    kc = _t(case["kc"][1], tdt).permute(1, 0, 3, 2).contiguous()
+    vc = _t(case["vc"][1], tdt).permute(1, 0, 3, 2).contiguous()
+    got, _, _ = tk.fused_layer_step(_torch_tree(jax.tree.map(np.asarray, lp), tdt), _t(case["x"], tdt),
+                                    _t(case["qpos"], tdt), kc, vc, _t(case["ck"][1], tdt),
+                                    _t(case["cv"][1], tdt), _t(case["kb"]), torch.tensor(STEP, dtype=torch.int32),
+                                    num_heads=H)
+    assert got.dtype == tdt
+    _close(got, ref, case["atol"])
+    _close(kc.permute(1, 0, 3, 2), kc_ref, case["atol"])
+    _close(vc.permute(1, 0, 3, 2), vc_ref, case["atol"])
+
+
+def _head(rng, vocab, ties=()):
+    """MLP head 64 -> 96 -> 96 -> vocab (the JAX package's kernel tests); the
+    ``ties`` columns of the last layer are made equal."""
+    def lin(i, o):
+        return {"w": rng.standard_normal((i, o)).astype(np.float32) * (1 / np.sqrt(i)),
+                "b": 0.1 * rng.standard_normal(o).astype(np.float32)}
+    p = {"layers": [lin(C, 96), lin(96, 96), lin(96, vocab)]}
+    for col in ties:
+        p["layers"][2]["w"][:, col] = 1.0
+        p["layers"][2]["b"][col] = 5.0
+    return p, rng.standard_normal((12, C)).astype(np.float32)
+
+
+# vocab 5000 (not a multiple of either kernel's block); equal best columns
+# straddling the Pallas kernel's 2048-wide blocks and the CUDA kernel's 256-wide ones
+HEAD_CASES = {"random": (), "ties": (3, 2047, 2048, 4096, 4999)}
+
+
+@pytest.mark.parametrize("ties", sorted(HEAD_CASES))
+def test_mlp_head_argmax_plain_matches_pallas(case, ties):
+    jdt, tdt = case["jdt"], case["tdt"]
+    p, x = _head(np.random.default_rng(11), 5000, HEAD_CASES[ties])
+    ref = dk.mlp_head_argmax(jax.tree.map(lambda a: jnp.asarray(a, jdt), p), jnp.asarray(x, jdt), interpret=True)
+    got = tk.mlp_head_argmax(_torch_tree(p, tdt), torch.from_numpy(x).to(tdt))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    if HEAD_CASES[ties]:
+        assert (got.numpy() == 3).all()
+
+
+@pytest.mark.parametrize("ties", sorted(HEAD_CASES))
+def test_mlp_head_topk_plain_matches_pallas(case, ties):
+    """Tokens equal (first index on ties, across blocks); log-softmax scores
+    within 1e-5 (the Pallas kernel combines its blocks' logsumexp online)."""
+    jdt, tdt = case["jdt"], case["tdt"]
+    p, x = _head(np.random.default_rng(12), 5000, HEAD_CASES[ties])
+    ref_s, ref_t = dk.mlp_head_topk(jax.tree.map(lambda a: jnp.asarray(a, jdt), p), jnp.asarray(x, jdt), 5,
+                                    interpret=True)
+    got_s, got_t = tk.mlp_head_topk(_torch_tree(p, tdt), torch.from_numpy(x).to(tdt), 5)
+    assert got_s.dtype == torch.float32 and got_t.dtype == torch.int32
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(ref_t))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), atol=1e-5, rtol=0)
+    if HEAD_CASES[ties]:
+        assert (got_t.numpy() == [3, 2047, 2048, 4096, 4999]).all()
+
+
+def test_topk_first_orders_ties_by_index():
+    """lax.top_k's order: value descending, equal values by ascending index,
+    0.0 above -0.0; torch.topk does not promise it."""
+    v = torch.tensor([[0.5, -1e9, 2.0, -1e9, 2.0, -0.0, 0.0, -1e9 + 1, float("-inf")]])
+    vals, idx = tk.topk_first(v, 9)
+    assert idx.tolist() == [[2, 4, 0, 6, 5, 1, 3, 7, 8]]
+    assert torch.equal(vals, v[:, idx[0]])
+    _, jidx = jax.lax.top_k(jnp.asarray(v.numpy()), 9)
+    assert idx.tolist() == np.asarray(jidx).tolist()
