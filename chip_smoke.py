@@ -12,7 +12,10 @@ Phases (any failure raises, exits non-zero and prints no result line):
      and bf16, and time kernel, plain version and a library yardstick (CUDA
      events): the decoder-layer kernels at batch 32 and 512, the beam block and
      the top-k head at 160 and 2560 rows (batch 32 and 512 x beam 5), the
-     argmax head at 32 and 512 rows;
+     argmax head at 32 and 512 rows, fused_attention at batch 32 for the
+     encoder (196x196, key padding), the causal decoder (128x128, ~15 real
+     tokens), the cross attention (128x196) and the (T,T) encoder (397x397),
+     its yardstick scaled_dot_product_attention with the same additive mask;
   4. serve requests through Predictor at the served width (ResNet-50 dilated,
      6+6 layers, d=256, vocab 30522, bf16, random weights from a seed): greedy
      with the one-launch stacked kernel, with the per-layer trio, with
@@ -21,13 +24,22 @@ Phases (any failure raises, exits non-zero and prints no result line):
      read after each run. Then time greedy at batch 32 and 512 and beam at
      batch 32 x 5 (head kernel off and on) for all 127 steps with EOS out of
      range, and trace 32 steps of each with torch.profiler (device time by
-     kernel, idle share);
+     kernel, idle share); then greedy with use_pallas_attention on, whose
+     encoder launches fused_attention (6 launches per batch);
   5. f32 on the GPU and on the CPU (plain path): a greedy batch of 4 has equal
      token buffers except where the CPU logits' top-2 margin is below 1e-4; a
      beam batch of 2 has equal top hypotheses except where the CPU search had
      a near-tie (gap below 1e-4 between its k-th and (k+1)-th candidate, or
      between its two best final scores);
-  6. every kernel's launch count from its path's run must be > 0.
+  6. training at full width (random seeded weights, dropout 0.1): 3 train
+     steps at batch 32 in bf16 and 3 in f32 (ms per step, losses finite) and
+     a fourth under torch.profiler (device time by kernel, idle share); the
+     bf16 validation loss at batch 32 with use_pallas_attention off and on
+     (equal within 1e-4 relative; fused_attention launched 18 times per eval
+     step: 6 encoder, 6 causal decoder, 6 cross); one f32 step at batch 2,
+     dropout 0, on the GPU and on the CPU (loss within 1e-4 and pre-clip
+     gradient norm within 1e-3 relative);
+  7. every kernel's launch count from its path's run must be > 0.
 
 The card's line, then a line {"kernels": [...]} with one entry per kernel,
 come before the last line, {"ok": true, "device": {...}}. It needs the rest of
@@ -60,16 +72,24 @@ HBM_BYTES_PER_S = 3.35e12                         # H100 SXM data sheet
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 CHECK_STEP = 63                                   # mid-decode position for the kernel checks
 DEC_SRC, HEAD_SRC = "retr_tpu_torch/csrc/decoder_kernels.cu", "retr_tpu_torch/csrc/head_kernels.cu"
-KERNELS = {  # wrapper -> (the Pallas kernel it replaces, CUDA source, serving shape (dtype, rows))
-    "fused_stack_step": ("retr_tpu/ops/decoder_kernels.py:1026", DEC_SRC, 32),
-    "self_attn_block": ("retr_tpu/ops/decoder_kernels.py:228", DEC_SRC, 32),
-    "cross_attn_block": ("retr_tpu/ops/decoder_kernels.py:450", DEC_SRC, 32),
-    "ff_block": ("retr_tpu/ops/decoder_kernels.py:96", DEC_SRC, 32),
-    "self_attn_block_beam": ("retr_tpu/ops/decoder_kernels.py:380", DEC_SRC, 32 * BEAM),
-    "mlp_head_argmax": ("retr_tpu/ops/decoder_kernels.py:525", HEAD_SRC, 32),
-    "mlp_head_topk": ("retr_tpu/ops/decoder_kernels.py:615", HEAD_SRC, 32 * BEAM),
-    "fused_layer_step": ("retr_tpu/ops/decoder_kernels.py:774", DEC_SRC, 32),
+ATT_SRC = "retr_tpu_torch/csrc/attention_kernels.cu"
+KERNELS = {  # wrapper -> (the Pallas kernel it replaces, CUDA source, the main path's case (dtype, rows or shape))
+    "fused_stack_step": ("retr_tpu/ops/decoder_kernels.py:1026", DEC_SRC, ("bfloat16", 32)),
+    "self_attn_block": ("retr_tpu/ops/decoder_kernels.py:228", DEC_SRC, ("bfloat16", 32)),
+    "cross_attn_block": ("retr_tpu/ops/decoder_kernels.py:450", DEC_SRC, ("bfloat16", 32)),
+    "ff_block": ("retr_tpu/ops/decoder_kernels.py:96", DEC_SRC, ("bfloat16", 32)),
+    "self_attn_block_beam": ("retr_tpu/ops/decoder_kernels.py:380", DEC_SRC, ("bfloat16", 32 * BEAM)),
+    "mlp_head_argmax": ("retr_tpu/ops/decoder_kernels.py:525", HEAD_SRC, ("bfloat16", 32)),
+    "mlp_head_topk": ("retr_tpu/ops/decoder_kernels.py:615", HEAD_SRC, ("bfloat16", 32 * BEAM)),
+    "fused_layer_step": ("retr_tpu/ops/decoder_kernels.py:774", DEC_SRC, ("bfloat16", 32)),
+    # the transformer computes in f32 in both compute types (input_proj promotes)
+    "fused_attention": ("retr_tpu/ops/attention.py:80", ATT_SRC, ("float32", "encoder")),
 }
+# fused_attention cases: label -> (Sq, Sk, causal, key padding), batch 32
+ATTN_SHAPES = {"encoder": (S, S, False, "image"), "decoder": (T, T, True, "caption"),
+               "cross": (T, S, False, "image"), "encoder (T,T)": (2 * S + 5, 2 * S + 5, False, "image")}
+TRAIN_BATCH = 32                                  # Config.batch_size
+EVAL_STEPS = 2
 # Tolerance of kernel vs plain version, as a fraction of max(1, max|plain|).
 TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
 
@@ -343,6 +363,65 @@ def check_beam_and_heads(dev):
     return out
 
 
+def attention_work(b, sq, sk, causal, esize):
+    """(bytes, operations) of fused_attention: q, k, v read and the output
+    written once, the [B, Sk] f32 bias read once; QK and PV products, the
+    causal ones counted at half."""
+    nbytes = 2 * b * H * (sq + sk) * D * esize + b * sk * 4
+    return nbytes, 4 * b * H * sq * sk * D * (0.5 if causal else 1.0)
+
+
+def check_attention(dev):
+    """fused_attention at batch 32 in f32 and bf16 for ATTN_SHAPES. Returns
+    {(name, dtype, label): record}."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from retr_tpu_torch.ops import attention as fa
+    from retr_tpu_torch.precision import matmul_precision
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, out = TRAIN_BATCH, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for label, (sq, sk, causal, padding) in ATTN_SHAPES.items():
+            q = torch.randn(b, H, sq, D, generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn(b, H, sk, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+            if padding == "caption":                      # 8..22 real tokens, the rest PAD
+                lens = torch.randint(8, 23, (b, 1), generator=gen, device=dev)
+                pad = torch.arange(sk, device=dev)[None, :] >= lens
+            else:                                         # padded image bands on every other row
+                pad = torch.rand(b, sk, generator=gen, device=dev) < 0.3
+                pad[::2] = False
+                pad[:, 0] = False
+            kb = torch.where(pad, float("-inf"), 0.0)
+            mask = kb.clamp_min(-1e30)[:, None, None, :]
+            if causal:
+                mask = mask + torch.full((sq, sk), -1e30, device=dev).triu(1)
+            mask = mask.to(dtype)
+            kern = lambda: fa.fused_attention(q, k, v, kb, causal=causal)  # noqa: E731
+            plain = lambda: fa.fused_attention_plain(q, k, v, kb, causal=causal)  # noqa: E731
+            with matmul_precision(torch.float32):   # plain version in full f32
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                err, tol = _tensor_err(got, want, dname)
+                ms = time_ms(kern)
+                plain_ms = time_ms(plain, reps=5, rounds=3)
+                lib_ms = time_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+            nbytes, ops = attention_work(b, sq, sk, causal, 4 if dname == "float32" else 2)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
+            rec = dict(name="fused_attention", dtype=dname, batch=b,
+                       shape=f"{dname}, batch {b}, {label} {sq}x{sk}" + (", causal" if causal else ""),
+                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+            log("kernel", json.dumps(rec))
+            if not err <= tol:
+                raise AssertionError(f"fused_attention {dname} {label}: max_abs_err {err} > {tol}")
+            out[("fused_attention", dname, label)] = rec
+            del q, k, v, got, want, mask
+    return out
+
+
 # ---------------------------------------------------------------------------------
 # Phases 4-5: the served model
 # ---------------------------------------------------------------------------------
@@ -447,6 +526,26 @@ def serve(dev, state, tok):
                                  "first_captions": [t[:60] for t in texts[:3]]}))
         if len(texts) != len(imgs) or not all(isinstance(t, str) for t in texts):
             raise AssertionError(f"Predictor returned malformed captions ({label})")
+        if label == SERVE_RUNS[0][0]:
+            stacked_texts = texts
+    # the serving encoder through fused_attention: 6 launches per batch of 32
+    pred.cfg = cfg.replace(use_pallas_attention=True)
+    dk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = pred.predict_batch(imgs, boxes)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pred.cfg = cfg
+    counts = dict(dk.LAUNCHES)
+    batches = -(-len(imgs) // pred.max_batch)
+    log("serve", json.dumps({"run": "greedy, use_pallas_attention", "requests": len(imgs), "seconds": dt,
+                             "requests_per_s": len(imgs) / dt, "launches": counts,
+                             "captions_equal_to_stacked_run": sum(a == b for a, b in zip(texts, stacked_texts)),
+                             "first_captions": [t[:60] for t in texts[:3]]}))
+    if len(texts) != len(imgs) or counts["fused_attention"] != cfg.enc_layers * batches:
+        raise AssertionError(f"flagged greedy run: {len(texts)} captions, launches {counts}")
+    launches["fused_attention (serving encoder)"] = counts["fused_attention"]
     return pred.params, launches
 
 
@@ -518,8 +617,6 @@ def step_profile(dev, params, steps=32):
     32 x 5. Prints device time by kernel name and the device's idle share over
     the loop's span (first kernel start to last kernel end)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from retr_tpu_torch import decode
 
@@ -536,32 +633,40 @@ def step_profile(dev, params, steps=32):
 
         loop()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            loop()
-            torch.cuda.synchronize()
-        spans, by_name = [], {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                spans.append((e.time_range.start, e.time_range.end))
-                by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-        if not spans:
-            log("profile", json.dumps({"decoder": decoder, "batch": b,
-                                       "device_time": "not measured (no CUDA events traced)"}))
-            continue
-        spans.sort()
-        busy, cur_s, cur_e = 0.0, *spans[0]
-        for s, e in spans[1:]:
-            if s > cur_e:
-                busy, cur_s, cur_e = busy + cur_e - cur_s, s, e
-            else:
-                cur_e = max(cur_e, e)
-        busy += cur_e - cur_s
-        span = spans[-1][1] - spans[0][0]
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        log("profile", json.dumps({
-            "decoder": decoder, "batch": b, "steps": steps, "span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
-            "idle_share": 1 - busy / span,
-            "top_kernels_ms_per_step": {n[:80]: t / 1e3 / steps for n, t in top}}))
+        log("profile", json.dumps({"decoder": decoder, "batch": b, "steps": steps,
+                                   **device_profile(loop, steps)}))
+
+
+def device_profile(fn, steps, top_n=8):
+    """torch.profiler over ``fn()``: the device's busy time and idle share over
+    its span (first kernel start to last kernel end) and the device time of the
+    top kernels per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    if not spans:
+        return {"device_time": "not measured (no CUDA events traced)"}
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy, cur_s, cur_e = busy + cur_e - cur_s, s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
+    return {"span_ms": span / 1e3, "device_busy_ms": busy / 1e3, "idle_share": 1 - busy / span,
+            "top_kernels_ms_per_step": {n[:80]: t / 1e3 / steps for n, t in top}}
 
 
 def greedy_with_margins(params, cfg, samples, eos):
@@ -673,6 +778,107 @@ def f32_beam_parity(dev, state):
             raise AssertionError(f"f32 GPU and CPU beam hypotheses differ without a near-tie: {d}")
 
 
+# ---------------------------------------------------------------------------------
+# Phase 6: training at full width
+# ---------------------------------------------------------------------------------
+
+
+def train_batch(b, gen, dev):
+    """A caption-like batch: 224 px images (every other one with a padded
+    band), BOS, 7..21 random tokens, EOS, then PAD up to 129 slots."""
+    import torch
+
+    from retr_tpu_torch.data.pipeline import Batch
+
+    images = torch.randn(b, 3, 224, 224, generator=gen, device=dev)
+    masks = torch.zeros(b, 224, 224, dtype=torch.bool, device=dev)
+    masks[1::2, :, 160:] = True
+    caps = torch.randint(1000, V, (b, T + 1), generator=gen, device=dev, dtype=torch.int32)
+    lens = torch.randint(8, 23, (b, 1), generator=gen, device=dev)
+    pos = torch.arange(T + 1, device=dev)[None, :]
+    caps = torch.where(pos == lens, 102, torch.where(pos > lens, 0, caps)).to(torch.int32)
+    caps[:, 0] = 101
+    return Batch(images, masks, caps, caps == 0)
+
+
+def _synced(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def train(dev, state, card):
+    """Train and eval steps at full width. Returns fused_attention's launches
+    on the eval path (reset just before it, read just after)."""
+    import math
+
+    import torch
+
+    from retr_tpu_torch.models import weights
+    from retr_tpu_torch.ops import decoder_kernels as dk
+    from retr_tpu_torch.train import state as tstate
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = train_batch(TRAIN_BATCH, gen, dev)
+    for dname in ("bfloat16", "float32"):
+        cfg = served_config(dname).replace(dropout=0.1)
+        st = tstate.create_train_state(cfg, weights.to_params(state, cfg, device=dev), device=dev)
+        step = tstate.make_train_step(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        runs = [_synced(lambda: step(st, batch, 0)) for _ in range(3)]
+        losses = [float(out[1]) for out, _ in runs]
+        log("train", json.dumps({"dtype": dname, "batch": TRAIN_BATCH, "steps": 3,
+                                 "ms_per_step": [dt * 1e3 for _, dt in runs], "losses": losses,
+                                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card}))
+        log("profile", json.dumps({"train_step": dname, "batch": TRAIN_BATCH, "steps": 1,
+                                   **device_profile(lambda: step(st, batch, 0), 1, top_n=12)}))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{dname} train losses not finite: {losses}")
+        del st, step, runs
+        torch.cuda.empty_cache()
+
+    cfg = served_config("bfloat16").replace(dropout=0.1)
+    params = weights.to_params(state, cfg, device=dev)
+    plain_eval = tstate.make_eval_step(cfg)
+    fused_eval = tstate.make_eval_step(cfg.replace(use_pallas_attention=True))
+    plain, plain_s = _synced(lambda: [plain_eval(params, batch) for _ in range(EVAL_STEPS)])
+    dk.reset_launches()
+    fused, fused_s = _synced(lambda: [fused_eval(params, batch) for _ in range(EVAL_STEPS)])
+    launches = dk.LAUNCHES["fused_attention"]
+    plain, fused = float(plain[-1]), float(fused[-1])
+    log("eval", json.dumps({"dtype": "bfloat16", "batch": TRAIN_BATCH, "eval_steps": EVAL_STEPS,
+                            "loss_plain": plain, "loss_fused": fused, "ms_per_step_plain": plain_s / EVAL_STEPS * 1e3,
+                            "ms_per_step_fused": fused_s / EVAL_STEPS * 1e3, "fused_attention_launches": launches,
+                            "card": card}))
+    if launches != (cfg.enc_layers + 2 * cfg.dec_layers) * EVAL_STEPS or not abs(fused - plain) <= 1e-4 * abs(plain):
+        raise AssertionError(f"eval step: losses {plain} / {fused}, fused_attention launches {launches}")
+    del params
+    torch.cuda.empty_cache()
+
+    # one f32 step at batch 2 on the GPU and on the CPU; dropout 0 (the CPU and
+    # CUDA generators draw different streams from one seed)
+    cfg = served_config("float32")
+    small = train_batch(2, torch.Generator(device=dev).manual_seed(9), dev)
+    res = []
+    for where in (dev, torch.device("cpu")):
+        st = tstate.create_train_state(cfg, weights.to_params(state, cfg, device=where), device=where)
+        b = type(small)(*(None if x is None else x.to(where) for x in small))
+        (st, loss), dt = _synced(lambda: tstate.make_train_step(cfg)(st, b, 0))
+        res.append((float(loss), float(st.grad_norm), dt))
+        del st
+    (gl, gn, gs), (cl, cn, cs) = res
+    log("train_parity", json.dumps({"dtype": "float32", "batch": 2, "loss_gpu": gl, "loss_cpu": cl,
+                                    "grad_norm_gpu": gn, "grad_norm_cpu": cn, "gpu_seconds": gs,
+                                    "cpu_seconds": cs}))
+    if not (abs(gl - cl) <= 1e-4 * abs(cl) and abs(gn - cn) <= 1e-3 * abs(cn)):
+        raise AssertionError(f"f32 GPU and CPU train steps differ: loss {gl} / {cl}, grad norm {gn} / {cn}")
+    return launches
+
+
 def loop_times(tree) -> int:
     """One turn of --compare: the decode-loop times of the package under ``tree``."""
     import statistics
@@ -743,7 +949,7 @@ def main() -> int:
     dk.build()                                                             # phase 2
     log("build", json.dumps({"seconds": time.perf_counter() - t0}))
 
-    checks = {**check_kernels(dev), **check_beam_and_heads(dev)}           # phase 3
+    checks = {**check_kernels(dev), **check_beam_and_heads(dev), **check_attention(dev)}   # phase 3
     torch.cuda.empty_cache()
 
     state = random_state(served_config("bfloat16"))                        # phase 4
@@ -755,23 +961,29 @@ def main() -> int:
 
     f32_parity(dev, state)                                                 # phase 5
     f32_beam_parity(dev, state)
+    torch.cuda.empty_cache()
 
-    entries = []                                                           # phase 6
-    for name, (replaces, source, rows) in KERNELS.items():
+    launches["fused_attention"] = train(dev, state, card)                 # phase 6
+
+    entries = []                                                           # phase 7
+    for name, (replaces, source, case) in KERNELS.items():
         if launches.get(name, 0) <= 0:
-            raise AssertionError(f"{name} was never launched on its serving path: {launches}")
-        main_rec = checks[(name, "bfloat16", rows)]                        # the serving shape
-        entries.append({
+            raise AssertionError(f"{name} was never launched on its path: {launches}")
+        main_rec = checks[(name, *case)]                                   # the main path's shape
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": main_rec["max_abs_err"], "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
-            "shape": f"bf16, {rows} rows, step {CHECK_STEP}",
-            "cases": [{k: r[k] for k in ("dtype", "batch", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "library_ms")}
+            "shape": main_rec.get("shape", f"bf16, {case[1]} rows, step {CHECK_STEP}"),
+            "cases": [{k: r[k] for k in ("dtype", "batch", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "library_ms") if k in r}
                       for (n, _, _), r in checks.items() if n == name],
-        })
+        }
+        if name == "fused_attention":   # launches: eval steps; the serving encoder's beside them
+            entry["launches_serving_encoder"] = launches["fused_attention (serving encoder)"]
+        entries.append(entry)
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,13 @@
 """retr_tpu_torch — the PyTorch/CUDA port of retr_tpu for NVIDIA Hopper.
 
-Serves greedy referring expressions: host preprocessing, a ResNet backbone,
-the 6-layer encoder run once, and a KV-cached greedy loop whose decoder layers
-run in hand-written CUDA kernels (``ops/decoder_kernels.py``,
-``csrc/decoder_kernels.cu``). Module names follow ``retr_tpu`` so each piece
+Serves referring expressions (greedy and beam): host preprocessing, a ResNet
+backbone, the 6-layer encoder run once, and a KV-cached loop whose decoder
+layers run in hand-written CUDA kernels (``ops/decoder_kernels.py``,
+``csrc/decoder_kernels.cu``, ``csrc/head_kernels.cu``). Trains and evaluates
+the teacher-forced model (``train/state.py``); with
+``Config.use_pallas_attention`` every attention core without attention dropout
+runs in the fused attention kernel (``ops/attention.py``,
+``csrc/attention_kernels.cu``). Module names follow ``retr_tpu`` so each piece
 has an obvious counterpart; the JAX package is the reference the tests hold
 this one against. Nothing here imports ``jax`` or ``retr_tpu``.
 

@@ -8,6 +8,8 @@ context stream; (T, F) raises NotImplementedError, as in the reference.
 
 The 1x1 ``input_proj`` convolution is one [C_backbone -> hidden] product over
 the flattened patches. The MLP head is 256 -> 512 -> 512 -> vocab with ReLU.
+:func:`forward` is the teacher-forced model of training and evaluation,
+:func:`encode` the encode-once half of decoding.
 """
 
 from __future__ import annotations
@@ -60,15 +62,18 @@ class EncoderInput(NamedTuple):
 def build_encoder_input(params: Params, cfg: Config, samples: Masked,
                         global_samples: Optional[Masked] = None,
                         loc_feats: Optional[torch.Tensor] = None, *,
-                        compute_dtype=torch.float32, filler_idx=None) -> EncoderInput:
+                        compute_dtype=torch.float32, filler_idx=None,
+                        stop_prefix_gradient: bool = False) -> EncoderInput:
     """Run the backbone(s) and location projections for the variant cfg selects.
 
     ``filler_idx``: the flat positions ensure_unmasked_values unmasks in a fully
-    masked feature map (default: masking.filler_indices with ``cfg.seed``)."""
+    masked feature map (default: masking.filler_indices with ``cfg.seed``).
+    ``stop_prefix_gradient`` (train steps) and ``cfg.remat`` go to the backbone."""
     if cfg.use_global_features and not cfg.use_location_features:
         raise NotImplementedError()
-    feats = resnet.backbone_forward(params["backbone"], samples, name=cfg.backbone,
-                                    dilation=cfg.dilation, compute_dtype=compute_dtype)
+    bb = dict(name=cfg.backbone, dilation=cfg.dilation, compute_dtype=compute_dtype,
+              stop_prefix_gradient=stop_prefix_gradient, remat=cfg.remat)
+    feats = resnet.backbone_forward(params["backbone"], samples, **bb)
     mask = feats.mask
     if cfg.guard_all_masked_target:
         mask = _guarded(mask, filler_idx, cfg)
@@ -83,8 +88,7 @@ def build_encoder_input(params: Params, cfg: Config, samples: Masked,
             src_t = torch.cat([src_t, loc_src.transpose(1, 2)], dim=2)
             mask_t = torch.cat([mask_t, torch.zeros(loc_feats.shape, dtype=torch.bool,
                                                     device=mask_t.device)], dim=1)
-            g = resnet.backbone_forward(params["backbone"], global_samples, name=cfg.backbone,
-                                        dilation=cfg.dilation, compute_dtype=compute_dtype)
+            g = resnet.backbone_forward(params["backbone"], global_samples, **bb)
             g_mask = _guarded(g.mask, filler_idx, cfg)
             return EncoderInput(src_t, mask_t, _project(params, g.tensors), g_mask.reshape(b, -1))
 
@@ -94,6 +98,23 @@ def build_encoder_input(params: Params, cfg: Config, samples: Masked,
             mask_t = torch.cat([mask_t, torch.zeros((b, 1), dtype=torch.bool,
                                                     device=mask_t.device)], dim=1)
     return EncoderInput(src_t, mask_t, None, None)
+
+
+def forward(params: Params, cfg: Config, samples: Masked, target_exp: torch.Tensor,
+            target_exp_mask: torch.Tensor, *, global_samples: Optional[Masked] = None,
+            loc_feats: Optional[torch.Tensor] = None, train: bool = False,
+            seed: Optional[int] = None, compute_dtype=torch.float32,
+            filler_idx=None) -> torch.Tensor:
+    """Teacher-forced forward: token ids [B, T] (True = pad in the mask) ->
+    logits [B, T, vocab] in f32. ``train`` turns on dropout (generators from
+    ``seed``) and detaches the frozen backbone prefix."""
+    enc = build_encoder_input(params, cfg, samples, global_samples, loc_feats,
+                              compute_dtype=compute_dtype, filler_idx=filler_idx,
+                              stop_prefix_gradient=train)
+    hs = transformer.forward(params["transformer"], enc.src_t, enc.mask_t, enc.src_c, enc.mask_c,
+                             target_exp, target_exp_mask, cfg, train=train, seed=seed)
+    with matmul_precision(compute_dtype):
+        return mlp_head(params["mlp"], hs)
 
 
 def encode(params: Params, cfg: Config, samples: Masked, *,

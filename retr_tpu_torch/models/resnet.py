@@ -4,7 +4,9 @@ Torchvision semantics: with ``dilation`` on, layer4's stride moves into dilation
 (output stride 16, a 14x14 map for 224x224 inputs). Convolutions go through
 ``torch.nn.functional.conv2d`` (cuDNN on the GPU), as the JAX package leaves
 them to XLA. Parameters are the JAX package's tree: conv weights OIHW, each BN
-as its folded ``{scale, bias}``.
+as its folded ``{scale, bias}``. The folded BN affines are constants in
+training (the train state gives them no gradient), as the reference's
+FrozenBatchNorm buffers are.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from retr_tpu_torch.masking import Masked, downsample_mask_nearest
+from retr_tpu_torch.models.layers import maybe_checkpoint
 from retr_tpu_torch.precision import matmul_precision
 
 Params = Dict[str, Any]
@@ -72,7 +75,9 @@ def _bn(p, x):
 
 def _max_pool_3x3s2(x):
     """MaxPool2d(kernel=3, stride=2, padding=1): implicit -inf padding, like the
-    reference package's reduce_window with -inf."""
+    reference package's reduce_window with -inf. No custom backward (the JAX
+    package needed one for the TPU): the pool sits below the layer1 detach of
+    a train step, so no step differentiates it."""
     return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
 
 
@@ -108,9 +113,15 @@ def _cast(tree, dtype):
 
 
 def apply(params: Params, x: torch.Tensor, *, name: str = "ResNet101", dilation: bool = True,
-          compute_dtype=torch.float32) -> torch.Tensor:
+          compute_dtype=torch.float32, stop_prefix_gradient: bool = False,
+          remat: bool = False) -> torch.Tensor:
     """[B, 3, H, W] image -> [B, C, H/s, W/s] layer4 features (C=2048 for 50/101).
-    Runs in ``compute_dtype`` (parameters cast to it), with TF32 off in f32."""
+    Runs in ``compute_dtype`` (parameters cast to it), with TF32 off in f32.
+
+    ``stop_prefix_gradient`` detaches the layer1 output: the reference freezes
+    conv1/bn1/layer1, so a train step neither keeps nor walks their backward.
+    ``remat`` (Config.remat) runs each residual block under
+    ``torch.utils.checkpoint`` when autograd records."""
     block_type, plan = resnet_structure(name, dilation)
     block_apply = _bottleneck_apply if block_type == "bottleneck" else _basic_apply
     if compute_dtype != torch.float32:
@@ -121,14 +132,18 @@ def apply(params: Params, x: torch.Tensor, *, name: str = "ResNet101", dilation:
         x = _max_pool_3x3s2(x)
         for stage in range(4):
             for block_p, (stride, dil, _) in zip(params[f"layer{stage + 1}"], plan[stage]):
-                x = block_apply(block_p, x, stride, dil)
+                x = maybe_checkpoint(block_apply, remat, block_p, x, stride, dil)
+            if stage == 0 and stop_prefix_gradient:
+                x = x.detach()
     return x
 
 
 def backbone_forward(params: Params, samples: Masked, *, name: str = "ResNet101",
-                     dilation: bool = True, compute_dtype=torch.float32) -> Masked:
+                     dilation: bool = True, compute_dtype=torch.float32,
+                     stop_prefix_gradient: bool = False, remat: bool = False) -> Masked:
     """Features plus the pixel mask downsampled (nearest) to the feature map."""
     feats = apply(params, samples.tensors, name=name, dilation=dilation,
-                  compute_dtype=compute_dtype)
+                  compute_dtype=compute_dtype, stop_prefix_gradient=stop_prefix_gradient,
+                  remat=remat)
     mask = downsample_mask_nearest(samples.mask, feats.shape[-2], feats.shape[-1])
     return Masked(feats, mask)

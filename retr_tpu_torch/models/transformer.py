@@ -1,29 +1,36 @@
-"""ConcatTransformer encoder and the KV-cached decode step (retr_tpu/models/transformer.py).
+"""ConcatTransformer: the full-sequence encoder and decoder, and the KV-cached
+decode step (retr_tpu/models/transformer.py).
 
 Pre-norm residual blocks; self-attention adds the positional encoding to Q and K
 only; the decoder's query position is the learned position table; residual
 LayerNorms use eps 1e-5 and the embedding LayerNorm ``cfg.layer_norm_eps``.
+
+The full-sequence half (``encode``, ``decode_full``, ``forward``) serves
+training and evaluation: dropout when ``train`` is on, drawn from generators
+made per layer from an integer ``seed`` (``layers.fold_in``) as the JAX package
+folds its keys; ``cfg.remat`` checkpoints each layer; ``cfg.use_pallas_attention``
+sends every attention core without attention dropout to the fused kernel
+(ops/attention.py). Serving's encoder runs ``encode`` too.
 
 The decode step runs the decoder layers through ops/decoder_kernels.py: one
 ``fused_stack_step`` launch per position when ``LAYER_GRID`` is on, else one
 ``fused_layer_step`` per layer when ``MERGED_LAYER`` is on, else the per-layer
 ``self_attn_block`` / ``cross_attn_block`` / ``ff_block`` trio. The beam step
 runs ``self_attn_block_beam`` / ``cross_attn_block`` / ``ff_block`` per layer.
-The teacher-forced ``decode_full`` and ``forward`` belong to the training slice
-and are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from retr_tpu_torch.config import Config
-from retr_tpu_torch.masking import key_padding_bias
+from retr_tpu_torch.masking import causal_mask, key_padding_bias
 from retr_tpu_torch.models import layers
 from retr_tpu_torch.models.positional import positional_encoding
 from retr_tpu_torch.ops import decoder_kernels as dk
+from retr_tpu_torch.precision import matmul_precision
 
 Params = Dict[str, Any]
 
@@ -32,40 +39,125 @@ def _with_pos(x, pos):
     return x if pos is None else x + pos
 
 
-def _self_att_block(p, x, pos, bias, cfg):
+def _seed(seed: Optional[int], data: int) -> Optional[int]:
+    return None if seed is None else layers.fold_in(seed, data)
+
+
+def _self_att_block(p, x, pos, bias, cfg, *, gen=None, train=False, causal=False,
+                    key_pad_bias=None):
     """SelfAttResidual: LN, positions on Q/K only, value = normed input."""
     nx = layers.layer_norm(p["norm"], x)
     qk = _with_pos(nx, pos)
-    return x + layers.multi_head_attention(p["mha"], qk, qk, nx, num_heads=cfg.nheads, bias=bias)
+    out, _ = layers.multi_head_attention(
+        p["mha"], qk, qk, nx, num_heads=cfg.nheads, bias=bias, dropout_rate=cfg.dropout,
+        generator=gen, train=train, use_pallas=cfg.use_pallas_attention, causal=causal,
+        key_pad_bias=key_pad_bias)
+    return x + layers.dropout(out, cfg.dropout, gen, train)
 
 
-def _ff_block(p, x):
+def _cross_att_block(p, q, kv, q_pos, k_pos, bias, cfg, *, gen=None, train=False,
+                     key_pad_bias=None):
+    """CrossAttResidual: only the query is normed; keys get positions, keys and
+    values are the unnormed memory."""
+    nq = layers.layer_norm(p["norm"], q)
+    out, _ = layers.multi_head_attention(
+        p["mha"], _with_pos(nq, q_pos), _with_pos(kv, k_pos), kv, num_heads=cfg.nheads, bias=bias,
+        dropout_rate=cfg.dropout, generator=gen, train=train, use_pallas=cfg.use_pallas_attention,
+        key_pad_bias=key_pad_bias)
+    return q + layers.dropout(out, cfg.dropout, gen, train)
+
+
+def _ff_block(p, x, cfg, *, gen=None, train=False):
     """FFResidual: Linear-ReLU-Linear, pre-norm."""
     nx = layers.layer_norm(p["norm"], x)
-    return x + layers.linear(p["lin2"], torch.relu(layers.linear(p["lin1"], nx)))
+    h = layers.linear(p["lin2"], torch.relu(layers.linear(p["lin1"], nx)))
+    return x + layers.dropout(h, cfg.dropout, gen, train)
 
 
-def decoder_embed(p, ids: torch.Tensor, cfg: Config, position: torch.Tensor) -> torch.Tensor:
-    """DecoderEmbeddings for one position: word[ids] + pos[position], LayerNorm
-    with ``cfg.layer_norm_eps``. ids [B]; position a 0-d int tensor on the
-    device (read there, so the loop does not wait for the host)."""
-    word = p["word"]["table"].index_select(0, ids)
-    pos = p["pos"]["table"].index_select(0, position.reshape(1))
-    return layers.layer_norm(p["norm"], word + pos, eps=cfg.layer_norm_eps)
+def decoder_embed(p, ids: torch.Tensor, cfg: Config, position: Optional[torch.Tensor] = None, *,
+                  gen=None, train=False) -> torch.Tensor:
+    """DecoderEmbeddings: word[ids] + pos, LayerNorm with ``cfg.layer_norm_eps``,
+    dropout. With ``position`` (a 0-d int tensor on the device, read there so
+    the loop does not wait for the host) ids are [B] and embed that one
+    position; without it ids are [B, T] at positions 0..T-1."""
+    table = p["word"]["table"]
+    if position is None:
+        word = table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, -1)
+        pos = p["pos"]["table"][: ids.shape[-1]]
+    else:
+        word = table.index_select(0, ids)
+        pos = p["pos"]["table"].index_select(0, position.reshape(1))
+    emb = layers.layer_norm(p["norm"], word + pos, eps=cfg.layer_norm_eps)
+    return layers.dropout(emb, cfg.dropout, gen, train)
 
 
-def encode(params: Params, src: torch.Tensor, src_pad_mask: torch.Tensor, cfg: Config):
+def encode(params: Params, src: torch.Tensor, src_pad_mask: torch.Tensor, cfg: Config, *,
+           train: bool = False, seed: Optional[int] = None):
     """Run the encoder; returns (memory [B, S, C], pos [S, C])."""
     pos = positional_encoding(cfg.position_embedding, src.shape[1], cfg.hidden_dim,
                               device=src.device)
     bias = key_padding_bias(src_pad_mask)
+    kp_bias = bias[:, 0, 0, :]  # [B, S] form for the fused kernel
+
+    def enc_layer(lp, x, layer_seed):
+        gen = layers.make_generator(layer_seed, x.device)
+        x = _self_att_block(lp["self_attn"], x, pos[None, :, :], bias, cfg, gen=gen, train=train,
+                            key_pad_bias=kp_bias)
+        return _ff_block(lp["ff"], x, cfg, gen=gen, train=train)
+
     x = src
-    for lp in params["encoder"]["layers"]:
-        x = _self_att_block(lp["self_attn"], x, pos[None, :, :], bias, cfg)
-        x = _ff_block(lp["ff"], x)
+    for li, lp in enumerate(params["encoder"]["layers"]):
+        x = layers.maybe_checkpoint(enc_layer, cfg.remat, lp, x, _seed(seed, li))
     if "norm" in params["encoder"]:
         x = layers.layer_norm(params["encoder"]["norm"], x)
     return x, pos
+
+
+def decode_full(params: Params, memory: torch.Tensor, mem_pad_mask: torch.Tensor, pos: torch.Tensor,
+                tgt_ids: torch.Tensor, tgt_pad_mask: torch.Tensor, cfg: Config, *,
+                train: bool = False, seed: Optional[int] = None) -> torch.Tensor:
+    """Teacher-forced decoder over the full target buffer; returns the
+    final-normed hidden states [B, T, C]. The plain path masks self-attention
+    with the causal mask plus the target key-padding bias; the fused kernel
+    takes ``causal=True`` and the [B, T] key-padding bias."""
+    t = tgt_ids.shape[1]
+    emb = params["embeddings"]
+    x = decoder_embed(emb, tgt_ids, cfg, gen=layers.make_generator(_seed(seed, 777), memory.device),
+                      train=train)
+    query_pos = emb["pos"]["table"][:t][None, :, :]
+    tgt_bias = key_padding_bias(tgt_pad_mask)
+    self_bias = causal_mask(t, device=memory.device)[None, None, :, :] + tgt_bias
+    mem_bias = key_padding_bias(mem_pad_mask)
+    tgt_kp, mem_kp = tgt_bias[:, 0, 0, :], mem_bias[:, 0, 0, :]
+
+    def dec_layer(lp, x, layer_seed):
+        gen = layers.make_generator(layer_seed, x.device)
+        x = _self_att_block(lp["self_attn"], x, query_pos, self_bias, cfg, gen=gen, train=train,
+                            causal=True, key_pad_bias=tgt_kp)
+        x = _cross_att_block(lp["cross_attn"], x, memory, query_pos, pos[None, :, :], mem_bias, cfg,
+                             gen=gen, train=train, key_pad_bias=mem_kp)
+        return _ff_block(lp["ff"], x, cfg, gen=gen, train=train)
+
+    for li, lp in enumerate(params["decoder"]["layers"]):
+        x = layers.maybe_checkpoint(dec_layer, cfg.remat, lp, x, _seed(seed, 100 + li))
+    return layers.layer_norm(params["decoder"]["norm"], x)
+
+
+def forward(params: Params, src_t: torch.Tensor, mask_t: torch.Tensor, src_c: Optional[torch.Tensor],
+            mask_c: Optional[torch.Tensor], tgt_ids: torch.Tensor, tgt_pad_mask: torch.Tensor,
+            cfg: Config, *, train: bool = False, seed: Optional[int] = None) -> torch.Tensor:
+    """ConcatTransformer.forward: concatenate the context stream (channel-first
+    [B, C, S]) after the target stream, encode, and decode the teacher-forced
+    buffer; returns [B, T, C]."""
+    if src_c is not None:
+        src, mask = torch.cat([src_t, src_c], dim=2), torch.cat([mask_t, mask_c], dim=1)
+    else:
+        src, mask = src_t, mask_t
+    src = src.transpose(1, 2)
+    with matmul_precision(src.dtype):
+        memory, pos = encode(params, src, mask, cfg, train=train, seed=_seed(seed, 0))
+        return decode_full(params, memory, mask, pos, tgt_ids, tgt_pad_mask, cfg, train=train,
+                           seed=_seed(seed, 1))
 
 
 # ---------------------------------------------------------------------------------

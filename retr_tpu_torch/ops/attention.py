@@ -1,0 +1,122 @@
+"""Full-sequence fused attention: hand-written CUDA on the GPU, plain PyTorch on
+the CPU, and the dispatch between it and the plain attention core
+(retr_tpu/ops/attention.py).
+
+:func:`fused_attention` replaces the Pallas kernel ``fused_attention``
+(``_attn_kernel``): q ``[B, H, Sq, D]`` against k/v ``[B, H, Sk, D]``, an additive
+``[B, Sk]`` f32 key bias and an optional causal mask. The kernel is
+csrc/attention_kernels.cu, built with the decoder kernels
+(``decoder_kernels.build()``); its launches are counted in
+``LAUNCHES["fused_attention"]`` (the decoder kernels' dict).
+
+A CPU tensor goes to :func:`fused_attention_plain`, which repeats the TPU
+kernel's arithmetic; a CUDA tensor launches the kernel or raises. The wrapper
+makes the ``split_heads`` views contiguous before the launch (the kernel takes
+no strides). The TPU's padding of Sq and Sk to multiples of 128 was a tiling
+rule and is not copied: an all-masked row averages V over the real Sk keys.
+
+There is no backward: retr_tpu defines no VJP for its Pallas kernel (its train
+step sends dropout-active attention to the XLA path, and ``jax.grad`` through
+the kernel fails). Where autograd would need the gradient, the wrapper raises
+``NotImplementedError`` on both devices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from retr_tpu_torch.ops import decoder_kernels as dk
+
+NEG_INF = -1e30  # finite sentinel: an all-masked row stays finite
+LAUNCHES = dk.LAUNCHES
+HEAD_DIMS = (16, 32, 64)  # the head widths the CUDA kernel is compiled for
+_QT, _KT, _SMEM_MAX = 32, 64, 232448  # query tile, key tile, a block's shared-memory limit
+
+
+def fused_attention_plain(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
+                          causal: bool = False) -> torch.Tensor:
+    """_attn_kernel's arithmetic: q upcast to f32 and scaled by D**-0.5, f32
+    scores, + the bias clamped at -1e30, the causal mask (-1e30) after it, the
+    exact softmax (max, exp, sum, e / sum), probabilities rounded to v's type
+    before a PV product accumulated in f32, output in q's type."""
+    d = q.shape[-1]
+    scale = float(d) ** -0.5
+    scores = torch.matmul(q.float() * scale, k.float().transpose(-2, -1))
+    if key_bias is not None:
+        scores = scores + torch.clamp_min(key_bias.float(), NEG_INF)[:, None, None, :]
+    if causal:
+        sq, sk = scores.shape[-2:]
+        rows = torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(sk, device=q.device)[None, :]
+        scores = torch.where(cols <= rows, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    probs = e / e.sum(dim=-1, keepdim=True)
+    return torch.matmul(probs.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def fused_attention(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
+                    causal: bool = False) -> torch.Tensor:
+    """Fused scaled-dot-product attention; returns ``[B, H, Sq, D]`` in q's type.
+
+    Bound on the card: at the model's shapes (S <= 397, D = 32, f32) bytes and
+    CUDA-core operations take about the same time. Design (csrc/attention_kernels.cu):
+    one block per (b, h, 32 query rows) keeps its whole score block in shared
+    memory, streams K then V through it in 64-key tiles, and normalises exactly
+    once between the two passes.
+    """
+    if _needs_grad(q, k, v, key_bias):
+        raise NotImplementedError(
+            "fused_attention has no backward: retr_tpu defines no VJP for its Pallas kernel "
+            "(retr_tpu/ops/attention.py), so neither package differentiates it. Train with "
+            "attention dropout on (the plain path), or with use_pallas_attention off.")
+    if q.device.type == "cpu":
+        return fused_attention_plain(q, k, v, key_bias, causal=causal)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"fused_attention: head dim {d} (the CUDA kernel takes {HEAD_DIMS})")
+    if k.shape != (b, h, sk, d) or v.shape != k.shape:
+        raise ValueError(f"fused_attention: k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
+                         f"q {tuple(q.shape)}")
+    smem = ((_QT + _KT) * (d + 1) + _QT * sk) * 4
+    if smem > _SMEM_MAX:
+        raise ValueError(f"fused_attention: {sk} keys need {smem} bytes of shared memory "
+                         f"(at most {_SMEM_MAX})")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    t = dict(q=q, k=k, v=v)
+    shapes = {}
+    if key_bias is not None:
+        key_bias = key_bias.contiguous()
+        t["key_bias"] = key_bias
+        shapes["key_bias"] = (b, sk)
+    dk._check("fused_attention", q.dtype, shapes, **t)
+    out = torch.empty_like(q)
+    dk._run("attention_kernels", "rt_fused_attention", q, B=b, H=h, Sq=sq, Sk=sk, D=d,
+            causal=int(causal), scale=float(d) ** -0.5, key_bias=0 if key_bias is None else key_bias,
+            q=q, k=k, v=v, out=out)
+    LAUNCHES["fused_attention"] += 1
+    return out
+
+
+def attention(q, k, v, bias: Optional[torch.Tensor], *, need_weights: bool = False,
+              use_pallas: bool = False, causal: bool = False,
+              key_bias: Optional[torch.Tensor] = None):
+    """Dispatch: the fused kernel when asked for and no attention map is wanted,
+    the plain attention core otherwise; returns (out, head-averaged weights or None).
+
+    ``bias`` is the general additive [B or 1, 1, Sq or 1, Sk] form of the plain
+    path; the fused path takes the decomposed (``key_bias`` [B, Sk], ``causal``)
+    form instead. Unlike retr_tpu there is no CPU-backend test: on the CPU the
+    wrapper runs the kernel's plain version."""
+    from retr_tpu_torch.models.layers import attention_core
+
+    if use_pallas and not need_weights:
+        return fused_attention(q, k, v, key_bias, causal=causal), None
+    return attention_core(q, k, v, bias, need_weights=need_weights)

@@ -14,7 +14,9 @@ the greedy and beam serving paths run:
   stacked kernel with one layer)
 
 The decoder-layer kernels are csrc/decoder_kernels.cu, the head kernels
-csrc/head_kernels.cu.
+csrc/head_kernels.cu. The library registry here (``_LIBS``, ``build()``) also
+holds csrc/attention_kernels.cu, the full-sequence attention kernel of
+ops/attention.py, whose launches ``LAUNCHES["fused_attention"]`` counts.
 
 Each takes the JAX package's parameter dicts (linear weights ``[in, out]``) and
 its XLA-path layouts: self caches ``[B, H, T, D]`` (stacked ``[L, B, H, T, D]``),
@@ -64,7 +66,7 @@ BEAM_TOPK_KERNEL = False
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES = {"fused_stack_step": 0, "self_attn_block": 0, "cross_attn_block": 0, "ff_block": 0,
             "self_attn_block_beam": 0, "mlp_head_argmax": 0, "mlp_head_topk": 0,
-            "fused_layer_step": 0}
+            "fused_layer_step": 0, "fused_attention": 0}  # the last: ops/attention.py
 
 WIDTH, HEADS = 256, 8  # the widths the CUDA kernels are written for
 
@@ -301,11 +303,20 @@ class _HeadArgs(ctypes.Structure):
     ]
 
 
+class _AttnArgs(ctypes.Structure):
+    """Mirror of ``struct AttnArgs`` in csrc/attention_kernels.cu (same field
+    order); the wrapper is ops/attention.fused_attention."""
+
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "H", "Sq", "Sk", "D", "causal")] + [
+        ("scale", ctypes.c_float)] + [(n, ctypes.c_void_p) for n in ("q", "k", "v", "key_bias", "out")]
+
+
 # source -> (argument struct, entry points, error-string function)
 _LIBS = {
     "decoder_kernels": (_Args, ("rt_stack_step", "rt_self_attn_block", "rt_self_attn_block_beam",
                                 "rt_cross_attn_block", "rt_ff_block"), "rt_error_string"),
     "head_kernels": (_HeadArgs, ("rt_head_trunk", "rt_head_blocks"), "rt_head_error_string"),
+    "attention_kernels": (_AttnArgs, ("rt_fused_attention",), "rt_attn_error_string"),
 }
 _ENTRY = {"fused_stack_step": "rt_stack_step", "self_attn_block": "rt_self_attn_block",
           "cross_attn_block": "rt_cross_attn_block", "ff_block": "rt_ff_block",
@@ -381,7 +392,7 @@ def _run(lib_name: str, entry: str, ref: torch.Tensor, /, **fields) -> None:
     (bf16 when ``ref`` is); ``fields`` are the argument struct's members (ints,
     or tensors passed by data pointer)."""
     struct, _, err = _LIBS[lib_name]
-    args = struct(**{k: (v if isinstance(v, int) else v.data_ptr()) for k, v in fields.items()})
+    args = struct(**{k: (v.data_ptr() if isinstance(v, torch.Tensor) else v) for k, v in fields.items()})
     lib = _lib(lib_name)
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream

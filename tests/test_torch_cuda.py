@@ -2,8 +2,9 @@
 
 The kernels have no CPU mode: on the CPU their plain versions run and are held
 against retr_tpu in the other test_torch_* files. Here each kernel is held
-against its plain version on the card, and greedy decoding through the kernels
-against the plain path on the CPU. Run on the card with
+against its plain version on the card, greedy and beam decoding through the
+kernels against the plain path on the CPU, and the full-width eval step
+through the attention kernel against the plain attention path. Run on the card with
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
@@ -14,9 +15,12 @@ import torch
 from retr_tpu_torch import decode
 from retr_tpu_torch.config import Config
 from retr_tpu_torch.masking import Masked
+from retr_tpu_torch.data.pipeline import Batch
 from retr_tpu_torch.models import weights
+from retr_tpu_torch.ops import attention as fa
 from retr_tpu_torch.ops import decoder_kernels as dk
 from retr_tpu_torch.precision import matmul_precision
+from retr_tpu_torch.train import state as tstate
 
 pytestmark = pytest.mark.cuda
 
@@ -254,3 +258,76 @@ def test_beam_through_kernels_matches_cpu(dev, topk_kernel):
     assert (dk.LAUNCHES["mlp_head_topk"] > 0) == topk_kernel
     assert torch.equal(gpu_t.cpu(), cpu_t)
     assert float((gpu_s.cpu() - cpu_s).abs().max()) <= 1e-4
+
+
+ATTN_CASES = [  # (b, h, sq, sk, causal, pad rate): the model's shapes and ragged ones
+    (3, 2, 37, 53, False, 0.3),
+    (2, 3, 45, 45, True, 0.2),
+    (2, 8, 196, 196, False, 0.1),
+    (2, 8, 128, 196, False, 0.1),
+    (1, 2, 5, 1024, False, 0.5),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_fused_attention_matches_plain_version(dev, dtype, tol, d, case):
+    """Tolerance as a fraction of max(1, max|plain|), as above; the rows where
+    every key is masked (the second row of each case) give the mean of V on
+    both sides."""
+    b, h, sq, sk, causal, rate = case
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype) for s in (sq, sk, sk))
+    pad = torch.rand(b, sk, generator=gen, device=dev) < rate
+    pad[:, 0] = False
+    pad[1 % b] = b > 1
+    kb = torch.where(pad, float("-inf"), 0.0)
+    # split_heads-style views: the wrapper makes them contiguous
+    qv = q.transpose(1, 2).contiguous().transpose(1, 2)
+    dk.reset_launches()
+    got = fa.fused_attention(qv, k, v, kb, causal=causal)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["fused_attention"] == 1
+    with matmul_precision(torch.float32):
+        want = fa.fused_attention_plain(q, k, v, kb, causal=causal)
+    _close_to_plain(got, want, tol)
+    nobias = fa.fused_attention(q, k, v, None, causal=causal)
+    with matmul_precision(torch.float32):
+        _close_to_plain(nobias, fa.fused_attention_plain(q, k, v, None, causal=causal), tol)
+
+
+def test_fused_attention_rejects_what_the_kernel_does_not_take(dev):
+    q = torch.zeros(1, 2, 8, 48, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.fused_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.fused_attention(q, torch.zeros(1, 2, 4000, 32, device=dev), torch.zeros(1, 2, 4000, 32, device=dev))
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        fa.fused_attention(q, q, q, torch.zeros(1, 8, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(NotImplementedError):
+        fa.fused_attention(q.clone().requires_grad_(True), q, q)
+
+
+def test_full_width_eval_step_kernel_matches_plain(dev):
+    """The served model at full width (ResNet-50 dilated, 6+6 layers, d=256,
+    vocab 30522), bf16 compute, batch 4: the validation loss through the
+    fused kernel (18 launches: 6 encoder, 6 causal decoder, 6 cross) equals
+    the plain path's within 1e-4 relative (the transformer computes in f32)."""
+    cfg = Config(backbone="ResNet50", dilation=True, vocab_size=30522, dropout=0.1, compute_dtype="bfloat16")
+    torch.manual_seed(0)
+    params = weights.to_params(weights.reference_module(cfg).state_dict(), cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    caps = torch.randint(3, cfg.vocab_size, (4, 129), generator=gen, device=dev, dtype=torch.int32)
+    caps[:, 0] = 101
+    caps[:, 16:] = 0
+    mask = torch.zeros(4, 224, 224, dtype=torch.bool, device=dev)
+    mask[1, :, 150:] = True
+    batch = Batch(torch.randn(4, 3, 224, 224, generator=gen, device=dev), mask, caps, caps == 0)
+    plain = tstate.make_eval_step(cfg)(params, batch)
+    dk.reset_launches()
+    fused = tstate.make_eval_step(cfg.replace(use_pallas_attention=True))(params, batch)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["fused_attention"] == 18
+    assert torch.isfinite(fused) and abs(float(fused) - float(plain)) <= 1e-4 * abs(float(plain))

@@ -58,7 +58,7 @@ def test_attention_and_heads_match():
     ref = jlayers.multi_head_attention(p, jnp.asarray(q_in), jnp.asarray(kv), jnp.asarray(kv), num_heads=h,
                                        bias=jmask.key_padding_bias(jnp.asarray(pad)))[0]
     got = tlayers.multi_head_attention(_tree(jax.tree.map(np.asarray, p)), _t(q_in), _t(kv), _t(kv),
-                                       num_heads=h, bias=tmask.key_padding_bias(torch.from_numpy(pad)))
+                                       num_heads=h, bias=tmask.key_padding_bias(torch.from_numpy(pad)))[0]
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL * 4)
     x = _t(kv)
     torch.testing.assert_close(tlayers.merge_heads(tlayers.split_heads(x, h)), x, rtol=0, atol=0)
