@@ -10,7 +10,12 @@ Phases (any failure raises, exits non-zero and prints no result line):
   3. hold each kernel against its plain PyTorch version at full width
      (C=256, 8 heads, F=2048, T=128, S=196, L=6, MLP 256-512-512-30522) in f32
      and bf16, and time kernel, plain version and a library yardstick (CUDA
-     events): the decoder-layer kernels at batch 32 and 512, the beam block and
+     events): the decoder-layer kernels at batch 32 and 512 (the stacked
+     step's lines carry its grid: blocks, blocks per SM, grid barriers), the
+     stacked step (L=6) and fused_layer_step (L=1) also unclocked at batch 1,
+     5, 32, 33 and 512 and step 0, 63 and 127 (a row seeing one memory
+     position; a second launch must give the same bits and only the cache slot
+     at `step` may change), the beam block and
      the top-k head at 160 and 2560 rows (batch 32 and 512 x beam 5), the
      argmax head at 32 and 512 rows, fused_attention at batch 32 for the
      encoder (196x196, key padding), the causal decoder (128x128, ~15 real
@@ -72,16 +77,16 @@ HBM_BYTES_PER_S = 3.35e12                         # H100 SXM data sheet
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 CHECK_STEP = 63                                   # mid-decode position for the kernel checks
 DEC_SRC, HEAD_SRC = "retr_tpu_torch/csrc/decoder_kernels.cu", "retr_tpu_torch/csrc/head_kernels.cu"
-ATT_SRC = "retr_tpu_torch/csrc/attention_kernels.cu"
+ATT_SRC, STACK_SRC = "retr_tpu_torch/csrc/attention_kernels.cu", "retr_tpu_torch/csrc/stack_kernels.cu"
 KERNELS = {  # wrapper -> (the Pallas kernel it replaces, CUDA source, the main path's case (dtype, rows or shape))
-    "fused_stack_step": ("retr_tpu/ops/decoder_kernels.py:1026", DEC_SRC, ("bfloat16", 32)),
+    "fused_stack_step": ("retr_tpu/ops/decoder_kernels.py:1026", STACK_SRC, ("bfloat16", 32)),
     "self_attn_block": ("retr_tpu/ops/decoder_kernels.py:228", DEC_SRC, ("bfloat16", 32)),
     "cross_attn_block": ("retr_tpu/ops/decoder_kernels.py:450", DEC_SRC, ("bfloat16", 32)),
     "ff_block": ("retr_tpu/ops/decoder_kernels.py:96", DEC_SRC, ("bfloat16", 32)),
     "self_attn_block_beam": ("retr_tpu/ops/decoder_kernels.py:380", DEC_SRC, ("bfloat16", 32 * BEAM)),
     "mlp_head_argmax": ("retr_tpu/ops/decoder_kernels.py:525", HEAD_SRC, ("bfloat16", 32)),
     "mlp_head_topk": ("retr_tpu/ops/decoder_kernels.py:615", HEAD_SRC, ("bfloat16", 32 * BEAM)),
-    "fused_layer_step": ("retr_tpu/ops/decoder_kernels.py:774", DEC_SRC, ("bfloat16", 32)),
+    "fused_layer_step": ("retr_tpu/ops/decoder_kernels.py:774", STACK_SRC, ("bfloat16", 32)),
     # the transformer computes in f32 in both compute types (input_proj promotes)
     "fused_attention": ("retr_tpu/ops/attention.py:80", ATT_SRC, ("float32", "encoder")),
 }
@@ -194,10 +199,13 @@ def _tensor_err(got, want, dname):
     return (err if finite else float("inf")), TOL[dname] * max(1.0, float(want[0].abs().max()))
 
 
-def measure(name, dname, rows, kern, plain, lib, nl, err_fn=None):
+def measure(name, dname, rows, kern, plain, lib, nl, err_fn=None, extra=None):
     """Hold kern(0) against plain(0), then time kernel, plain version and library
     yardstick (each a function of the layer index, cycled over ``nl`` layers as
-    the decode loop does). Returns the record; raises if they disagree."""
+    the decode loop does). ``extra`` joins the record; where it holds a
+    profiled ``device_ms``, that is the record's ``ms`` and the events' time
+    (host-bound when the wrapper is slower than the kernel) is ``ms_events``.
+    Returns the record; raises if they disagree."""
     import torch
 
     from retr_tpu_torch.precision import matmul_precision
@@ -214,7 +222,9 @@ def measure(name, dname, rows, kern, plain, lib, nl, err_fn=None):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
     rec = dict(name=name, dtype=dname, batch=rows, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
+               bound_by="bytes" if t_bytes >= t_ops else "operations", **(extra or {}))
+    if isinstance(rec.get("device_ms"), float):   # the kernel alone, not the host's wrapper
+        rec["ms_events"], rec["ms"] = ms, rec["device_ms"]
     log("kernel", json.dumps(rec))
     if not err <= tol:
         raise AssertionError(f"{name} {dname} rows={rows}: max_abs_err {err} > {tol}")
@@ -274,8 +284,120 @@ def check_kernels(dev):
                 # split kernels cycle over the 6 layers' weights and K/V, as
                 # the decode loop does; the stacked one covers them per launch
                 nl = 1 if name == "fused_stack_step" else L
-                out[(name, dname, b)] = measure(name, dname, b, kern, plain, lib, nl)
+                extra = None
+                if name in STACKED:
+                    layers = L if name == "fused_stack_step" else 1
+                    grid = dk.stack_grid(dtype, b, T, S, F, layers)
+                    extra = {"grid": grid, **stack_detail(lambda: kern(0), grid)}
+                out[(name, dname, b)] = measure(name, dname, b, kern, plain, lib, nl, extra=extra)
     return out
+
+
+STACKED = ("fused_stack_step", "fused_layer_step")   # rt_stack_step with L = 6 and L = 1
+STACK_PHASES = ("ln1_qkv", "self_attn", "self_out_proj", "ln2_cross_q", "cross_attn", "cross_out_proj",
+                "ln3_ff1", "ff2", "ff2_chunk_sum")   # the last only where FF2 is split
+
+
+def stack_detail(call, grid):
+    """rt_stack_step's device time per launch (torch.profiler over 20
+    launches, the kernel alone: the events of ``measure`` include the host's
+    wrapper when it is slower than the kernel) and its phase times from the
+    kernel's own trace of one launch (block 0's clock at each grid barrier),
+    in microseconds per phase kind summed over the layers."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "stack_kernel" in e.name]
+    dk._stack_trace = torch.zeros(grid["grid_barriers"] + 2, dtype=torch.int64, device="cuda")
+    try:
+        call()
+        torch.cuda.synchronize()
+        stamps = dk._stack_trace.tolist()
+    finally:
+        dk._stack_trace = None
+    dur = [(b - a) / 1e3 for a, b in zip(stamps, stamps[1:])]
+    names = STACK_PHASES if grid["ff2_chunks"] > 1 else STACK_PHASES[:-1]
+    return {"device_ms": sum(spans) / len(spans) / 1e3 if spans else "not measured (no CUDA events traced)",
+            "traced_launch_us": (stamps[-1] - stamps[0]) / 1e3,
+            "phase_us": {n: sum(dur[i::len(names)]) for i, n in enumerate(names)}}
+
+
+def _bits(t):
+    """The tensor's bits, for byte-for-byte comparison."""
+    import torch
+
+    return t.contiguous().view(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def check_stack_edges(dev):
+    """The stacked step (L=6) and fused_layer_step (L=1) against their plain
+    versions at batch 1, 5, 32, 33 and 512 and step 0, 63 and T-1, f32 and bf16;
+    row 0's key bias leaves it one memory position. A second launch on the same
+    inputs must give the same bits, and the caches may change only at the slot
+    ``step`` of the launched layers. Prints one line; raises on a miss."""
+    import torch
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+    from retr_tpu_torch.precision import matmul_precision
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst, cases = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        slp = random_decoder(gen, dev, dtype)
+        for b in (1, 5, 32, 33, 512):
+            rn = lambda *shape, s=1.0: (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)  # noqa: E731
+            x, qpos = rn(b, C), rn(C, s=0.5)
+            kc, vc = rn(L, b, H, T, D), rn(L, b, H, T, D)
+            ck, cv = rn(L, b, H, S, D), rn(L, b, H, S, D)
+            pad = torch.rand(b, S, generator=gen, device=dev) < 0.2
+            pad[:, 0] = False
+            pad[0, 1:] = True
+            kb = torch.where(pad, float("-inf"), 0.0)
+            for step_v in (0, CHECK_STEP, T - 1):
+                step = torch.tensor(step_v, dtype=torch.int32, device=dev)
+                keep = torch.arange(T, device=dev) != step_v
+                for name in STACKED:
+                    nl = L if name == "fused_stack_step" else 1
+
+                    def call(fn, k, v):
+                        if nl == L:
+                            return fn(slp, x, qpos, k, v, ck, cv, kb, step, num_heads=H)[0]
+                        return fn(dk.layer_params(slp, 0), x, qpos, k[0], v[0], ck[0], cv[0], kb, step,
+                                  num_heads=H)[0]
+
+                    runs = [(kc.clone(), vc.clone()) for _ in range(3)]
+                    got, again = call(getattr(dk, name), *runs[0]), call(getattr(dk, name), *runs[1])
+                    with matmul_precision(torch.float32):
+                        want = call(getattr(dk, name + "_plain"), *runs[2])
+                    torch.cuda.synchronize()
+                    err, tol = _tensor_err((got, runs[0][0][:nl, :, :, step_v], runs[0][1][:nl, :, :, step_v]),
+                                           (want, runs[2][0][:nl, :, :, step_v], runs[2][1][:nl, :, :, step_v]),
+                                           dname)
+                    same = torch.equal(_bits(got), _bits(again)) and all(
+                        torch.equal(_bits(runs[0][i]), _bits(runs[1][i])) for i in (0, 1))
+                    untouched = all(
+                        torch.equal(_bits(runs[0][i][:nl, :, :, keep]), _bits(orig[:nl, :, :, keep]))
+                        and torch.equal(_bits(runs[0][i][nl:]), _bits(orig[nl:])) for i, orig in enumerate((kc, vc)))
+                    key = f"{name} {dname}"
+                    worst[key] = max(worst.get(key, 0.0), err / tol)
+                    cases += 1
+                    if not (err <= tol and same and untouched):
+                        raise AssertionError(f"{name} {dname} batch {b} step {step_v}: err {err} (tol {tol}), "
+                                             f"same bits {same}, other slots untouched {untouched}")
+            del kc, vc, ck, cv
+        torch.cuda.empty_cache()
+    log("stack_edges", json.dumps({"cases": cases, "worst_err_over_tol": worst}))
 
 
 def random_head(gen, dev, dtype):
@@ -950,6 +1072,7 @@ def main() -> int:
     log("build", json.dumps({"seconds": time.perf_counter() - t0}))
 
     checks = {**check_kernels(dev), **check_beam_and_heads(dev), **check_attention(dev)}   # phase 3
+    check_stack_edges(dev)
     torch.cuda.empty_cache()
 
     state = random_state(served_config("bfloat16"))                        # phase 4
@@ -981,6 +1104,9 @@ def main() -> int:
                                           "library_ms") if k in r}
                       for (n, _, _), r in checks.items() if n == name],
         }
+        for key in ("grid", "device_ms", "phase_us"):    # rt_stack_step's own lines
+            if key in main_rec:
+                entry[key] = main_rec[key]
         if name == "fused_attention":   # launches: eval steps; the serving encoder's beside them
             entry["launches_serving_encoder"] = launches["fused_attention (serving encoder)"]
         entries.append(entry)

@@ -1,7 +1,7 @@
 // Decode-step kernels for Hopper (sm_90a): one KV-cached greedy position through
 // the pre-norm decoder layers of the caption transformer.
 //
-// Five entry points, each the counterpart of Pallas kernels of
+// Four entry points, each the counterpart of a Pallas kernel of
 // retr_tpu/ops/decoder_kernels.py:
 //   rt_ff_block          <- ff_block          (LN -> Linear(C,F) -> ReLU -> Linear(F,C) -> +x)
 //   rt_cross_attn_block  <- cross_attn_block  (LN -> +qpos -> Q -> attention over memory K/V
@@ -10,28 +10,23 @@
 //                                              -> attention over positions <= step -> out-proj -> +x)
 //   rt_self_attn_block_beam <- self_attn_block_beam (as rt_self_attn_block, but row i reads
 //                                              position t from its group's row anc[i, t])
-//   rt_stack_step        <- fused_stack_step  (all L layers, self -> cross -> FF each, one launch)
-//                        <- fused_layer_step  (the same kernel with L = 1)
+// The stacked step (fused_stack_step, fused_layer_step) is stack_kernels.cu.
 //
 // Design. The work of one decode position is a chain of skinny products
 // ([rows, 256] x [256, N]) plus one-query attention over per-row caches. On the
 // H100 it is bound by bytes (weights, cross K/V, self caches), not by operations.
 // One thread block owns a tile of R rows for the whole chain and keeps their
 // residual in shared memory in f32, so nothing but the inputs, the one new cache
-// slot and the output touches device memory. The stacked kernel loops over the
-// layers and heads inside the block (the TPU carried them across grid steps in
-// scratch, which Hopper's unordered blocks cannot do). Weights stream from global
-// memory in 16-byte loads with eight loads in flight per thread; at bf16 the six
-// layers' weights (~17 MB) fit the 50 MB L2, so row tiles after the first read
-// them from L2. Only the slot at `step` of each self cache is written (the TPU
-// kernel wrote whole cache blocks back).
+// slot and the output touches device memory. Weights stream from global memory
+// in 16-byte loads with eight loads in flight per thread; row tiles after the
+// first read them from L2. Only the slot at `step` of each self cache is
+// written (the TPU kernel wrote whole cache blocks back).
 //
 // Numerics follow the TPU kernels: every product casts the activation to the
 // weight type and accumulates in f32; LayerNorm and softmax run in f32; the
 // current position's attention uses the unrounded f32 k/v while the cache stores
-// them rounded; the split kernels round the residual to the storage type after
-// each head's out-projection part (head order), the stacked kernel keeps it in
-// f32 across all layers and rounds only its output.
+// them rounded; the kernels round the residual to the storage type after each
+// head's out-projection part (head order), as the TPU split kernels do.
 //
 // Beam search (rt_self_attn_block_beam). Each row writes only its own cache slot;
 // row i reads position t from row anc[i, t] of its beam group of K rows. A block
@@ -47,9 +42,9 @@
 // of 256; the beam group is 1..8 rows. The wrappers in ops/decoder_kernels.py
 // check every shape.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 // Launch arguments, mirrored field for field by _Args in ops/decoder_kernels.py.
 struct Args {
@@ -87,47 +82,6 @@ constexpr int kRows = 4;
 constexpr float kScale = 0.176776695296636881f;  // HD ** -0.5 in f32
 constexpr float kMaskVal = -1e30f;
 
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Round to the storage type and back: the identity in f32.
-template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
-
-// Eight consecutive elements starting at a 16-byte aligned address.
-__device__ __forceinline__ void load8(const float* p, float* o) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
-  const uint4 u = reinterpret_cast<const uint4*>(p)[0];
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Floats of the shared reduction area: product partials or attention scores.
 template <int R>
@@ -238,19 +192,19 @@ __device__ void mv_finish(const float* red, const T* bias, int n0, float scale, 
 }
 
 // x <- x + bo + sum_h part_h with part_h the head-h slice of the out-projection
-// (warp h's partial). SPLIT rounds like the TPU split kernels; else f32 throughout.
-template <int R, typename T, bool SPLIT>
+// (warp h's partial), rounded to the storage type after each part as the TPU
+// split kernels round.
+template <int R, typename T>
 __device__ void add_heads(float* x, const float* red, const T* bo) {
   for (int i = threadIdx.x; i < R * C; i += NT) {
     const int r = i >> 8, n = i & 255;
     float acc = x[i] + to_f(bo[n]);
-    if (SPLIT) acc = rnd<T>(acc);
+    acc = rnd<T>(acc);
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
       float p = red[(h * R + r) * 256 + n];
-      if (SPLIT && h > 0) p = rnd<T>(p);
-      acc = acc + p;
-      if (SPLIT) acc = rnd<T>(acc);
+      if (h > 0) p = rnd<T>(p);
+      acc = rnd<T>(acc + p);
     }
     x[i] = acc;
   }
@@ -326,7 +280,7 @@ __device__ void attend_values(const float* p, int smax, int n, int cur, const T*
 
 // Self-attention residual block of layer `l` for the block's rows. BEAM: rows
 // read each position through the ancestry (the block holds whole beam groups).
-template <int R, typename T, bool SPLIT, bool BEAM>
+template <int R, typename T, bool BEAM>
 __device__ void self_phase(Smem<R>& s, const Args& a, int l, int row0, int nrows, int step, int smax) {
   const size_t lc = (size_t)l * C, lcc = (size_t)l * C * C;
   const T* qpos = static_cast<const T*>(a.qpos);
@@ -409,12 +363,12 @@ __device__ void self_phase(Smem<R>& s, const Args& a, int l, int row0, int nrows
   __syncthreads();
   mv_partials<R, T>(s.a, static_cast<const T*>(a.swo) + lcc, C, 0, s.red);
   __syncthreads();
-  add_heads<R, T, SPLIT>(s.x, s.red, static_cast<const T*>(a.sbo) + lc);
+  add_heads<R, T>(s.x, s.red, static_cast<const T*>(a.sbo) + lc);
   __syncthreads();
 }
 
 // Cross-attention residual block of layer `l` against the precomputed memory K/V.
-template <int R, typename T, bool SPLIT>
+template <int R, typename T>
 __device__ void cross_phase(Smem<R>& s, const Args& a, int l, int row0, int nrows, int smax) {
   const size_t lc = (size_t)l * C, lcc = (size_t)l * C * C;
   const T* qpos = static_cast<const T*>(a.qpos);
@@ -458,12 +412,12 @@ __device__ void cross_phase(Smem<R>& s, const Args& a, int l, int row0, int nrow
   __syncthreads();
   mv_partials<R, T>(s.a, static_cast<const T*>(a.cwo) + lcc, C, 0, s.red);
   __syncthreads();
-  add_heads<R, T, SPLIT>(s.x, s.red, static_cast<const T*>(a.cbo) + lc);
+  add_heads<R, T>(s.x, s.red, static_cast<const T*>(a.cbo) + lc);
   __syncthreads();
 }
 
 // Feed-forward residual block of layer `l`, hidden dim in 256-wide chunks.
-template <int R, typename T, bool SPLIT>
+template <int R, typename T>
 __device__ void ff_phase(Smem<R>& s, const Args& a, int l, int row0) {
   const size_t lc = (size_t)l * C, lcf = (size_t)l * C * a.F, lf = (size_t)l * a.F;
   layer_norm_rows<R, T>(s.x, static_cast<const T*>(a.ln3s) + lc, static_cast<const T*>(a.ln3b) + lc, s.t);
@@ -501,8 +455,7 @@ __device__ void ff_phase(Smem<R>& s, const Args& a, int l, int row0) {
   const T* b2 = static_cast<const T*>(a.b2) + lc;
   for (int i = threadIdx.x; i < R * C; i += NT) {
     const float bias = to_f(b2[i & (C - 1)]);
-    if (SPLIT) s.x[i] = rnd<T>(s.x[i] + rnd<T>(s.kn[i] + bias));
-    else s.x[i] = (s.x[i] + bias) + s.kn[i];
+    s.x[i] = rnd<T>(s.x[i] + rnd<T>(s.kn[i] + bias));
   }
   __syncthreads();
 }
@@ -522,7 +475,7 @@ __device__ void store_rows(Smem<R>& s, const Args& a, int row0, int nrows) {
     if ((i >> 8) < nrows) y[(size_t)row0 * C + i] = from_f<T>(s.x[i]);
 }
 
-enum Kind { kStack = 0, kSelf = 1, kCross = 2, kFF = 3, kSelfBeam = 4 };
+enum Kind { kSelf = 1, kCross = 2, kFF = 3, kSelfBeam = 4 };
 
 // Rows a block owns: R, or for the beam block the whole beam groups that fit in R.
 template <int R, int K>
@@ -539,21 +492,14 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Args a) {
   const int row0 = blockIdx.x * rows;
   const int nrows = min(rows, a.B - row0);
   load_rows<R, T>(s, a, row0, nrows);
-  if constexpr (K == kStack) {
-    const int step = *a.step;
-    for (int l = 0; l < a.L; ++l) {
-      self_phase<R, T, false, false>(s, a, l, row0, nrows, step, smax);
-      cross_phase<R, T, false>(s, a, l, row0, nrows, smax);
-      ff_phase<R, T, false>(s, a, l, row0);
-    }
-  } else if constexpr (K == kSelf) {
-    self_phase<R, T, true, false>(s, a, 0, row0, nrows, *a.step, smax);
+  if constexpr (K == kSelf) {
+    self_phase<R, T, false>(s, a, 0, row0, nrows, *a.step, smax);
   } else if constexpr (K == kSelfBeam) {
-    self_phase<R, T, true, true>(s, a, 0, row0, nrows, *a.step, smax);
+    self_phase<R, T, true>(s, a, 0, row0, nrows, *a.step, smax);
   } else if constexpr (K == kCross) {
-    cross_phase<R, T, true>(s, a, 0, row0, nrows, smax);
+    cross_phase<R, T>(s, a, 0, row0, nrows, smax);
   } else {
-    ff_phase<R, T, true>(s, a, 0, row0);
+    ff_phase<R, T>(s, a, 0, row0);
   }
   store_rows<R, T>(s, a, row0, nrows);
 }
@@ -604,7 +550,6 @@ int launch(const Args* a, int bf16, void* stream) {
 extern "C" {
 
 // Each returns cudaGetLastError() after the launch (0 = launched).
-int rt_stack_step(const Args* a, int bf16, void* stream) { return launch<kStack>(a, bf16, stream); }
 int rt_self_attn_block(const Args* a, int bf16, void* stream) { return launch<kSelf>(a, bf16, stream); }
 int rt_self_attn_block_beam(const Args* a, int bf16, void* stream) { return launch<kSelfBeam>(a, bf16, stream); }
 int rt_cross_attn_block(const Args* a, int bf16, void* stream) { return launch<kCross>(a, bf16, stream); }

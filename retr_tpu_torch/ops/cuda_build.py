@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 into ``retr_tpu_torch/_build/`` (listed in ``.gitignore``), under a name that
-carries a hash of the source and the flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is. Nothing is compiled at import time: the
+carries a hash of the source, the shared headers ``csrc/*.cuh`` and the flags,
+so an edited source or header is rebuilt and an unchanged one is loaded as it
+is. Nothing is compiled at import time: the
 CPU tests import every module on machines without ``nvcc``.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -40,10 +41,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all(names: Sequence[str]) -> None:

@@ -13,10 +13,11 @@ the greedy and beam serving paths run:
 - :func:`fused_layer_step` <- ``fused_layer_step`` (flag ``MERGED_LAYER``; the
   stacked kernel with one layer)
 
-The decoder-layer kernels are csrc/decoder_kernels.cu, the head kernels
-csrc/head_kernels.cu. The library registry here (``_LIBS``, ``build()``) also
-holds csrc/attention_kernels.cu, the full-sequence attention kernel of
-ops/attention.py, whose launches ``LAUNCHES["fused_attention"]`` counts.
+The stacked step (``fused_stack_step``, ``fused_layer_step``) is
+csrc/stack_kernels.cu, the split decoder-layer kernels csrc/decoder_kernels.cu,
+the head kernels csrc/head_kernels.cu. The library registry here (``_LIBS``,
+``build()``) also holds csrc/attention_kernels.cu, the full-sequence attention
+kernel of ops/attention.py, whose launches ``LAUNCHES["fused_attention"]`` counts.
 
 Each takes the JAX package's parameter dicts (linear weights ``[in, out]``) and
 its XLA-path layouts: self caches ``[B, H, T, D]`` (stacked ``[L, B, H, T, D]``),
@@ -294,6 +295,15 @@ class _Args(ctypes.Structure):
     ]
 
 
+class _StackArgs(ctypes.Structure):
+    """Mirror of ``struct StackArgs`` in csrc/stack_kernels.cu (same field
+    order): the layer fields of _Args, then the kernel's f32 scratch."""
+
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "T", "S", "F", "L", "max_blocks")] + [
+        (n, ctypes.c_void_p) for n in _PTRS[:-1] + ("xres", "qkv", "att", "hid", "part", "trace")
+    ]
+
+
 class _HeadArgs(ctypes.Structure):
     """Mirror of ``struct HeadArgs`` in csrc/head_kernels.cu (same field order)."""
 
@@ -313,14 +323,19 @@ class _AttnArgs(ctypes.Structure):
 
 # source -> (argument struct, entry points, error-string function)
 _LIBS = {
-    "decoder_kernels": (_Args, ("rt_stack_step", "rt_self_attn_block", "rt_self_attn_block_beam",
-                                "rt_cross_attn_block", "rt_ff_block"), "rt_error_string"),
+    "decoder_kernels": (_Args, ("rt_self_attn_block", "rt_self_attn_block_beam", "rt_cross_attn_block",
+                                "rt_ff_block"), "rt_error_string"),
+    "stack_kernels": (_StackArgs, ("rt_stack_step",), "rt_stack_error_string"),
     "head_kernels": (_HeadArgs, ("rt_head_trunk", "rt_head_blocks"), "rt_head_error_string"),
     "attention_kernels": (_AttnArgs, ("rt_fused_attention",), "rt_attn_error_string"),
 }
-_ENTRY = {"fused_stack_step": "rt_stack_step", "self_attn_block": "rt_self_attn_block",
-          "cross_attn_block": "rt_cross_attn_block", "ff_block": "rt_ff_block",
-          "self_attn_block_beam": "rt_self_attn_block_beam", "fused_layer_step": "rt_stack_step"}
+# wrapper -> (source, entry point)
+_ENTRY = {"fused_stack_step": ("stack_kernels", "rt_stack_step"),
+          "fused_layer_step": ("stack_kernels", "rt_stack_step"),
+          "self_attn_block": ("decoder_kernels", "rt_self_attn_block"),
+          "cross_attn_block": ("decoder_kernels", "rt_cross_attn_block"),
+          "ff_block": ("decoder_kernels", "rt_ff_block"),
+          "self_attn_block_beam": ("decoder_kernels", "rt_self_attn_block_beam")}
 _handles: Dict[str, ctypes.CDLL] = {}
 
 
@@ -403,7 +418,7 @@ def _run(lib_name: str, entry: str, ref: torch.Tensor, /, **fields) -> None:
 
 def _launch(kernel: str, ref: torch.Tensor, /, **fields) -> None:
     """Launch the decoder-layer kernel behind wrapper ``kernel`` and count it."""
-    _run("decoder_kernels", _ENTRY[kernel], ref, **fields)
+    _run(*_ENTRY[kernel], ref, **fields)
     LAUNCHES[kernel] += 1
 
 
@@ -498,10 +513,13 @@ def fused_stack_step(slp: Params, x, qpos, k_cache, v_cache, cross_k, cross_v, k
     Replaces retr_tpu/ops/decoder_kernels.py ``fused_stack_step``
     (``_stack_kernel``). Bound on the card: bytes — every layer's weights plus
     the cross K/V and the self caches, against ~2 operations per weight byte per
-    row. Design: one launch; each block owns a row tile for all layers and keeps
-    the f32 residual in shared memory, looping over layers and heads inside the
-    block (the TPU carried them across grid steps in scratch); FF runs in
-    256-wide hidden chunks; only the new cache slots are written.
+    row. Design (csrc/stack_kernels.cu): one cooperative launch over as many
+    blocks as fit on the card; each layer runs in 8 grid-wide phases (9 at
+    small batches, where FF2 is split into hidden chunks) separated by grid
+    barriers (products split by 16-row x 32-column tiles, bf16 on
+    tensor cores; attention split by (row, head)); the residual, q/k/v, the
+    attention output, the FF hidden and FF2's per-chunk products pass between
+    phases through scratch allocated here; only the new cache slots are written.
     """
     if x.device.type == "cpu":
         return fused_stack_step_plain(slp, x, qpos, k_cache, v_cache, cross_k, cross_v,
@@ -509,6 +527,15 @@ def fused_stack_step(slp: Params, x, qpos, k_cache, v_cache, cross_k, cross_v, k
     y = _stack_launch("fused_stack_step", slp, x, qpos, k_cache, v_cache, cross_k, cross_v, key_bias,
                       step, num_heads)
     return y, k_cache, v_cache
+
+
+# A cap on rt_stack_step's grid (0: as many blocks as fit); the card tests set
+# it to show that the result does not depend on the grid size.
+_stack_max_blocks = 0
+# None, or an int64 CUDA tensor of (grid barriers + 2) entries that
+# rt_stack_step fills with block 0's clock (ns) at its start, after each grid
+# barrier and at its end: the time of each phase (chip_smoke.py's breakdown).
+_stack_trace = None
 
 
 def _stack_launch(kernel, slp, x, qpos, k_cache, v_cache, cross_k, cross_v, key_bias, step, num_heads):
@@ -538,8 +565,44 @@ def _stack_launch(kernel, slp, x, qpos, k_cache, v_cache, cross_k, cross_v, key_
              kc=k_cache, vc=v_cache, ck=cross_k, cv=cross_v, key_bias=key_bias, step=step)
     _check(kernel, x.dtype, _param_shapes(f, nl), x=x, **t)
     y = torch.empty_like(x)
-    _launch(kernel, x, B=b, T=tmax, S=s, F=f, L=nl, x=x, y=y, **t)
+    buf, scratch = _stack_scratch(b, f, x.device)
+    _launch(kernel, x, B=b, T=tmax, S=s, F=f, L=nl, max_blocks=_stack_max_blocks, x=x, y=y, **t, **scratch,
+            trace=_stack_trace)
+    del buf                                       # after the launch is queued
     return y
+
+
+def _stack_scratch(b: int, f: int, device):
+    """rt_stack_step's f32 scratch, one allocation, and the addresses of its
+    parts: the residual [2, B, C], q/k/v [B, 3C], the attention output [B, C],
+    the FF hidden [B, F] (which the kernel keeps in the storage type, within
+    the same bytes) and FF2's products per hidden chunk [min(8, F/256), B, C].
+    The caller holds the buffer until the launch is queued; freed then, the
+    caching allocator reuses it only for work queued after the kernel."""
+    c = WIDTH
+    sizes = (2 * b * c, 3 * b * c, b * c, b * f, min(8, f // 256) * b * c)
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    at, parts = buf.data_ptr(), {}
+    for name, n in zip(("xres", "qkv", "att", "hid", "part"), sizes):
+        parts[name] = at
+        at += 4 * n
+    return buf, parts
+
+
+def stack_grid(dtype: torch.dtype, b: int, t: int, s: int, f: int, nl: int) -> Dict[str, int]:
+    """The grid rt_stack_step launches on the current CUDA device for these
+    shapes: blocks, co-resident blocks per SM, grid barriers per launch, and
+    the hidden chunks FF2 is split into."""
+    lib = _lib("stack_kernels")
+    fn = lib.rt_stack_grid
+    fn.argtypes = [ctypes.POINTER(_StackArgs), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    args = _StackArgs(B=b, T=t, S=s, F=f, L=nl, max_blocks=_stack_max_blocks)
+    rc = fn(ctypes.byref(args), int(dtype == torch.bfloat16), out)
+    if rc != 0:
+        raise RuntimeError(f"rt_stack_grid: {lib.rt_stack_error_string(rc).decode()}")
+    return {"blocks": out[0], "blocks_per_sm": out[1], "grid_barriers": out[2], "ff2_chunks": out[3]}
 
 
 def fused_layer_step(lp: Params, x, qpos, k_cache, v_cache, cross_k, cross_v, key_bias, step,
@@ -552,7 +615,7 @@ def fused_layer_step(lp: Params, x, qpos, k_cache, v_cache, cross_k, cross_v, ke
     Replaces retr_tpu/ops/decoder_kernels.py ``fused_layer_step``
     (``_layer_kernel``), which computes what ``fused_stack_step`` computes for
     one layer; so does this wrapper, launching ``rt_stack_step`` with L = 1 on
-    views of the layer (no new CUDA). Bound and design: see fused_stack_step.
+    views of the layer (7-8 grid barriers). Bound and design: see fused_stack_step.
     """
     if x.device.type == "cpu":
         return fused_layer_step_plain(lp, x, qpos, k_cache, v_cache, cross_k, cross_v, key_bias,

@@ -35,15 +35,15 @@ def dev():
     return torch.device("cuda")
 
 
-def _decoder(gen, dev, dtype):
+def _decoder(gen, dev, dtype, nl=L):
     def rn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
     def lin(i, o):
-        return {"w": rn(L, i, o, scale=(2.0 / (i + o)) ** 0.5), "b": rn(L, o, scale=0.02)}
+        return {"w": rn(nl, i, o, scale=(2.0 / (i + o)) ** 0.5), "b": rn(nl, o, scale=0.02)}
 
     def norm():
-        return {"scale": (1 + rn(L, C, scale=0.1).float()).to(dtype), "bias": rn(L, C, scale=0.1)}
+        return {"scale": (1 + rn(nl, C, scale=0.1).float()).to(dtype), "bias": rn(nl, C, scale=0.1)}
 
     def mha():
         return {k: lin(C, C) for k in ("q", "k", "v", "out")}
@@ -187,6 +187,87 @@ def test_fused_layer_step_matches_plain_version(dev, dtype, tol):
     torch.cuda.synchronize()
     assert dk.LAUNCHES["fused_layer_step"] == 1 and dk.LAUNCHES["fused_stack_step"] == 0
     _close_to_plain(got, want, tol)
+
+
+STACK_T = 128  # the served cache length: steps 0, 63 and T - 1 below
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)])
+@pytest.mark.parametrize("step", [0, 63, STACK_T - 1])
+@pytest.mark.parametrize("batch", [1, 5, 32, 33, 512])
+@pytest.mark.parametrize("wrapper", ["fused_stack_step", "fused_layer_step"])
+def test_stacked_step_matches_plain_version(dev, wrapper, batch, step, dtype, tol):
+    """rt_stack_step (6 layers through fused_stack_step, 1 through
+    fused_layer_step) against the plain version: ragged batches (not multiples
+    of the 16-row tile), the first and last cache slot, a row whose key bias
+    masks all but one memory position. A second launch, and a launch on a
+    7-block grid, give the same bits; only the cache slot at ``step`` changes."""
+    stacked = wrapper == "fused_stack_step"
+    nl = 6 if stacked else 1
+    gen = torch.Generator(device=dev).manual_seed(10 + batch + step)
+    slp = _decoder(gen, dev, dtype, nl)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    x, qpos = rn(batch, C), rn(C)
+    kc, vc = rn(nl, batch, H, STACK_T, D), rn(nl, batch, H, STACK_T, D)
+    ck, cv = rn(nl, batch, H, S, D), rn(nl, batch, H, S, D)
+    pad = torch.rand(batch, S, generator=gen, device=dev) < 0.3
+    pad[:, 0] = False
+    pad[0, 1:] = True                      # row 0 sees one memory position
+    kb = torch.where(pad, float("-inf"), 0.0)
+    st = torch.tensor(step, dtype=torch.int32, device=dev)
+
+    def run(caches, fn):
+        k, v = caches
+        if stacked:
+            return fn(slp, x, qpos, k, v, ck, cv, kb, st, num_heads=H)[0]
+        return fn(dk.layer_params(slp, 0), x, qpos, k[0], v[0], ck[0], cv[0], kb, st, num_heads=H)[0]
+
+    runs = [(kc.clone(), vc.clone()) for _ in range(4)]
+    dk.reset_launches()
+    got = run(runs[0], getattr(dk, wrapper))
+    assert dk.LAUNCHES[wrapper] == 1
+    again = run(runs[1], getattr(dk, wrapper))
+    old = dk._stack_max_blocks
+    dk._stack_max_blocks = 7
+    try:
+        small_grid = run(runs[2], getattr(dk, wrapper))
+    finally:
+        dk._stack_max_blocks = old
+    with matmul_precision(torch.float32):
+        want = run(runs[3], getattr(dk, wrapper + "_plain"))
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES[wrapper] == 3 and sum(dk.LAUNCHES.values()) == 3
+    _close_to_plain(got, want, tol)
+    for other in (again, small_grid):
+        assert torch.equal(got, other)
+    keep = torch.arange(STACK_T, device=dev) != step
+    for i, orig in enumerate((kc, vc)):
+        assert torch.equal(runs[0][i], runs[1][i]) and torch.equal(runs[0][i], runs[2][i])
+        assert torch.equal(runs[0][i][:, :, :, keep].view(torch.uint8), orig[:, :, :, keep].view(torch.uint8))
+        _close_to_plain(runs[0][i][:, :, :, step], runs[3][i][:, :, :, step], tol)
+
+
+def test_stacked_step_rejects_what_the_kernel_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    slp = _decoder(gen, dev, torch.float32)
+    x, qpos = torch.zeros(4, C, device=dev), torch.zeros(C, device=dev)
+    kc, ck = torch.zeros(L, 4, H, T, D, device=dev), torch.zeros(L, 4, H, S, D, device=dev)
+    kb, st = torch.zeros(4, S, device=dev), torch.zeros((), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="width"):
+        dk.fused_stack_step(slp, x, qpos, kc, kc.clone(), ck, ck.clone(), kb, st, num_heads=4)
+    with pytest.raises(ValueError, match="shapes"):
+        dk.fused_stack_step(slp, x, qpos, kc[:, :3], kc[:, :3].clone(), ck, ck.clone(), kb, st, num_heads=H)
+    with pytest.raises(ValueError, match="float16"):
+        dk.fused_stack_step(slp, x.half(), qpos, kc, kc.clone(), ck, ck.clone(), kb, st, num_heads=H)
+    with pytest.raises(ValueError, match="int32"):
+        dk.fused_layer_step(dk.layer_params(slp, 0), x, qpos, kc[0], kc[0].clone(), ck[0], ck[0].clone(), kb,
+                            st.long(), num_heads=H)
+    with pytest.raises(ValueError, match="aligned"):
+        dk.fused_layer_step(dk.layer_params(slp, 0), torch.zeros(4, C + 1, device=dev)[:, 1:], qpos, kc[0],
+                            kc[0].clone(), ck[0], ck[0].clone(), kb, st, num_heads=H)
 
 
 def _head(gen, dev, dtype, vocab, ties=()):

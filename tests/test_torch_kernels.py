@@ -112,18 +112,23 @@ def test_self_attn_block_plain_matches_pallas(case):
     _close(vc.permute(1, 0, 3, 2), vc_ref, case["atol"])
 
 
-def test_fused_stack_step_plain_matches_pallas(case):
+# the first slot, a middle one and the last: the edges the CUDA kernel is held to
+EDGE_STEPS = [0, STEP, T - 1]
+
+
+@pytest.mark.parametrize("step", EDGE_STEPS)
+def test_fused_stack_step_plain_matches_pallas(case, step):
     tdt = case["tdt"]
     slp = dk.stack_layer_params(case["lps"])
     ref, kc_ref, vc_ref = dk.fused_stack_step(
         slp, case["x"], case["qpos"], case["kc"], case["vc"], case["ck"], case["cv"], case["kb"],
-        jnp.int32(STEP), num_heads=H, interpret=True)
+        jnp.int32(step), num_heads=H, interpret=True)
     tslp = tk.stack_layer_params([_torch_tree(jax.tree.map(np.asarray, lp), tdt) for lp in case["lps"]])
     kc = _t(case["kc"], tdt).permute(0, 2, 1, 4, 3).contiguous()   # -> [L,B,H,T,D]
     vc = _t(case["vc"], tdt).permute(0, 2, 1, 4, 3).contiguous()
     got, _, _ = tk.fused_stack_step(tslp, _t(case["x"], tdt), _t(case["qpos"], tdt), kc, vc,
                                     _t(case["ck"], tdt), _t(case["cv"], tdt), _t(case["kb"]),
-                                    torch.tensor(STEP, dtype=torch.int32), num_heads=H)
+                                    torch.tensor(step, dtype=torch.int32), num_heads=H)
     _close(got, ref, case["atol"])
     _close(kc.permute(0, 2, 1, 4, 3), kc_ref, case["atol"])
     _close(vc.permute(0, 2, 1, 4, 3), vc_ref, case["atol"])
@@ -150,6 +155,25 @@ def test_build_needs_nvcc_and_keys_the_library_by_source(monkeypatch, tmp_path):
     assert os.path.basename(path).startswith("libdecoder_kernels-")
     monkeypatch.setattr(cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS + ["-lineinfo"])
     assert cuda_build.library_path("decoder_kernels") != path
+
+
+def test_library_name_covers_the_shared_headers(monkeypatch, tmp_path):
+    """An edit to a csrc/*.cuh header renames every library (each source may
+    include it), so a stale build is never loaded."""
+    import shutil
+
+    from retr_tpu_torch.ops import cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC_DIR, csrc, ignore=shutil.ignore_patterns("__pycache__"))
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(csrc))
+    names = ("stack_kernels", "decoder_kernels")
+    before = {n: cuda_build.library_path(n) for n in names}
+    assert before == {n: cuda_build.library_path(n) for n in names}      # stable
+    header = csrc / "common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: cuda_build.library_path(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
 
 
 def test_layer_params_views_share_the_stack():
@@ -184,16 +208,17 @@ def test_self_attn_block_beam_plain_matches_pallas(case):
     _close(vc.permute(1, 0, 3, 2), vc_ref, case["atol"])
 
 
-def test_fused_layer_step_plain_matches_pallas(case):
+@pytest.mark.parametrize("step", EDGE_STEPS)
+def test_fused_layer_step_plain_matches_pallas(case, step):
     tdt, lp = case["tdt"], case["lps"][1]
     ref, kc_ref, vc_ref = dk.fused_layer_step(
         lp, case["x"], case["qpos"], case["kc"][1], case["vc"][1], case["ck"][1], case["cv"][1], case["kb"],
-        jnp.int32(STEP), num_heads=H, interpret=True)
+        jnp.int32(step), num_heads=H, interpret=True)
     kc = _t(case["kc"][1], tdt).permute(1, 0, 3, 2).contiguous()
     vc = _t(case["vc"][1], tdt).permute(1, 0, 3, 2).contiguous()
     got, _, _ = tk.fused_layer_step(_torch_tree(jax.tree.map(np.asarray, lp), tdt), _t(case["x"], tdt),
                                     _t(case["qpos"], tdt), kc, vc, _t(case["ck"][1], tdt),
-                                    _t(case["cv"][1], tdt), _t(case["kb"]), torch.tensor(STEP, dtype=torch.int32),
+                                    _t(case["cv"][1], tdt), _t(case["kb"]), torch.tensor(step, dtype=torch.int32),
                                     num_heads=H)
     assert got.dtype == tdt
     _close(got, ref, case["atol"])
