@@ -10,12 +10,17 @@ Phases (any failure raises, exits non-zero and prints no result line):
   3. hold each kernel against its plain PyTorch version at full width
      (C=256, 8 heads, F=2048, T=128, S=196, L=6, MLP 256-512-512-30522) in f32
      and bf16, and time kernel, plain version and a library yardstick (CUDA
-     events): the decoder-layer kernels at batch 32 and 512 (the stacked
-     step's lines carry its grid: blocks, blocks per SM, grid barriers), the
+     events): the stacked step, fused_layer_step and self_attn_block at batch
+     32 and 512 (the stacked step's lines carry its grid: blocks, blocks per
+     SM, grid barriers), ff_block and cross_attn_block at 32, 160, 512 and
+     2560 rows (their lines carry the cluster launch's plan and the
+     profiled device time), the
      stacked step (L=6) and fused_layer_step (L=1) also unclocked at batch 1,
      5, 32, 33 and 512 and step 0, 63 and 127 (a row seeing one memory
      position; a second launch must give the same bits and only the cache slot
-     at `step` may change), the beam block and
+     at `step` may change), ff_block and cross_attn_block unclocked at rows
+     1, 5, 17 and 33, F 256 and 2048, S 1, 196 and 397, random padding or one
+     unmasked key per row (a second launch bit-equal, x unwritten), the beam block and
      the top-k head at 160 and 2560 rows (batch 32 and 512 x beam 5), the
      argmax head at 32 and 512 rows, fused_attention at batch 32 for the
      encoder (196x196, key padding), the causal decoder (128x128, ~15 real
@@ -26,11 +31,13 @@ Phases (any failure raises, exits non-zero and prints no result line):
      with the one-launch stacked kernel, with the per-layer trio, with
      HEAD_KERNEL, and with MERGED_LAYER (LAYER_GRID off); beam search (beam 5)
      with BEAM_TOPK_KERNEL off and on; the launch counts are reset before and
-     read after each run. Then time greedy at batch 32 and 512 and beam at
-     batch 32 x 5 (head kernel off and on) for all 127 steps with EOS out of
-     range, and trace 32 steps of each with torch.profiler (device time by
-     kernel, idle share); then greedy with use_pallas_attention on, whose
-     encoder launches fused_attention (6 launches per batch);
+     read after each run, and each kernel a run lists must have launched.
+     Then time greedy at batch 32 and 512 and beam at batch 32 x 5 (head
+     kernel off and on) and 512 x 5 for all 127 steps with EOS out of range,
+     and trace 32 steps of greedy at 32 and 512 and beam at 32 x 5 and 512 x 5
+     with torch.profiler (device time by kernel, idle share); then greedy with
+     use_pallas_attention on, whose encoder launches fused_attention (6
+     launches per batch);
   5. f32 on the GPU and on the CPU (plain path): a greedy batch of 4 has equal
      token buffers except where the CPU logits' top-2 margin is below 1e-4; a
      beam batch of 2 has equal top hypotheses except where the CPU search had
@@ -55,9 +62,16 @@ the repository beside it and a CUDA device.
 compares two checkouts on one card: in turns (parent, change, change, parent,
 parent, change), a process per turn times the decode loops of the
 retr_tpu_torch package under that tree (`--loop-times TREE`: greedy stacked
-and trio at batch 32 and 512, beam 5 at batch 32 where the tree has it, 127
-steps, EOS out of range, encode outside the timing, median of 5 runs after
-one warm-up) with this file's measuring code.
+and trio at batch 32 and 512, beam 5 at batch 32 (head kernel off and on) and
+512 where the tree has it, 127 steps, EOS out of range, encode outside the
+timing, median of 5 runs after one warm-up) with this file's measuring code,
+and prints a digest of the tree's stacked step on seeded inputs
+(`stack_digest`: equal digests, equal bits).
+
+    python3 chip_smoke.py --block-rows
+
+times ff_block and cross_attn_block (bf16, device time) at every row tile
+they are built for, and at their own choice, at 32, 160, 512 and 2560 rows.
 """
 
 from __future__ import annotations
@@ -78,11 +92,13 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 CHECK_STEP = 63                                   # mid-decode position for the kernel checks
 DEC_SRC, HEAD_SRC = "retr_tpu_torch/csrc/decoder_kernels.cu", "retr_tpu_torch/csrc/head_kernels.cu"
 ATT_SRC, STACK_SRC = "retr_tpu_torch/csrc/attention_kernels.cu", "retr_tpu_torch/csrc/stack_kernels.cu"
+BLOCK_SRC = "retr_tpu_torch/csrc/block_kernels.cu"
 KERNELS = {  # wrapper -> (the Pallas kernel it replaces, CUDA source, the main path's case (dtype, rows or shape))
     "fused_stack_step": ("retr_tpu/ops/decoder_kernels.py:1026", STACK_SRC, ("bfloat16", 32)),
     "self_attn_block": ("retr_tpu/ops/decoder_kernels.py:228", DEC_SRC, ("bfloat16", 32)),
-    "cross_attn_block": ("retr_tpu/ops/decoder_kernels.py:450", DEC_SRC, ("bfloat16", 32)),
-    "ff_block": ("retr_tpu/ops/decoder_kernels.py:96", DEC_SRC, ("bfloat16", 32)),
+    # the default beam path's shape: batch 32 x beam 5
+    "cross_attn_block": ("retr_tpu/ops/decoder_kernels.py:450", BLOCK_SRC, ("bfloat16", 32 * BEAM)),
+    "ff_block": ("retr_tpu/ops/decoder_kernels.py:96", BLOCK_SRC, ("bfloat16", 32 * BEAM)),
     "self_attn_block_beam": ("retr_tpu/ops/decoder_kernels.py:380", DEC_SRC, ("bfloat16", 32 * BEAM)),
     "mlp_head_argmax": ("retr_tpu/ops/decoder_kernels.py:525", HEAD_SRC, ("bfloat16", 32)),
     "mlp_head_topk": ("retr_tpu/ops/decoder_kernels.py:615", HEAD_SRC, ("bfloat16", 32 * BEAM)),
@@ -232,7 +248,8 @@ def measure(name, dname, rows, kern, plain, lib, nl, err_fn=None, extra=None):
 
 
 def check_kernels(dev):
-    """The decoder-layer kernels at batch 32 and 512. Returns {(name, dtype, rows): record}."""
+    """The stacked step, fused_layer_step and self_attn_block at batch 32 and
+    512. Returns {(name, dtype, rows): record}."""
     import torch
     import torch.nn.functional as Fn
 
@@ -265,14 +282,6 @@ def check_kernels(dev):
                     # yardstick: PyTorch's attention over the cache prefix alone
                     lambda li: Fn.scaled_dot_product_attention(
                         x.view(b, H, 1, D), kc[li, :, :, :CHECK_STEP + 1], vc[li, :, :, :CHECK_STEP + 1])),
-                "cross_attn_block": (
-                    lambda li: dk.cross_attn_block(layers_[li]["cross_attn"], x, qpos, ck[li], cv[li], kb, num_heads=H),
-                    lambda li: dk.cross_attn_block_plain(layers_[li]["cross_attn"], x, qpos, ck[li], cv[li], kb, num_heads=H),
-                    # yardstick: PyTorch's attention over the memory K/V alone
-                    lambda li: Fn.scaled_dot_product_attention(
-                        x.view(b, H, 1, D), ck[li], cv[li], attn_mask=kb.clamp_min(-1e30).to(dtype)[:, None, None, :])),
-                "ff_block": (lambda li: dk.ff_block(layers_[li]["ff"], x),
-                             lambda li: dk.ff_block_plain(layers_[li]["ff"], x), None),
                 "fused_layer_step": (
                     lambda li: dk.fused_layer_step(layers_[li], x, qpos, kc_k[li], vc_k[li], ck[li], cv[li], kb, step,
                                                    num_heads=H),
@@ -305,19 +314,10 @@ def stack_detail(call, grid):
     kernel's own trace of one launch (block 0's clock at each grid barrier),
     in microseconds per phase kind summed over the layers."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from retr_tpu_torch.ops import decoder_kernels as dk
 
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            call()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "stack_kernel" in e.name]
+    dms = device_ms(call, "stack_kernel")
     dk._stack_trace = torch.zeros(grid["grid_barriers"] + 2, dtype=torch.int64, device="cuda")
     try:
         call()
@@ -327,9 +327,176 @@ def stack_detail(call, grid):
         dk._stack_trace = None
     dur = [(b - a) / 1e3 for a, b in zip(stamps, stamps[1:])]
     names = STACK_PHASES if grid["ff2_chunks"] > 1 else STACK_PHASES[:-1]
-    return {"device_ms": sum(spans) / len(spans) / 1e3 if spans else "not measured (no CUDA events traced)",
-            "traced_launch_us": (stamps[-1] - stamps[0]) / 1e3,
+    return {"device_ms": dms, "traced_launch_us": (stamps[-1] - stamps[0]) / 1e3,
             "phase_us": {n: sum(dur[i::len(names)]) for i, n in enumerate(names)}}
+
+
+def device_ms(call, kernel, calls=20):
+    """Mean device time of the launches of the kernels whose name holds
+    ``kernel`` over ``calls`` calls of ``call`` after a warm-up call
+    (torch.profiler, which may drop an event of a long trace): the kernel
+    alone, where CUDA events over back-to-back calls also hold the host's
+    wrapper when it is the slower."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if not spans:
+        return "not measured (no CUDA events traced)"
+    return sum(spans) / len(spans) / 1e3
+
+
+BLOCK_ROWS = (32, 160, 512, 2560)     # greedy 32 / 512, beam 32 x 5 / 512 x 5
+BLOCK_KERNEL = {"ff_block": "ff_kernel", "cross_attn_block": "cross_kernel"}   # CUDA function names
+
+
+def check_blocks(dev):
+    """ff_block and cross_attn_block at 32, 160, 512 and 2560 rows, f32 and
+    bf16, with their launch plan and profiled device time. Yardsticks: ff,
+    F.layer_norm + F.linear + relu + F.linear + the add (cuBLAS, several
+    calls); cross, SDPA over the memory K/V alone (the attention core, not
+    the same function). Returns {(name, dtype, rows): record}."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        layers_ = [dk.layer_params(random_decoder(gen, dev, dtype), li) for li in range(L)]
+        ffw = [{k: lp["ff"][k]["w"].t().contiguous() for k in ("lin1", "lin2")} for lp in layers_]
+        for b in BLOCK_ROWS:
+            rn = lambda *shape, s=1.0: (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)  # noqa: E731
+            x, qpos = rn(b, C), rn(C, s=0.5)
+            ck, cv = rn(L, b, H, S, D), rn(L, b, H, S, D)
+            pad = torch.rand(b, S, generator=gen, device=dev) < 0.2
+            pad[:, 0] = False
+            kb = torch.where(pad, float("-inf"), 0.0)
+            mask = kb.clamp_min(-1e30).to(dtype)[:, None, None, :]
+
+            def ff_lib(li):
+                fp = layers_[li]["ff"]
+                h = Fn.layer_norm(x, (C,), fp["norm"]["scale"], fp["norm"]["bias"])
+                h = torch.relu(Fn.linear(h, ffw[li]["lin1"], fp["lin1"]["b"]))
+                return x + Fn.linear(h, ffw[li]["lin2"], fp["lin2"]["b"])
+
+            cases = {
+                "cross_attn_block": (
+                    lambda li: dk.cross_attn_block(layers_[li]["cross_attn"], x, qpos, ck[li], cv[li], kb, num_heads=H),
+                    lambda li: dk.cross_attn_block_plain(layers_[li]["cross_attn"], x, qpos, ck[li], cv[li], kb,
+                                                         num_heads=H),
+                    lambda li: Fn.scaled_dot_product_attention(x.view(b, H, 1, D), ck[li], cv[li], attn_mask=mask)),
+                "ff_block": (lambda li: dk.ff_block(layers_[li]["ff"], x),
+                             lambda li: dk.ff_block_plain(layers_[li]["ff"], x), ff_lib),
+            }
+            for name, (kern, plain, lib) in cases.items():
+                extra = {"plan": dk.block_plan(name, dtype, b, S, F),
+                         "device_ms": device_ms(lambda: [kern(li) for li in range(L)], BLOCK_KERNEL[name])}
+                out[(name, dname, b)] = measure(name, dname, b, kern, plain, lib, L, extra=extra)
+            del ck, cv
+            torch.cuda.empty_cache()
+    return out
+
+
+BLOCK_TILES = {"ff_block": (16, 32, 64), "cross_attn_block": (4, 8, 16, 32)}   # the row tiles each is built for
+
+
+def block_rows(dev, card):
+    """--block-rows: ff_block and cross_attn_block device time (bf16,
+    torch.profiler) at every row tile they are built for and at their own
+    choice, at BLOCK_ROWS rows, the six layers' weights and K/V cycled as the
+    decode loop cycles them. One line per (kernel, rows, tile)."""
+    import torch
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    dtype = torch.bfloat16
+    layers_ = [dk.layer_params(random_decoder(gen, dev, dtype), li) for li in range(L)]
+    for b in BLOCK_ROWS:
+        rn = lambda *shape, s=1.0: (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)  # noqa: E731
+        x, qpos, ck, cv = rn(b, C), rn(C, s=0.5), rn(L, b, H, S, D), rn(L, b, H, S, D)
+        kb = torch.where(torch.rand(b, S, generator=gen, device=dev) < 0.2, float("-inf"), 0.0)
+        kb[:, 0] = 0.0
+        calls = {"ff_block": lambda: [dk.ff_block(layers_[li]["ff"], x) for li in range(L)],
+                 "cross_attn_block": lambda: [dk.cross_attn_block(layers_[li]["cross_attn"], x, qpos, ck[li], cv[li],
+                                                                  kb, num_heads=H) for li in range(L)]}
+        for name, call in calls.items():
+            for tile in BLOCK_TILES[name] + (0,):
+                dk._block_rows = tile
+                try:
+                    ms = device_ms(call, BLOCK_KERNEL[name])
+                    plan = dk.block_plan(name, dtype, b, S, F)
+                finally:
+                    dk._block_rows = 0
+                log("block_rows", json.dumps({"kernel": name, "dtype": "bfloat16", "rows": b,
+                                              "tile": tile or f"own choice ({plan['rows']})", "device_ms": ms,
+                                              "plan": plan, "card": card}))
+        del ck, cv
+        torch.cuda.empty_cache()
+
+
+def check_block_edges(dev):
+    """ff_block at rows 1, 5, 17 and 33 and F 256 and 2048, cross_attn_block
+    at those rows and S 1, 196 and 397, with the memory padded at random or
+    every row left one unmasked key; f32 and bf16, against the plain
+    versions. A second launch must give the same bits and x must be left
+    unwritten. Prints one line; raises on a miss."""
+    import torch
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+    from retr_tpu_torch.precision import matmul_precision
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst, cases = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        rn = lambda *shape, s=1.0: (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)  # noqa: E731
+        lp = dk.layer_params(random_decoder(gen, dev, dtype), 0)
+        small = {"norm": lp["ff"]["norm"], "lin1": {"w": lp["ff"]["lin1"]["w"][:, :256].contiguous(),
+                                                    "b": lp["ff"]["lin1"]["b"][:256].contiguous()},
+                 "lin2": {"w": lp["ff"]["lin2"]["w"][:256].contiguous(), "b": lp["ff"]["lin2"]["b"]}}
+        for b in (1, 5, 17, 33):
+            x, qpos = rn(b, C), rn(C, s=0.5)
+            runs = [(f"ff F={fp['lin1']['w'].shape[1]}", lambda fn, fp=fp: fn(fp, x)) for fp in (small, lp["ff"])]
+            for s_ in (1, S, 2 * S + 5):
+                ck, cv = rn(b, H, s_, D), rn(b, H, s_, D)
+                for masking in ("random", "one key"):
+                    if masking == "random":
+                        pad = torch.rand(b, s_, generator=gen, device=dev) < 0.3
+                        pad[:, 0] = False
+                    else:
+                        keep = torch.randint(0, s_, (b, 1), generator=gen, device=dev)
+                        pad = torch.arange(s_, device=dev)[None, :] != keep
+                    kb = torch.where(pad, float("-inf"), 0.0)
+                    runs.append((f"cross S={s_} {masking}",
+                                 lambda fn, ck=ck, cv=cv, kb=kb: fn(lp["cross_attn"], x, qpos, ck, cv, kb, num_heads=H)))
+            for label, call in runs:
+                name = "ff_block" if label.startswith("ff") else "cross_attn_block"
+                x0 = x.clone()
+                got, again = call(getattr(dk, name)), call(getattr(dk, name))
+                with matmul_precision(torch.float32):
+                    want = call(getattr(dk, name + "_plain"))
+                torch.cuda.synchronize()
+                err, tol = _tensor_err(got, want, dname)
+                same = torch.equal(_bits(got), _bits(again)) and torch.equal(_bits(x), _bits(x0))
+                key = f"{label.split(' ')[0]} {dname}"
+                worst[key] = max(worst.get(key, 0.0), err / tol)
+                cases += 1
+                if not (err <= tol and same):
+                    raise AssertionError(f"{label} {dname} rows {b}: err {err} (tol {tol}), "
+                                         f"same bits and x unwritten {same}")
+    log("block_edges", json.dumps({"cases": cases, "worst_err_over_tol": worst}))
 
 
 def _bits(t):
@@ -593,7 +760,7 @@ SERVE_RUNS = [
     ("greedy, per-layer trio", "greedy", {"LAYER_GRID": False}, ["self_attn_block", "cross_attn_block", "ff_block"]),
     ("greedy, HEAD_KERNEL", "greedy", {"HEAD_KERNEL": True}, ["mlp_head_argmax"]),
     ("greedy, MERGED_LAYER", "greedy", {"LAYER_GRID": False, "MERGED_LAYER": True}, ["fused_layer_step"]),
-    ("beam 5", "beam", {}, ["self_attn_block_beam"]),
+    ("beam 5", "beam", {}, ["self_attn_block_beam", "cross_attn_block", "ff_block"]),
     ("beam 5, BEAM_TOPK_KERNEL", "beam", {"BEAM_TOPK_KERNEL": True}, ["mlp_head_topk"]),
 ]
 
@@ -617,7 +784,9 @@ class flags:
 
 
 def serve(dev, state, tok):
-    """Predictor runs with each kernel dispatch; returns launch counts per path."""
+    """Predictor runs with each kernel dispatch. Returns the params, each
+    kernel's launches on the last run that lists it (the main path's: the
+    SERVE_RUNS order puts it last) and its launches on every such run."""
     import torch
 
     from retr_tpu_torch.ops import decoder_kernels as dk
@@ -631,7 +800,7 @@ def serve(dev, state, tok):
     for im, bb in zip(imgs, boxes):                               # host preprocessing alone
         pred._preprocess_one(im, bb)
     log("preprocess", json.dumps({"requests": len(imgs), "host_seconds": time.perf_counter() - t0}))
-    launches = {}
+    launches, by_run = {}, {}
     for label, decoder, fl, path in SERVE_RUNS:
         with flags(**fl):
             dk.reset_launches()
@@ -643,6 +812,9 @@ def serve(dev, state, tok):
         counts = dict(dk.LAUNCHES)
         for k in path:
             launches[k] = counts[k]
+            by_run.setdefault(k, {})[label] = counts[k]
+            if counts[k] <= 0:
+                raise AssertionError(f"{k} was never launched on the run {label!r}: {counts}")
         log("serve", json.dumps({"run": label, "requests": len(imgs), "seconds": dt,
                                  "requests_per_s": len(imgs) / dt, "launches": counts,
                                  "first_captions": [t[:60] for t in texts[:3]]}))
@@ -668,7 +840,7 @@ def serve(dev, state, tok):
     if len(texts) != len(imgs) or counts["fused_attention"] != cfg.enc_layers * batches:
         raise AssertionError(f"flagged greedy run: {len(texts)} captions, launches {counts}")
     launches["fused_attention (serving encoder)"] = counts["fused_attention"]
-    return pred.params, launches
+    return pred.params, launches, by_run
 
 
 def random_samples(b, gen, dev):
@@ -694,8 +866,9 @@ def encode_for_decode(params, cfg, samples):
 
 def throughput(dev, params, card):
     """Greedy at batch 32 and 512 with the stacked kernel and with the per-layer
-    trio, and beam at batch 32 x 5 with the head kernel off and on: all 127
-    steps (EOS out of range), encode and loop timed apart."""
+    trio, beam at batch 32 x 5 with the head kernel off and on and at 512 x 5
+    (offline evaluation, flags at their defaults): all 127 steps (EOS out of
+    range), encode and loop timed apart."""
     import torch
 
     from retr_tpu_torch import decode
@@ -704,7 +877,8 @@ def throughput(dev, params, card):
     gen = torch.Generator(device=dev).manual_seed(1)
     runs = [(32, "greedy", {"LAYER_GRID": True}), (32, "greedy", {"LAYER_GRID": False}),
             (512, "greedy", {"LAYER_GRID": True}), (512, "greedy", {"LAYER_GRID": False}),
-            (32, "beam", {"BEAM_TOPK_KERNEL": False}), (32, "beam", {"BEAM_TOPK_KERNEL": True})]
+            (32, "beam", {"BEAM_TOPK_KERNEL": False}), (32, "beam", {"BEAM_TOPK_KERNEL": True}),
+            (512, "beam", {"BEAM_TOPK_KERNEL": False})]
     samples = {b: random_samples(b, gen, dev) for b in (32, 512)}
     for b, decoder, fl in runs:
         times = []
@@ -736,15 +910,15 @@ def throughput(dev, params, card):
 def step_profile(dev, params, steps=32):
     """Where a decode loop's device time goes: torch.profiler over ``steps``
     steps of greedy (stacked kernel) at batch 32 and 512 and of beam at batch
-    32 x 5. Prints device time by kernel name and the device's idle share over
-    the loop's span (first kernel start to last kernel end)."""
+    32 x 5 and 512 x 5. Prints device time by kernel name and the device's idle
+    share over the loop's span (first kernel start to last kernel end)."""
     import torch
 
     from retr_tpu_torch import decode
 
     cfg = served_config("bfloat16")
     gen = torch.Generator(device=dev).manual_seed(3)
-    for b, decoder in ((32, "greedy"), (512, "greedy"), (32, "beam")):
+    for b, decoder in ((32, "greedy"), (512, "greedy"), (32, "beam"), (512, "beam")):
         p, memory, mask, pos = encode_for_decode(params, cfg, random_samples(b, gen, dev))
 
         def loop():
@@ -1019,7 +1193,8 @@ def loop_times(tree) -> int:
     runs = [(32, "greedy", "LAYER_GRID", True), (32, "greedy", "LAYER_GRID", False),
             (512, "greedy", "LAYER_GRID", True), (512, "greedy", "LAYER_GRID", False)]
     if hasattr(decode, "beam_search_from_memory"):
-        runs += [(32, "beam", "BEAM_TOPK_KERNEL", False), (32, "beam", "BEAM_TOPK_KERNEL", True)]
+        runs += [(32, "beam", "BEAM_TOPK_KERNEL", False), (32, "beam", "BEAM_TOPK_KERNEL", True),
+                 (512, "beam", "BEAM_TOPK_KERNEL", False)]
     memory = {b: encode_for_decode(params, cfg, random_samples(b, gen, "cuda")) for b in (32, 512)}
     for b, decoder, flag, value in runs:
         p, mem, mask, pos = memory[b]
@@ -1038,7 +1213,38 @@ def loop_times(tree) -> int:
         log("loop_times", json.dumps({"tree": tree, "package": os.path.dirname(decode.__file__), "decoder": decoder, "batch": b, flag: value,
                                       "ms_per_step_median": statistics.median(times[1:]), "ms_per_step": times[1:],
                                       "card": card}))
+    log("stack_digest", json.dumps({"tree": tree, **stack_digest("cuda")}))
     return 0
+
+
+def stack_digest(dev) -> dict:
+    """sha256 of rt_stack_step's output and cache slots at batch 32 and 512, f32
+    and bf16, step 63, on inputs made from a seed: --compare prints it for
+    each tree, so equal digests show the two trees' stacked kernels agree bit
+    for bit."""
+    import hashlib
+
+    import torch
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(12)
+        slp = random_decoder(gen, dev, dtype)
+        for b in (32, 512):
+            rn = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
+            x, qpos, kc, vc = rn(b, C), rn(C), rn(L, b, H, T, D), rn(L, b, H, T, D)
+            ck, cv = rn(L, b, H, S, D), rn(L, b, H, S, D)
+            kb = torch.where(torch.rand(b, S, generator=gen, device=dev) < 0.2, float("-inf"), 0.0)
+            kb[:, 0] = 0.0
+            step = torch.tensor(CHECK_STEP, dtype=torch.int32, device=dev)
+            y, kc, vc = dk.fused_stack_step(slp, x, qpos, kc, vc, ck, cv, kb, step, num_heads=H)
+            h = hashlib.sha256()
+            for t in (y, kc[:, :, :, CHECK_STEP], vc[:, :, :, CHECK_STEP]):
+                h.update(_bits(t).cpu().numpy().tobytes())
+            out[f"{str(dtype)[6:]} batch {b}"] = h.hexdigest()[:16]
+    return out
 
 
 def compare(parent, change) -> int:
@@ -1049,7 +1255,7 @@ def compare(parent, change) -> int:
     return 0
 
 
-def main() -> int:
+def main(mode=None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1065,18 +1271,23 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = gpu_line()
+    if mode == "--block-rows":
+        block_rows(dev, card)
+        return 0
     log("card", card)                                                      # phase 1
 
     t0 = time.perf_counter()
     dk.build()                                                             # phase 2
     log("build", json.dumps({"seconds": time.perf_counter() - t0}))
 
-    checks = {**check_kernels(dev), **check_beam_and_heads(dev), **check_attention(dev)}   # phase 3
+    checks = {**check_kernels(dev), **check_blocks(dev), **check_beam_and_heads(dev),   # phase 3
+              **check_attention(dev)}
     check_stack_edges(dev)
+    check_block_edges(dev)
     torch.cuda.empty_cache()
 
     state = random_state(served_config("bfloat16"))                        # phase 4
-    params, launches = serve(dev, state, synthetic_tokenizer())
+    params, launches, by_run = serve(dev, state, synthetic_tokenizer())
     throughput(dev, params, card)
     step_profile(dev, params)
     del params
@@ -1100,13 +1311,15 @@ def main() -> int:
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
             "shape": main_rec.get("shape", f"bf16, {case[1]} rows, step {CHECK_STEP}"),
-            "cases": [{k: r[k] for k in ("dtype", "batch", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "library_ms") if k in r}
+            "cases": [{k: r[k] for k in ("dtype", "batch", "shape", "max_abs_err", "ms", "ms_events", "plain_ms",
+                                          "bound_ms", "library_ms") if k in r}
                       for (n, _, _), r in checks.items() if n == name],
         }
-        for key in ("grid", "device_ms", "phase_us"):    # rt_stack_step's own lines
+        for key in ("grid", "plan", "device_ms", "ms_events", "phase_us"):   # the kernel's own lines
             if key in main_rec:
                 entry[key] = main_rec[key]
+        if len(by_run.get(name, {})) > 1:
+            entry["launches_by_run"] = by_run[name]
         if name == "fused_attention":   # launches: eval steps; the serving encoder's beside them
             entry["launches_serving_encoder"] = launches["fused_attention (serving encoder)"]
         entries.append(entry)
@@ -1122,4 +1335,4 @@ if __name__ == "__main__":
         sys.exit(loop_times(sys.argv[2]))
     if sys.argv[1:2] == ["--compare"]:
         sys.exit(compare(sys.argv[2], sys.argv[3]))
-    sys.exit(main())
+    sys.exit(main(*sys.argv[1:2]))

@@ -1,20 +1,18 @@
-// Decode-step kernels for Hopper (sm_90a): one KV-cached greedy position through
-// the pre-norm decoder layers of the caption transformer.
+// Self-attention kernels for Hopper (sm_90a): one KV-cached decode position
+// through the self-attention block of a pre-norm decoder layer.
 //
-// Four entry points, each the counterpart of a Pallas kernel of
+// Two entry points, each the counterpart of a Pallas kernel of
 // retr_tpu/ops/decoder_kernels.py:
-//   rt_ff_block          <- ff_block          (LN -> Linear(C,F) -> ReLU -> Linear(F,C) -> +x)
-//   rt_cross_attn_block  <- cross_attn_block  (LN -> +qpos -> Q -> attention over memory K/V
-//                                              -> out-proj -> +x)
 //   rt_self_attn_block   <- self_attn_block   (LN -> +qpos -> Q/K/V -> write one cache slot
 //                                              -> attention over positions <= step -> out-proj -> +x)
 //   rt_self_attn_block_beam <- self_attn_block_beam (as rt_self_attn_block, but row i reads
 //                                              position t from its group's row anc[i, t])
-// The stacked step (fused_stack_step, fused_layer_step) is stack_kernels.cu.
+// The stacked step (fused_stack_step, fused_layer_step) is stack_kernels.cu; the
+// cross-attention and FF blocks (cross_attn_block, ff_block) are block_kernels.cu.
 //
 // Design. The work of one decode position is a chain of skinny products
 // ([rows, 256] x [256, N]) plus one-query attention over per-row caches. On the
-// H100 it is bound by bytes (weights, cross K/V, self caches), not by operations.
+// H100 it is bound by bytes (weights, self caches), not by operations.
 // One thread block owns a tile of R rows for the whole chain and keeps their
 // residual in shared memory in f32, so nothing but the inputs, the one new cache
 // slot and the output touches device memory. Weights stream from global memory
@@ -38,9 +36,8 @@
 // kernel formed q.K for all K rows and kept one through an exact one-hot
 // select, so the values are the same and K times fewer bytes are read).
 //
-// Fixed widths: C = 256, 8 heads of 32 (the served model). F must be a multiple
-// of 256; the beam group is 1..8 rows. The wrappers in ops/decoder_kernels.py
-// check every shape.
+// Fixed widths: C = 256, 8 heads of 32 (the served model); the beam group is
+// 1..8 rows. The wrappers in ops/decoder_kernels.py check every shape.
 
 #include <stdint.h>
 
@@ -48,40 +45,28 @@
 
 // Launch arguments, mirrored field for field by _Args in ops/decoder_kernels.py.
 struct Args {
-  int B, T, S, F, L, K;  // K: rows of a beam group (rt_self_attn_block_beam only)
+  int B, T, K;           // K: rows of a beam group (rt_self_attn_block_beam only)
   const void* x;
   void* y;
   const void* qpos;
   const void* ln1s; const void* ln1b;
   const void* swq; const void* sbq; const void* swk; const void* sbk;
   const void* swv; const void* sbv; const void* swo; const void* sbo;
-  const void* ln2s; const void* ln2b;
-  const void* cwq; const void* cbq; const void* cwo; const void* cbo;
-  const void* ln3s; const void* ln3b;
-  const void* w1; const void* b1; const void* w2; const void* b2;
   void* kc; void* vc;
-  const void* ck; const void* cv;
-  const float* key_bias;
   const int* step;
   const int* anc;        // [B, T] ancestry, row within the beam group (beam only)
 };
 
 namespace {
 
-constexpr int C = 256;        // model width
-constexpr int NH = 8;         // heads
-constexpr int HD = 32;        // head dim
-constexpr int NT = 256;       // threads per block
-constexpr int NW = NT / 32;   // warps = K slices of a product (one head each for K = C)
+// C, NH, HD, NT and NW (warps = K slices of a product, one head each for K = C)
+// come from common.cuh.
 constexpr int KS = C / NW;    // rows of the weight each warp reads
 constexpr int U = 8;          // weight rows in flight per thread
 // Rows per block. On the H100 (700 W) 4 was the fastest or tied of 2/4/8 for every
 // kernel at batch 32 and 512: smaller tiles re-read the weights from more blocks,
 // larger ones leave SMs idle and hold more shared memory.
 constexpr int kRows = 4;
-constexpr float kScale = 0.176776695296636881f;  // HD ** -0.5 in f32
-constexpr float kMaskVal = -1e30f;
-
 
 // Floats of the shared reduction area: product partials or attention scores.
 template <int R>
@@ -92,7 +77,7 @@ __host__ __device__ size_t red_floats(int smax) {
 
 // Shared-memory working set of one row tile (all f32, then the beam's ancestry).
 template <int R>
-struct Smem {
+struct RowSmem {
   float* x;    // [R][C] residual
   float* t;    // [R][C] LayerNorm output / q
   float* a;    // [R][C] rounded product input
@@ -102,7 +87,7 @@ struct Smem {
   float* att;  // [R][C] attention output (f32)
   float* red;  // union: [NW][R][256] product partials | [R][NH][smax] scores
   int* anc;    // [R][T] local source row of each position (beam only)
-  __device__ Smem(float* base, size_t nred) {
+  __device__ RowSmem(float* base, size_t nred) {
     x = base;
     t = x + R * C;
     a = t + R * C;
@@ -281,7 +266,7 @@ __device__ void attend_values(const float* p, int smax, int n, int cur, const T*
 // Self-attention residual block of layer `l` for the block's rows. BEAM: rows
 // read each position through the ancestry (the block holds whole beam groups).
 template <int R, typename T, bool BEAM>
-__device__ void self_phase(Smem<R>& s, const Args& a, int l, int row0, int nrows, int step, int smax) {
+__device__ void self_phase(RowSmem<R>& s, const Args& a, int l, int row0, int nrows, int step, int smax) {
   const size_t lc = (size_t)l * C, lcc = (size_t)l * C * C;
   const T* qpos = static_cast<const T*>(a.qpos);
   const int n = step + 1;
@@ -367,101 +352,8 @@ __device__ void self_phase(Smem<R>& s, const Args& a, int l, int row0, int nrows
   __syncthreads();
 }
 
-// Cross-attention residual block of layer `l` against the precomputed memory K/V.
 template <int R, typename T>
-__device__ void cross_phase(Smem<R>& s, const Args& a, int l, int row0, int nrows, int smax) {
-  const size_t lc = (size_t)l * C, lcc = (size_t)l * C * C;
-  const T* qpos = static_cast<const T*>(a.qpos);
-  layer_norm_rows<R, T>(s.x, static_cast<const T*>(a.ln2s) + lc, static_cast<const T*>(a.ln2b) + lc, s.t);
-  __syncthreads();
-  for (int i = threadIdx.x; i < R * C; i += NT) s.a[i] = rnd<T>(s.t[i] + to_f(qpos[i & (C - 1)]));
-  __syncthreads();
-  mv_partials<R, T>(s.a, static_cast<const T*>(a.cwq) + lcc, C, 0, s.red);
-  __syncthreads();
-  mv_finish<R, T>(s.red, static_cast<const T*>(a.cbq) + lc, 0, kScale, s.t, C);
-  __syncthreads();
-
-  const size_t lmem = (size_t)l * a.B * NH * a.S * HD;
-  const T* ck = static_cast<const T*>(a.ck) + lmem;
-  const T* cv = static_cast<const T*>(a.cv) + lmem;
-  float* sc = s.red;
-  for (int i = threadIdx.x; i < R * NH * a.S; i += NT) {
-    const int t = i % a.S, rh = i / a.S;
-    const int r = rh / NH, h = rh % NH, b = row0 + r;
-    float acc = 0.f;
-    if (r < nrows) {
-      const float* qv = s.t + r * C + h * HD;
-      const T* kp = ck + (((size_t)b * NH + h) * a.S + t) * HD;
-#pragma unroll
-      for (int g = 0; g < HD / 8; ++g) {
-        float k8[8];
-        load8(kp + g * 8, k8);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc = fmaf(qv[g * 8 + j], k8[j], acc);
-      }
-      acc = acc + fmaxf(a.key_bias[(size_t)b * a.S + t], kMaskVal);
-    }
-    sc[rh * smax + t] = acc;
-  }
-  __syncthreads();
-  softmax_rows<R>(sc, smax, a.S);
-  __syncthreads();
-  attend_values<R, T, false>(sc, smax, a.S, -1, cv, a.S, nullptr, s.att, nrows, row0, nullptr);
-  __syncthreads();
-  for (int i = threadIdx.x; i < R * C; i += NT) s.a[i] = rnd<T>(s.att[i]);
-  __syncthreads();
-  mv_partials<R, T>(s.a, static_cast<const T*>(a.cwo) + lcc, C, 0, s.red);
-  __syncthreads();
-  add_heads<R, T>(s.x, s.red, static_cast<const T*>(a.cbo) + lc);
-  __syncthreads();
-}
-
-// Feed-forward residual block of layer `l`, hidden dim in 256-wide chunks.
-template <int R, typename T>
-__device__ void ff_phase(Smem<R>& s, const Args& a, int l, int row0) {
-  const size_t lc = (size_t)l * C, lcf = (size_t)l * C * a.F, lf = (size_t)l * a.F;
-  layer_norm_rows<R, T>(s.x, static_cast<const T*>(a.ln3s) + lc, static_cast<const T*>(a.ln3b) + lc, s.t);
-  __syncthreads();
-  for (int i = threadIdx.x; i < R * C; i += NT) {
-    s.a[i] = rnd<T>(s.t[i]);
-    s.kn[i] = 0.f;  // FF accumulator
-  }
-  __syncthreads();
-  const T* w1 = static_cast<const T*>(a.w1) + lcf;
-  const T* b1 = static_cast<const T*>(a.b1) + lf;
-  const T* w2 = static_cast<const T*>(a.w2) + lcf;
-  for (int n0 = 0; n0 < a.F; n0 += 256) {
-    mv_partials<R, T>(s.a, w1, a.F, n0, s.red);
-    __syncthreads();
-    for (int i = threadIdx.x; i < R * 256; i += NT) {
-      const int r = i >> 8, n = i & 255;
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < NW; ++w) v += s.red[(w * R + r) * 256 + n];
-      s.b[i] = rnd<T>(fmaxf(v + to_f(b1[n0 + n]), 0.f));
-    }
-    __syncthreads();
-    mv_partials<R, T>(s.b, w2 + (size_t)n0 * C, C, 0, s.red);
-    __syncthreads();
-    for (int i = threadIdx.x; i < R * C; i += NT) {
-      const int r = i >> 8, n = i & 255;
-      float v = s.kn[i];
-#pragma unroll
-      for (int w = 0; w < NW; ++w) v += s.red[(w * R + r) * 256 + n];
-      s.kn[i] = v;
-    }
-    __syncthreads();
-  }
-  const T* b2 = static_cast<const T*>(a.b2) + lc;
-  for (int i = threadIdx.x; i < R * C; i += NT) {
-    const float bias = to_f(b2[i & (C - 1)]);
-    s.x[i] = rnd<T>(s.x[i] + rnd<T>(s.kn[i] + bias));
-  }
-  __syncthreads();
-}
-
-template <int R, typename T>
-__device__ void load_rows(Smem<R>& s, const Args& a, int row0, int nrows) {
+__device__ void load_rows(RowSmem<R>& s, const Args& a, int row0, int nrows) {
   const T* x = static_cast<const T*>(a.x);
   for (int i = threadIdx.x; i < R * C; i += NT)
     s.x[i] = (i >> 8) < nrows ? to_f(x[(size_t)row0 * C + i]) : 0.f;
@@ -469,13 +361,13 @@ __device__ void load_rows(Smem<R>& s, const Args& a, int row0, int nrows) {
 }
 
 template <int R, typename T>
-__device__ void store_rows(Smem<R>& s, const Args& a, int row0, int nrows) {
+__device__ void store_rows(RowSmem<R>& s, const Args& a, int row0, int nrows) {
   T* y = static_cast<T*>(a.y);
   for (int i = threadIdx.x; i < R * C; i += NT)
     if ((i >> 8) < nrows) y[(size_t)row0 * C + i] = from_f<T>(s.x[i]);
 }
 
-enum Kind { kSelf = 1, kCross = 2, kFF = 3, kSelfBeam = 4 };
+enum Kind { kSelf = 1, kSelfBeam = 4 };
 
 // Rows a block owns: R, or for the beam block the whole beam groups that fit in R.
 template <int R, int K>
@@ -486,27 +378,23 @@ __host__ __device__ int block_rows(const Args& a) {
 template <int R, typename T, int K>
 __global__ void __launch_bounds__(NT) decode_kernel(const Args a) {
   extern __shared__ float4 smem_raw[];
-  const int smax = a.T > a.S ? a.T : a.S;
-  Smem<R> s(reinterpret_cast<float*>(smem_raw), red_floats<R>(smax));
+  const int smax = a.T;
+  RowSmem<R> s(reinterpret_cast<float*>(smem_raw), red_floats<R>(smax));
   const int rows = block_rows<R, K>(a);
   const int row0 = blockIdx.x * rows;
   const int nrows = min(rows, a.B - row0);
   load_rows<R, T>(s, a, row0, nrows);
   if constexpr (K == kSelf) {
     self_phase<R, T, false>(s, a, 0, row0, nrows, *a.step, smax);
-  } else if constexpr (K == kSelfBeam) {
-    self_phase<R, T, true>(s, a, 0, row0, nrows, *a.step, smax);
-  } else if constexpr (K == kCross) {
-    cross_phase<R, T>(s, a, 0, row0, nrows, smax);
   } else {
-    ff_phase<R, T>(s, a, 0, row0);
+    self_phase<R, T, true>(s, a, 0, row0, nrows, *a.step, smax);
   }
   store_rows<R, T>(s, a, row0, nrows);
 }
 
 template <int R, int K>
 size_t smem_bytes(const Args& a) {
-  const int smax = a.T > a.S ? a.T : a.S;
+  const int smax = a.T;
   const size_t anc = K == kSelfBeam ? (size_t)R * a.T * sizeof(int) : 0;
   return (7 * (size_t)R * C + red_floats<R>(smax)) * sizeof(float) + anc;
 }
@@ -552,8 +440,6 @@ extern "C" {
 // Each returns cudaGetLastError() after the launch (0 = launched).
 int rt_self_attn_block(const Args* a, int bf16, void* stream) { return launch<kSelf>(a, bf16, stream); }
 int rt_self_attn_block_beam(const Args* a, int bf16, void* stream) { return launch<kSelfBeam>(a, bf16, stream); }
-int rt_cross_attn_block(const Args* a, int bf16, void* stream) { return launch<kCross>(a, bf16, stream); }
-int rt_ff_block(const Args* a, int bf16, void* stream) { return launch<kFF>(a, bf16, stream); }
 const char* rt_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
 }  // extern "C"

@@ -14,10 +14,11 @@ the greedy and beam serving paths run:
   stacked kernel with one layer)
 
 The stacked step (``fused_stack_step``, ``fused_layer_step``) is
-csrc/stack_kernels.cu, the split decoder-layer kernels csrc/decoder_kernels.cu,
-the head kernels csrc/head_kernels.cu. The library registry here (``_LIBS``,
-``build()``) also holds csrc/attention_kernels.cu, the full-sequence attention
-kernel of ops/attention.py, whose launches ``LAUNCHES["fused_attention"]`` counts.
+csrc/stack_kernels.cu, the self-attention blocks csrc/decoder_kernels.cu, the
+cross-attention and FF blocks csrc/block_kernels.cu, the head kernels
+csrc/head_kernels.cu. The library registry here (``_LIBS``, ``build()``) also
+holds csrc/attention_kernels.cu, the full-sequence attention kernel of
+ops/attention.py, whose launches ``LAUNCHES["fused_attention"]`` counts.
 
 Each takes the JAX package's parameter dicts (linear weights ``[in, out]``) and
 its XLA-path layouts: self caches ``[B, H, T, D]`` (stacked ``[L, B, H, T, D]``),
@@ -282,25 +283,34 @@ def fused_stack_step_plain(slp: Params, x, qpos, k_cache, v_cache, cross_k, cros
 # CUDA launch plumbing (csrc/*.cu through ctypes)
 # ---------------------------------------------------------------------------------
 
-_PTRS = ("x", "y", "qpos", "ln1s", "ln1b", "swq", "sbq", "swk", "sbk", "swv", "sbv", "swo", "sbo",
-         "ln2s", "ln2b", "cwq", "cbq", "cwo", "cbo", "ln3s", "ln3b", "w1", "b1", "w2", "b2",
-         "kc", "vc", "ck", "cv", "key_bias", "step", "anc")
+_SELF_PTRS = ("x", "y", "qpos", "ln1s", "ln1b", "swq", "sbq", "swk", "sbk", "swv", "sbv", "swo", "sbo")
 
 
 class _Args(ctypes.Structure):
     """Mirror of ``struct Args`` in csrc/decoder_kernels.cu (same field order)."""
 
-    _fields_ = [(n, ctypes.c_int) for n in ("B", "T", "S", "F", "L", "K")] + [
-        (n, ctypes.c_void_p) for n in _PTRS
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "T", "K")] + [
+        (n, ctypes.c_void_p) for n in _SELF_PTRS + ("kc", "vc", "step", "anc")
     ]
 
 
 class _StackArgs(ctypes.Structure):
     """Mirror of ``struct StackArgs`` in csrc/stack_kernels.cu (same field
-    order): the layer fields of _Args, then the kernel's f32 scratch."""
+    order): every layer parameter, the caches, then the kernel's f32 scratch."""
 
     _fields_ = [(n, ctypes.c_int) for n in ("B", "T", "S", "F", "L", "max_blocks")] + [
-        (n, ctypes.c_void_p) for n in _PTRS[:-1] + ("xres", "qkv", "att", "hid", "part", "trace")
+        (n, ctypes.c_void_p) for n in _SELF_PTRS + (
+            "ln2s", "ln2b", "cwq", "cbq", "cwo", "cbo", "ln3s", "ln3b", "w1", "b1", "w2", "b2",
+            "kc", "vc", "ck", "cv", "key_bias", "step", "xres", "qkv", "att", "hid", "part", "trace")
+    ]
+
+
+class _BlockArgs(ctypes.Structure):
+    """Mirror of ``struct BlockArgs`` in csrc/block_kernels.cu (same field order)."""
+
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "S", "F", "rows")] + [
+        (n, ctypes.c_void_p) for n in ("x", "y", "qpos", "lns", "lnb", "wq", "bq", "wo", "bo",
+                                       "w1", "b1", "w2", "b2", "ck", "cv", "key_bias")
     ]
 
 
@@ -323,8 +333,8 @@ class _AttnArgs(ctypes.Structure):
 
 # source -> (argument struct, entry points, error-string function)
 _LIBS = {
-    "decoder_kernels": (_Args, ("rt_self_attn_block", "rt_self_attn_block_beam", "rt_cross_attn_block",
-                                "rt_ff_block"), "rt_error_string"),
+    "decoder_kernels": (_Args, ("rt_self_attn_block", "rt_self_attn_block_beam"), "rt_error_string"),
+    "block_kernels": (_BlockArgs, ("rt_ff_block", "rt_cross_attn_block"), "rt_block_error_string"),
     "stack_kernels": (_StackArgs, ("rt_stack_step",), "rt_stack_error_string"),
     "head_kernels": (_HeadArgs, ("rt_head_trunk", "rt_head_blocks"), "rt_head_error_string"),
     "attention_kernels": (_AttnArgs, ("rt_fused_attention",), "rt_attn_error_string"),
@@ -333,8 +343,8 @@ _LIBS = {
 _ENTRY = {"fused_stack_step": ("stack_kernels", "rt_stack_step"),
           "fused_layer_step": ("stack_kernels", "rt_stack_step"),
           "self_attn_block": ("decoder_kernels", "rt_self_attn_block"),
-          "cross_attn_block": ("decoder_kernels", "rt_cross_attn_block"),
-          "ff_block": ("decoder_kernels", "rt_ff_block"),
+          "cross_attn_block": ("block_kernels", "rt_cross_attn_block"),
+          "ff_block": ("block_kernels", "rt_ff_block"),
           "self_attn_block_beam": ("decoder_kernels", "rt_self_attn_block_beam")}
 _handles: Dict[str, ctypes.CDLL] = {}
 
@@ -371,9 +381,9 @@ def _param_shapes(f: int = WIDTH, nl=None) -> Dict[str, tuple]:
     vec, sq = lead + (WIDTH,), lead + (WIDTH, WIDTH)
     shapes = {"qpos": (WIDTH,), "w1": lead + (WIDTH, f), "b1": lead + (f,), "w2": lead + (f, WIDTH)}
     for n in ("ln1s", "ln1b", "sbq", "sbk", "sbv", "sbo", "ln2s", "ln2b", "cbq", "cbo", "ln3s", "ln3b",
-              "b2"):
+              "b2", "lns", "lnb", "bq", "bo"):
         shapes[n] = vec
-    for n in ("swq", "swk", "swv", "swo", "cwq", "cwo"):
+    for n in ("swq", "swk", "swv", "swo", "cwq", "cwo", "wq", "wo"):
         shapes[n] = sq
     return shapes
 
@@ -427,25 +437,36 @@ def _launch(kernel: str, ref: torch.Tensor, /, **fields) -> None:
 # ---------------------------------------------------------------------------------
 
 
+# 0, or the row tile both block kernels (ff_block, cross_attn_block) use instead
+# of their own choice for the batch; the card tests set it to show that a row's
+# result does not depend on the tile, chip_smoke.py to time each tile.
+_block_rows = 0
+
+
 def ff_block(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x: [B, C] -> x + Linear(F, C)(ReLU(Linear(C, F)(LN(x)))), in x's type.
 
     Replaces retr_tpu/ops/decoder_kernels.py ``ff_block`` (``_ff_kernel``). Bound
-    on the card: bytes — the two [256, F] weights against 2*B*C*F operations, so
-    below ~300 rows it moves more than it computes. Design: one block per row
-    tile streams each weight once per tile, keeps the LN input and each 256-wide
-    hidden chunk in shared memory, and never writes the [B, F] hidden state out.
+    on the card: bytes below ~300 rows (the two [256, F] weights, 2.1 MB in bf16
+    at F = 2048), operations above. Design (csrc/block_kernels.cu): one launch of
+    thread-block clusters, one cluster per tile of 16-64 rows (the smallest
+    tile whose clusters all fit on the card at once) with one block per
+    256-wide slice of the hidden width (up to 8), so a small batch spreads the
+    weights over 8x more SMs than one block per tile did; each block keeps its
+    LN tile and hidden slice in shared memory, multiplies on tensor cores (bf16)
+    and hands its f32 FF2 partial to its peers through distributed shared
+    memory, which sum them in slice order. Nothing goes to device memory but y.
     """
     if x.device.type == "cpu":
         return ff_block_plain(p, x)
     b, c = x.shape
     f = p["lin1"]["w"].shape[1]
     _check_width("ff_block", c, HEADS, f)
-    t = dict(ln3s=p["norm"]["scale"], ln3b=p["norm"]["bias"], w1=p["lin1"]["w"],
+    t = dict(lns=p["norm"]["scale"], lnb=p["norm"]["bias"], w1=p["lin1"]["w"],
              b1=p["lin1"]["b"], w2=p["lin2"]["w"], b2=p["lin2"]["b"])
     _check("ff_block", x.dtype, _param_shapes(f), x=x, **t)
     y = torch.empty_like(x)
-    _launch("ff_block", x, B=b, F=f, L=1, x=x, y=y, **t)
+    _launch("ff_block", x, B=b, F=f, rows=_block_rows, x=x, y=y, **t)
     return y
 
 
@@ -453,10 +474,15 @@ def cross_attn_block(p: Params, x, qpos, k, v, key_bias, *, num_heads: int) -> t
     """x: [B, C]; k, v: [B, H, S, D] memory keys/values; key_bias: [B, S] f32.
 
     Replaces retr_tpu/ops/decoder_kernels.py ``cross_attn_block``
-    (``_cross_kernel``). Bound on the card: bytes — the memory K/V (2*B*H*S*D
-    elements) dominate, read once for one query per head. Design: one block per
-    row tile; q, scores and probabilities stay in shared memory; K/V rows are
-    read with 16-byte loads; the out-projection is summed head by head on chip.
+    (``_cross_kernel``), whose sequential grid walks the heads. Bound on the
+    card: bytes — the memory K/V (2*B*H*S*D elements), read once for one query
+    per head. Design (csrc/block_kernels.cu): one launch of thread-block
+    clusters, one cluster of 8 blocks (one per head) per tile of 4-32 rows
+    (chosen as for ff_block); a block computes its head's q on tensor cores
+    (bf16), attends each row (a warp per row) with 16-byte K loads and V rows
+    staged into shared memory during the score pass, and hands its f32
+    out-projection part to its peers through distributed shared memory, which
+    add the heads in order, rounding after each as the TPU kernel does.
     """
     if x.device.type == "cpu":
         return cross_attn_block_plain(p, x, qpos, k, v, key_bias, num_heads=num_heads)
@@ -467,12 +493,28 @@ def cross_attn_block(p: Params, x, qpos, k, v, key_bias, *, num_heads: int) -> t
         raise ValueError(f"cross_attn_block: k/v {tuple(k.shape)} / key_bias {tuple(key_bias.shape)} "
                          f"do not match x {tuple(x.shape)}")
     m = p["mha"]
-    t = dict(qpos=qpos, ln2s=p["norm"]["scale"], ln2b=p["norm"]["bias"], cwq=m["q"]["w"],
-             cbq=m["q"]["b"], cwo=m["out"]["w"], cbo=m["out"]["b"], ck=k, cv=v, key_bias=key_bias)
+    t = dict(qpos=qpos, lns=p["norm"]["scale"], lnb=p["norm"]["bias"], wq=m["q"]["w"],
+             bq=m["q"]["b"], wo=m["out"]["w"], bo=m["out"]["b"], ck=k, cv=v, key_bias=key_bias)
     _check("cross_attn_block", x.dtype, _param_shapes(), x=x, **t)
     y = torch.empty_like(x)
-    _launch("cross_attn_block", x, B=b, S=s, L=1, x=x, y=y, **t)
+    _launch("cross_attn_block", x, B=b, S=s, rows=_block_rows, x=x, y=y, **t)
     return y
+
+
+def block_plan(kernel: str, dtype: torch.dtype, b: int, s: int = 1, f: int = 256) -> Dict[str, int]:
+    """The launch ``kernel`` ("ff_block" or "cross_attn_block") makes on the
+    current CUDA device for these shapes: rows per tile, blocks per cluster,
+    clusters, clusters co-resident on the card, shared bytes per block."""
+    lib = _lib("block_kernels")
+    fn = lib.rt_block_plan
+    fn.argtypes = [ctypes.POINTER(_BlockArgs), ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    args = _BlockArgs(B=b, S=s, F=f, rows=_block_rows)
+    rc = fn(ctypes.byref(args), int(kernel == "cross_attn_block"), int(dtype == torch.bfloat16), out)
+    if rc != 0:
+        raise RuntimeError(f"rt_block_plan: {lib.rt_block_error_string(rc).decode()}")
+    return dict(zip(("rows", "cluster", "clusters", "resident_clusters", "smem_bytes"), out))
 
 
 def self_attn_block(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: int):
@@ -500,7 +542,7 @@ def self_attn_block(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: in
              kc=k_cache, vc=v_cache, step=step)
     _check("self_attn_block", x.dtype, _param_shapes(), x=x, **t)
     y = torch.empty_like(x)
-    _launch("self_attn_block", x, B=b, T=tmax, L=1, x=x, y=y, **t)
+    _launch("self_attn_block", x, B=b, T=tmax, x=x, y=y, **t)
     return y, k_cache, v_cache
 
 
@@ -660,7 +702,7 @@ def self_attn_block_beam(p: Params, x, anc, qpos, k_cache, v_cache, step, *, num
              kc=k_cache, vc=v_cache, step=step, anc=anc)
     _check("self_attn_block_beam", x.dtype, _param_shapes(), x=x, **t)
     y = torch.empty_like(x)
-    _launch("self_attn_block_beam", x, B=bk, T=tmax, L=1, K=num_beams, x=x, y=y, **t)
+    _launch("self_attn_block_beam", x, B=bk, T=tmax, K=num_beams, x=x, y=y, **t)
     return y, k_cache, v_cache
 
 

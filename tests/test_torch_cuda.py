@@ -26,6 +26,7 @@ pytestmark = pytest.mark.cuda
 
 C, H, D, F, T, S, L = 256, 8, 32, 512, 24, 37, 2
 B = 13  # not a multiple of the 4-row tile: the ragged last tile runs too
+S_MEMORY, S_MEMORY_TT = 196, 2 * 196 + 5  # the served memory lengths: 14x14 features, the (T,T) variant
 
 
 @pytest.fixture
@@ -113,6 +114,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         dk.ff_block(bad_w2, torch.zeros(4, C, device=dev))
     with pytest.raises(ValueError, match="aligned"):
         dk.ff_block(q, torch.zeros(4, C + 1, device=dev)[:, 1:])
+    old = dk._block_rows
+    dk._block_rows = 24                    # no kernel is built for 24-row tiles
+    try:
+        with pytest.raises(RuntimeError, match="rt_ff_block"):
+            dk.ff_block(q, torch.zeros(4, C, device=dev))
+    finally:
+        dk._block_rows = old
+    m = {"norm": q["norm"], "mha": {k: {"w": torch.zeros(C, C, device=dev), "b": torch.zeros(C, device=dev)}
+                                    for k in ("q", "out")}}
+    kv = torch.zeros(4, H, 7, D, device=dev)
+    with pytest.raises(ValueError, match="do not match"):
+        dk.cross_attn_block(m, torch.zeros(4, C, device=dev), torch.zeros(C, device=dev), kv, kv,
+                            torch.zeros(4, 8, device=dev), num_heads=H)
+    with pytest.raises(ValueError, match="float32"):
+        dk.cross_attn_block(m, torch.zeros(4, C, device=dev), torch.zeros(C, device=dev), kv, kv,
+                            torch.zeros(4, 7, device=dev, dtype=torch.bfloat16), num_heads=H)
 
 
 @pytest.mark.parametrize("layer_grid", [True, False])
@@ -248,6 +265,77 @@ def test_stacked_step_matches_plain_version(dev, wrapper, batch, step, dtype, to
         assert torch.equal(runs[0][i], runs[1][i]) and torch.equal(runs[0][i], runs[2][i])
         assert torch.equal(runs[0][i][:, :, :, keep].view(torch.uint8), orig[:, :, :, keep].view(torch.uint8))
         _close_to_plain(runs[0][i][:, :, :, step], runs[3][i][:, :, :, step], tol)
+
+
+BLOCK_ROWS = [1, 5, 16, 17, 32, 160, 512, 2560]   # ragged tiles; the beam path's 160 and 2560
+
+
+def _check_block_kernel(wrapper, tiles, call, args, tol):
+    """Launch ``call`` (the kernel) and its plain version on ``args``: within
+    tolerance of each other, one launch counted per call, a second launch and a
+    launch at every row tile in ``tiles`` bit-equal, the inputs unwritten."""
+    before = [a.clone() for a in args]
+    dk.reset_launches()
+    got, again = call(dk, wrapper), call(dk, wrapper)
+    forced = []
+    old = dk._block_rows
+    try:
+        for r in tiles:
+            dk._block_rows = r
+            forced.append(call(dk, wrapper))
+    finally:
+        dk._block_rows = old
+    with matmul_precision(torch.float32):
+        want = call(dk, wrapper + "_plain")
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES[wrapper] == 2 + len(tiles) and sum(dk.LAUNCHES.values()) == 2 + len(tiles)
+    _close_to_plain(got, want, tol)
+    for other in [again, *forced]:
+        assert torch.equal(got.view(torch.int16 if got.element_size() == 2 else torch.int32),
+                           other.view(torch.int16 if got.element_size() == 2 else torch.int32))
+    assert all(torch.equal(a, b) for a, b in zip(args, before))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)])
+@pytest.mark.parametrize("f", [256, 2048])
+@pytest.mark.parametrize("rows", BLOCK_ROWS)
+def test_ff_block_matches_plain_version(dev, rows, f, dtype, tol):
+    """rt_ff_block (clusters of min(8, F/256) blocks) against the plain
+    version; the result does not depend on the row tile (16, 32 or 64)."""
+    gen = torch.Generator(device=dev).manual_seed(20 + rows + f)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    p = {"norm": {"scale": (1 + rn(C, scale=0.1).float()).to(dtype), "bias": rn(C, scale=0.1)},
+         "lin1": {"w": rn(C, f, scale=(2.0 / (C + f)) ** 0.5), "b": rn(f, scale=0.02)},
+         "lin2": {"w": rn(f, C, scale=(2.0 / (C + f)) ** 0.5), "b": rn(C, scale=0.02)}}
+    x = rn(rows, C)
+    _check_block_kernel("ff_block", (16, 32, 64), lambda m, fn: getattr(m, fn)(p, x), [x], tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)])
+@pytest.mark.parametrize("s", [1, S_MEMORY, S_MEMORY_TT])
+@pytest.mark.parametrize("rows", BLOCK_ROWS)
+def test_cross_attn_block_matches_plain_version(dev, rows, s, dtype, tol):
+    """rt_cross_attn_block (clusters of 8 blocks, one per head) against the
+    plain version at the memory lengths the decoders run (1, 196 and the
+    (T,T) variant's 397); row 0 sees only its first memory position; the result
+    does not depend on the row tile (4, 8, 16 or 32)."""
+    gen = torch.Generator(device=dev).manual_seed(30 + rows + s)
+    lp = dk.layer_params(_decoder(gen, dev, dtype, 1), 0)["cross_attn"]
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    x, qpos, ck, cv = rn(rows, C), rn(C), rn(rows, H, s, D), rn(rows, H, s, D)
+    pad = torch.rand(rows, s, generator=gen, device=dev) < 0.3
+    pad[:, 0] = False
+    pad[0, 1:] = True
+    kb = torch.where(pad, float("-inf"), 0.0)
+    _check_block_kernel("cross_attn_block", (4, 8, 16, 32),
+                        lambda m, fn: getattr(m, fn)(lp, x, qpos, ck, cv, kb, num_heads=H),
+                        [x, qpos, ck, cv, kb], tol)
 
 
 def test_stacked_step_rejects_what_the_kernel_does_not_take(dev):

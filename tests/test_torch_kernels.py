@@ -79,21 +79,43 @@ def _close(got, ref, atol):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref.astype(jnp.float32)), atol=atol, rtol=0)
 
 
-def test_ff_block_plain_matches_pallas(case):
+def _block_inputs(case, rows, s):
+    """x [rows, C] and the memory K/V [rows, H, s, D] with their key bias: the
+    case's own at its shape, else drawn from a seeded rng (pad rate 0.3, key 0
+    of every row kept)."""
+    if (rows, s) == (B, S):
+        return case["x"], case["ck"][0], case["cv"][0], case["kb"]
+    rng = np.random.default_rng(100 + rows + s)
+    arr = lambda *shape: jnp.asarray(rng.standard_normal(shape), case["jdt"])  # noqa: E731
+    pad = rng.random((rows, s)) < 0.3
+    pad[:, 0] = False
+    return (arr(rows, C), arr(rows, H, s, D), arr(rows, H, s, D),
+            jnp.where(jnp.asarray(pad), -jnp.inf, 0.0).astype(jnp.float32))
+
+
+# rows: the case's batch and a beam-shaped one (8 x beam 5; Pallas takes multiples of 8)
+BEAM_ROWS = 8 * 5
+
+
+@pytest.mark.parametrize("rows", [B, BEAM_ROWS])
+def test_ff_block_plain_matches_pallas(case, rows):
     p = case["lps"][0]["ff"]
-    ref = dk.ff_block(p, case["x"], interpret=True)
-    got = tk.ff_block(_torch_tree(jax.tree.map(np.asarray, p), case["tdt"]), _t(case["x"], case["tdt"]))
-    assert got.dtype == case["tdt"]
+    x = _block_inputs(case, rows, S)[0]
+    ref = dk.ff_block(p, x, interpret=True)
+    got = tk.ff_block(_torch_tree(jax.tree.map(np.asarray, p), case["tdt"]), _t(x, case["tdt"]))
+    assert got.dtype == case["tdt"] and got.shape == (rows, C)
     _close(got, ref, case["atol"])
 
 
-def test_cross_attn_block_plain_matches_pallas(case):
+@pytest.mark.parametrize("rows", [B, BEAM_ROWS])
+@pytest.mark.parametrize("s", [S, 1])   # S = 1: one memory position, its softmax weight exactly 1
+def test_cross_attn_block_plain_matches_pallas(case, rows, s):
     p, tdt = case["lps"][0]["cross_attn"], case["tdt"]
-    ref = dk.cross_attn_block(p, case["x"], case["qpos"], case["ck"][0], case["cv"][0], case["kb"],
-                              num_heads=H, interpret=True)
-    got = tk.cross_attn_block(_torch_tree(jax.tree.map(np.asarray, p), tdt), _t(case["x"], tdt),
-                              _t(case["qpos"], tdt), _t(case["ck"][0], tdt), _t(case["cv"][0], tdt),
-                              _t(case["kb"]), num_heads=H)
+    x, ck, cv, kb = _block_inputs(case, rows, s)
+    ref = dk.cross_attn_block(p, x, case["qpos"], ck, cv, kb, num_heads=H, interpret=True)
+    got = tk.cross_attn_block(_torch_tree(jax.tree.map(np.asarray, p), tdt), _t(x, tdt),
+                              _t(case["qpos"], tdt), _t(ck, tdt), _t(cv, tdt), _t(kb), num_heads=H)
+    assert got.dtype == tdt and got.shape == (rows, C)
     _close(got, ref, case["atol"])
 
 
@@ -157,6 +179,41 @@ def test_build_needs_nvcc_and_keys_the_library_by_source(monkeypatch, tmp_path):
     assert cuda_build.library_path("decoder_kernels") != path
 
 
+def _struct_fields(source: str, name: str):
+    """Field names of ``struct <name>`` in a CUDA source, in order."""
+    import re
+
+    body = re.search(r"struct " + name + r" \{(.*?)\n\};", source, re.S).group(1)
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        for part in decl.split(","):
+            words = re.findall(r"\w+", part)
+            if words:
+                fields.append(words[-1])
+    return fields
+
+
+def test_ctypes_structs_mirror_the_cuda_argument_structs():
+    """Every ``struct ...Args`` of csrc/*.cu and its ctypes mirror in
+    ops/decoder_kernels.py name the same fields in the same order: a field
+    out of place would pass every pointer one slot off, silently, on the card."""
+    import glob
+    import re
+
+    from retr_tpu_torch.ops import cuda_build
+
+    mirrors = {"Args": tk._Args, "StackArgs": tk._StackArgs, "HeadArgs": tk._HeadArgs,
+               "AttnArgs": tk._AttnArgs, "BlockArgs": tk._BlockArgs}
+    seen = set()
+    for path in sorted(glob.glob(os.path.join(cuda_build.CSRC_DIR, "*.cu"))):
+        source = open(path).read()
+        for name in re.findall(r"^struct (\w*Args) \{", source, re.M):
+            assert name in mirrors, f"{name} ({os.path.basename(path)}) has no ctypes mirror"
+            assert [f[0] for f in mirrors[name]._fields_] == _struct_fields(source, name), name
+            seen.add(name)
+    assert seen == set(mirrors)
+
+
 def test_library_name_covers_the_shared_headers(monkeypatch, tmp_path):
     """An edit to a csrc/*.cuh header renames every library (each source may
     include it), so a stale build is never loaded."""
@@ -167,7 +224,7 @@ def test_library_name_covers_the_shared_headers(monkeypatch, tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_build.CSRC_DIR, csrc, ignore=shutil.ignore_patterns("__pycache__"))
     monkeypatch.setattr(cuda_build, "CSRC_DIR", str(csrc))
-    names = ("stack_kernels", "decoder_kernels")
+    names = ("stack_kernels", "decoder_kernels", "block_kernels")
     before = {n: cuda_build.library_path(n) for n in names}
     assert before == {n: cuda_build.library_path(n) for n in names}      # stable
     header = csrc / "common.cuh"
