@@ -22,7 +22,10 @@ Phases (any failure raises, exits non-zero and prints no result line):
      1, 5, 17 and 33, F 256 and 2048, S 1, 196 and 397, random padding or one
      unmasked key per row (a second launch bit-equal, x unwritten), the beam block and
      the top-k head at 160 and 2560 rows (batch 32 and 512 x beam 5), the
-     argmax head at 32 and 512 rows, fused_attention at batch 32 for the
+     argmax head at 32 and 512 rows (both heads with their profiled device
+     time), both heads unclocked at rows 1, 5, 19, 33 and 129, vocab 5000 and
+     30522, k 1, 5 and 8, with ties across 128-wide slab boundaries and in
+     the ragged last slab (a second launch bit-equal), fused_attention at batch 32 for the
      encoder (196x196, key padding), the causal decoder (128x128, ~15 real
      tokens), the cross attention (128x196) and the (T,T) encoder (397x397),
      its yardstick scaled_dot_product_attention with the same additive mask;
@@ -32,8 +35,8 @@ Phases (any failure raises, exits non-zero and prints no result line):
      HEAD_KERNEL, and with MERGED_LAYER (LAYER_GRID off); beam search (beam 5)
      with BEAM_TOPK_KERNEL off and on; the launch counts are reset before and
      read after each run, and each kernel a run lists must have launched.
-     Then time greedy at batch 32 and 512 and beam at batch 32 x 5 (head
-     kernel off and on) and 512 x 5 for all 127 steps with EOS out of range,
+     Then time greedy at batch 32 and 512 and beam at batch 32 x 5 and 512 x 5
+     (top-k head kernel off and on) for all 127 steps with EOS out of range,
      and trace 32 steps of greedy at 32 and 512 and beam at 32 x 5 and 512 x 5
      with torch.profiler (device time by kernel, idle share); then greedy with
      use_pallas_attention on, whose encoder launches fused_attention (6
@@ -62,8 +65,8 @@ the repository beside it and a CUDA device.
 compares two checkouts on one card: in turns (parent, change, change, parent,
 parent, change), a process per turn times the decode loops of the
 retr_tpu_torch package under that tree (`--loop-times TREE`: greedy stacked
-and trio at batch 32 and 512, beam 5 at batch 32 (head kernel off and on) and
-512 where the tree has it, 127 steps, EOS out of range, encode outside the
+and trio at batch 32 and 512, beam 5 at batch 32 and 512 (top-k head kernel
+off and on) where the tree has it, 127 steps, EOS out of range, encode outside the
 timing, median of 5 runs after one warm-up) with this file's measuring code,
 and prints a digest of the tree's stacked step on seeded inputs
 (`stack_digest`: equal digests, equal bits).
@@ -72,6 +75,11 @@ and prints a digest of the tree's stacked step on seeded inputs
 
 times ff_block and cross_attn_block (bf16, device time) at every row tile
 they are built for, and at their own choice, at 32, 160, 512 and 2560 rows.
+
+    python3 chip_smoke.py --heads
+
+builds the kernels, then runs phase 3's head checks alone (both heads timed
+at their main-path rows, then the head_edges cases; ~40 s).
 """
 
 from __future__ import annotations
@@ -331,12 +339,14 @@ def stack_detail(call, grid):
             "phase_us": {n: sum(dur[i::len(names)]) for i, n in enumerate(names)}}
 
 
-def device_ms(call, kernel, calls=20):
+def device_ms(call, kernel, calls=20, per_call=False):
     """Mean device time of the launches of the kernels whose name holds
-    ``kernel`` over ``calls`` calls of ``call`` after a warm-up call
-    (torch.profiler, which may drop an event of a long trace): the kernel
-    alone, where CUDA events over back-to-back calls also hold the host's
-    wrapper when it is the slower."""
+    ``kernel`` (a string, or a tuple of strings any of which may match) over
+    ``calls`` calls of ``call`` after a warm-up call (torch.profiler, which
+    may drop an event of a long trace): the kernel alone, where CUDA events
+    over back-to-back calls also hold the host's wrapper when it is the
+    slower. ``per_call``: their summed time per call, for a wrapper that makes
+    several launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -347,11 +357,12 @@ def device_ms(call, kernel, calls=20):
         for _ in range(calls):
             call()
         torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
+             if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
     if not spans:
         return "not measured (no CUDA events traced)"
-    return sum(spans) / len(spans) / 1e3
+    return sum(spans) / (calls if per_call else len(spans)) / 1e3
 
 
 BLOCK_ROWS = (32, 160, 512, 2560)     # greedy 32 / 512, beam 32 x 5 / 512 x 5
@@ -579,9 +590,15 @@ def random_head(gen, dev, dtype):
     return {"layers": [lin(C, MLP), lin(MLP, MLP), lin(MLP, V)]}
 
 
+# csrc/head_kernels.cu's CUDA functions: mlp_head_argmax launches both,
+# mlp_head_topk the vocab kernel alone (its trunk runs in torch)
+HEAD_KERNEL_NAMES = {"mlp_head_argmax": ("trunk_kernel", "vocab_kernel"), "mlp_head_topk": ("vocab_kernel",)}
+
+
 def check_beam_and_heads(dev):
     """The beam block and the top-k head at 160 and 2560 rows (batch 32 and 512
-    x beam 5), the argmax head at 32 and 512 rows. Returns {(name, dtype, rows): record}."""
+    x beam 5), the argmax head at 32 and 512 rows; the heads with their
+    profiled device time per call. Returns {(name, dtype, rows): record}."""
     import torch
     import torch.nn.functional as Fn
 
@@ -594,6 +611,7 @@ def check_beam_and_heads(dev):
         dname = str(dtype).replace("torch.", "")
         layers_ = [dk.layer_params(random_decoder(gen, dev, dtype), li) for li in range(L)]
         head = random_head(gen, dev, dtype)
+        packed = dk.pack_head(head)                       # what the decode loop hands the kernels
         l3 = head["layers"][2]
 
         def argmax_err(got, want, dname):
@@ -635,21 +653,80 @@ def check_beam_and_heads(dev):
             del kg, vg, kc, vc, kc_k, vc_k, kc_p, vc_p
 
             xk = rn(bk, C)
+            topk_call = lambda: dk.mlp_head_topk(packed, xk, BEAM)  # noqa: E731
             out[("mlp_head_topk", dname, bk)] = measure(
-                "mlp_head_topk", dname, bk, lambda li: dk.mlp_head_topk(head, xk, BEAM),
+                "mlp_head_topk", dname, bk, lambda li: topk_call(),
                 lambda li: dk.mlp_head_topk_plain(head, xk, BEAM),
                 # yardstick (several calls): cuBLAS head, topk, logsumexp
                 lambda li: (lambda lg: (lg.topk(BEAM, dim=-1), lg.logsumexp(dim=-1)))(
                     caption.mlp_head(head, xk).float()),
-                1, topk_err)
+                1, topk_err,
+                {"device_ms": device_ms(topk_call, HEAD_KERNEL_NAMES["mlp_head_topk"], per_call=True)})
             xh = rn(b, C)
+            argmax_call = lambda: dk.mlp_head_argmax(packed, xh)  # noqa: E731
             out[("mlp_head_argmax", dname, b)] = measure(
-                "mlp_head_argmax", dname, b, lambda li: dk.mlp_head_argmax(head, xh),
+                "mlp_head_argmax", dname, b, lambda li: argmax_call(),
                 lambda li: dk.mlp_head_argmax_plain(head, xh),
                 # yardstick (several calls): cuBLAS head and argmax
-                lambda li: caption.mlp_head(head, xh).argmax(dim=-1), 1, argmax_err)
+                lambda li: caption.mlp_head(head, xh).argmax(dim=-1), 1, argmax_err,
+                {"device_ms": device_ms(argmax_call, HEAD_KERNEL_NAMES["mlp_head_argmax"], per_call=True)})
             torch.cuda.empty_cache()
     return out
+
+
+def check_head_edges(dev):
+    """Both heads, untimed, against their plain versions: rows 1, 5, 19, 33
+    and 129 (ragged row tiles of 32, 64 and 128), vocab 5000 and 30522 (ragged
+    last slabs of 8 and 58 columns), k 1, 5 and 8, f32 and bf16, random
+    weights and weights whose best columns tie across 128-wide slab
+    boundaries and in the last slab (the lowest tied ids must come out). A
+    second launch must give the same bits. Prints one line; raises on a miss."""
+    import torch
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+    from retr_tpu_torch.precision import matmul_precision
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    worst, cases = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for vocab in (5000, V):
+            last = (vocab - 1) // 128 * 128
+            ties = (3, 127, 128, 256, last, vocab - 1)
+            for tied in (False, True):
+                head = {"layers": [{"w": (torch.randn(i, o, generator=gen, device=dev) * i ** -0.5).to(dtype),
+                                    "b": (torch.randn(o, generator=gen, device=dev) * 0.1).to(dtype)}
+                                   for i, o in ((C, MLP), (MLP, MLP), (MLP, vocab))]}
+                if tied:
+                    head["layers"][2]["w"][:, list(ties)] = 1.0
+                    head["layers"][2]["b"][list(ties)] = 5.0
+                packed = dk.pack_head(head)
+                for b in (1, 5, 19, 33, 129):
+                    x = torch.randn(b, C, generator=gen, device=dev).to(dtype)
+                    for k in (1, 5, 8):
+                        ids, again = dk.mlp_head_argmax(packed, x), dk.mlp_head_argmax(packed, x)
+                        (sc, tok), (sc2, tok2) = dk.mlp_head_topk(packed, x, k), dk.mlp_head_topk(packed, x, k)
+                        with matmul_precision(torch.float32):
+                            want_ids = dk.mlp_head_argmax_plain(head, x)
+                            want_sc, _ = dk.mlp_head_topk_plain(head, x, k)
+                            l3 = head["layers"][2]
+                            lg = dk._dot(dk._head_trunk(head, x), l3["w"]) + l3["b"].float()
+                        torch.cuda.synchronize()
+                        tol = TOL["float32"] * max(1.0, float(lg.abs().max()))
+                        gap = float((lg.gather(1, want_ids.long()[:, None]) - lg.gather(1, ids.long()[:, None])).abs().max())
+                        err = max(gap, float((sc - want_sc).abs().max()))
+                        same = (torch.equal(ids, again) and torch.equal(tok, tok2)
+                                and torch.equal(_bits(sc), _bits(sc2)))
+                        n = min(k, len(ties))
+                        lowest = not tied or (bool((ids == ties[0]).all())
+                                              and tok[:, :n].tolist() == [list(ties[:n])] * b)
+                        key = f"{dname} vocab {vocab}"
+                        worst[key] = max(worst.get(key, 0.0), err / tol)
+                        cases += 1
+                        if not (err <= tol and same and lowest):
+                            raise AssertionError(f"heads {dname} vocab {vocab} rows {b} k {k} ties {tied}: err {err} "
+                                                 f"(tol {tol}), same bits {same}, lowest tied ids {lowest}")
+    log("head_edges", json.dumps({"cases": cases, "worst_err_over_tol": worst}))
 
 
 def attention_work(b, sq, sk, causal, esize):
@@ -866,9 +943,9 @@ def encode_for_decode(params, cfg, samples):
 
 def throughput(dev, params, card):
     """Greedy at batch 32 and 512 with the stacked kernel and with the per-layer
-    trio, beam at batch 32 x 5 with the head kernel off and on and at 512 x 5
-    (offline evaluation, flags at their defaults): all 127 steps (EOS out of
-    range), encode and loop timed apart."""
+    trio, beam at batch 32 x 5 and 512 x 5 with the top-k head kernel off and on
+    (offline evaluation, other flags at their defaults): all 127 steps (EOS out
+    of range), encode and loop timed apart."""
     import torch
 
     from retr_tpu_torch import decode
@@ -878,7 +955,7 @@ def throughput(dev, params, card):
     runs = [(32, "greedy", {"LAYER_GRID": True}), (32, "greedy", {"LAYER_GRID": False}),
             (512, "greedy", {"LAYER_GRID": True}), (512, "greedy", {"LAYER_GRID": False}),
             (32, "beam", {"BEAM_TOPK_KERNEL": False}), (32, "beam", {"BEAM_TOPK_KERNEL": True}),
-            (512, "beam", {"BEAM_TOPK_KERNEL": False})]
+            (512, "beam", {"BEAM_TOPK_KERNEL": False}), (512, "beam", {"BEAM_TOPK_KERNEL": True})]
     samples = {b: random_samples(b, gen, dev) for b in (32, 512)}
     for b, decoder, fl in runs:
         times = []
@@ -1194,7 +1271,7 @@ def loop_times(tree) -> int:
             (512, "greedy", "LAYER_GRID", True), (512, "greedy", "LAYER_GRID", False)]
     if hasattr(decode, "beam_search_from_memory"):
         runs += [(32, "beam", "BEAM_TOPK_KERNEL", False), (32, "beam", "BEAM_TOPK_KERNEL", True),
-                 (512, "beam", "BEAM_TOPK_KERNEL", False)]
+                 (512, "beam", "BEAM_TOPK_KERNEL", False), (512, "beam", "BEAM_TOPK_KERNEL", True)]
     memory = {b: encode_for_decode(params, cfg, random_samples(b, gen, "cuda")) for b in (32, 512)}
     for b, decoder, flag, value in runs:
         p, mem, mask, pos = memory[b]
@@ -1274,6 +1351,12 @@ def main(mode=None) -> int:
     if mode == "--block-rows":
         block_rows(dev, card)
         return 0
+    if mode == "--heads":
+        log("card", card)
+        dk.build()
+        check_beam_and_heads(dev)
+        check_head_edges(dev)
+        return 0
     log("card", card)                                                      # phase 1
 
     t0 = time.perf_counter()
@@ -1284,6 +1367,7 @@ def main(mode=None) -> int:
               **check_attention(dev)}
     check_stack_edges(dev)
     check_block_edges(dev)
+    check_head_edges(dev)
     torch.cuda.empty_cache()
 
     state = random_state(served_config("bfloat16"))                        # phase 4

@@ -57,8 +57,23 @@ def fused_attention_plain(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
     return torch.matmul(probs.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+def _smem_bytes(d: int, sk: int) -> int:
+    """Shared memory of one rt_fused_attention block: the q and key tiles and
+    the whole score block of its 32 query rows, f32."""
+    return ((_QT + _KT) * (d + 1) + _QT * sk) * 4
+
+
+def attention_kernel_fits(d: int, sk: int) -> bool:
+    """Whether rt_fused_attention takes head dim ``d`` and ``sk`` keys."""
+    return d in HEAD_DIMS and _smem_bytes(d, sk) <= _SMEM_MAX
+
+
+def _refuse_grad(*tensors) -> None:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "fused_attention has no backward: retr_tpu defines no VJP for its Pallas kernel "
+            "(retr_tpu/ops/attention.py), so neither package differentiates it. Train with "
+            "attention dropout on (the plain path), or with use_pallas_attention off.")
 
 
 def fused_attention(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
@@ -71,11 +86,7 @@ def fused_attention(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
     memory, streams K then V through it in 64-key tiles, and normalises exactly
     once between the two passes.
     """
-    if _needs_grad(q, k, v, key_bias):
-        raise NotImplementedError(
-            "fused_attention has no backward: retr_tpu defines no VJP for its Pallas kernel "
-            "(retr_tpu/ops/attention.py), so neither package differentiates it. Train with "
-            "attention dropout on (the plain path), or with use_pallas_attention off.")
+    _refuse_grad(q, k, v, key_bias)
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, key_bias, causal=causal)
     b, h, sq, d = q.shape
@@ -85,7 +96,7 @@ def fused_attention(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
     if k.shape != (b, h, sk, d) or v.shape != k.shape:
         raise ValueError(f"fused_attention: k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
                          f"q {tuple(q.shape)}")
-    smem = ((_QT + _KT) * (d + 1) + _QT * sk) * 4
+    smem = _smem_bytes(d, sk)
     if smem > _SMEM_MAX:
         raise ValueError(f"fused_attention: {sk} keys need {smem} bytes of shared memory "
                          f"(at most {_SMEM_MAX})")
@@ -114,9 +125,14 @@ def attention(q, k, v, bias: Optional[torch.Tensor], *, need_weights: bool = Fal
     ``bias`` is the general additive [B or 1, 1, Sq or 1, Sk] form of the plain
     path; the fused path takes the decomposed (``key_bias`` [B, Sk], ``causal``)
     form instead. Unlike retr_tpu there is no CPU-backend test: on the CPU the
-    wrapper runs the kernel's plain version."""
+    wrapper runs the kernel's plain version. A head dim or key count the kernel
+    does not take (:func:`attention_kernel_fits`) runs the plain version on any
+    device, as the Pallas kernel takes every shape."""
     from retr_tpu_torch.models.layers import attention_core
 
     if use_pallas and not need_weights:
-        return fused_attention(q, k, v, key_bias, causal=causal), None
+        if attention_kernel_fits(q.shape[-1], k.shape[2]):
+            return fused_attention(q, k, v, key_bias, causal=causal), None
+        _refuse_grad(q, k, v, key_bias)
+        return fused_attention_plain(q, k, v, key_bias, causal=causal), None
     return attention_core(q, k, v, bias, need_weights=need_weights)

@@ -29,6 +29,10 @@ copied: the CUDA kernels take any batch.
 Dispatch: a CPU tensor goes to the plain version (``*_plain``), which repeats
 the TPU kernel's arithmetic with torch ops; a CUDA tensor launches the kernel or
 raises. ``LAUNCHES`` counts kernel launches per wrapper (plain calls never count).
+The decode steps choose before they call: where :func:`decode_kernels_fit` or
+:func:`head_kernels_fit` says the kernels do not take the shapes, they call the
+plain versions (``PLAIN``) on any device, as the JAX package runs XLA wherever
+its Pallas kernels are not eligible. The rules read shapes and types only.
 
 Numerics shared by both versions (the TPU kernels'): products cast the
 activation to the weight's type and accumulate in f32; LayerNorm (eps 1e-5) and
@@ -45,6 +49,7 @@ The self-attention functions update the caches IN PLACE (only the slot at
 from __future__ import annotations
 
 import ctypes
+import types
 from typing import Dict
 
 import numpy as np
@@ -71,11 +76,46 @@ LAUNCHES = {"fused_stack_step": 0, "self_attn_block": 0, "cross_attn_block": 0, 
             "fused_layer_step": 0, "fused_attention": 0}  # the last: ops/attention.py
 
 WIDTH, HEADS = 256, 8  # the widths the CUDA kernels are written for
+HEAD_KMAX = 8          # the most top-k entries per row the head kernel keeps
+HEAD_ALIGN = 8         # the head kernel reads W3 rows padded to a multiple of 8 columns (pack_head)
+MAX_BEAMS = 8          # the largest beam group self_attn_block_beam takes
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def decode_kernels_fit(c: int, num_heads: int, f: int = 256, num_beams: int = 1) -> bool:
+    """Whether the decoder-layer kernels take a model of width ``c`` with
+    ``num_heads`` heads, FF width ``f`` and beam groups of ``num_beams``."""
+    return c == WIDTH and num_heads == HEADS and f % 256 == 0 and 1 <= num_beams <= MAX_BEAMS
+
+
+def head_kernels_fit(p: Params, k: int = 1) -> bool:
+    """Whether the head kernels take the MLP head ``p`` (its widths and storage
+    type), once packed (:func:`pack_head`), with ``k`` tokens per row: widths
+    that are multiples of 32, 1 <= k <= min(vocab, HEAD_KMAX), f32 or bf16."""
+    (c, hd), v = p["layers"][0]["w"].shape, p["layers"][2]["w"].shape[1]
+    return (c % 32 == 0 and hd % 32 == 0 and 1 <= k <= min(v, HEAD_KMAX)
+            and p["layers"][2]["w"].dtype in (torch.float32, torch.bfloat16))
+
+
+def pack_head(p: Params) -> Params:
+    """The MLP head with W3 and b3 padded to a multiple of HEAD_ALIGN vocab
+    columns (zero weights, a -inf bias), so that each W3 row starts on a
+    16-byte boundary: what the head kernels read. The padding is never
+    chosen and adds nothing to a sum of exponentials, so every function of the
+    head (the plain versions too) gives the same tokens and scores on the
+    packed head. A copy of W3 (31 MB in bf16 at 512 x 30522): made once per
+    decode call, where the decode loop prepares its parameters."""
+    l3 = p["layers"][2]
+    pad = -l3["w"].shape[1] % HEAD_ALIGN
+    if pad == 0:
+        return p
+    w = torch.nn.functional.pad(l3["w"], (0, pad))
+    b = torch.nn.functional.pad(l3["b"], (0, pad), value=float("-inf"))
+    return {**p, "layers": [*p["layers"][:2], {**l3, "w": w, "b": b}]}
 
 
 # ---------------------------------------------------------------------------------
@@ -279,6 +319,15 @@ def fused_stack_step_plain(slp: Params, x, qpos, k_cache, v_cache, cross_k, cros
     return xs.to(x.dtype), k_cache, v_cache
 
 
+# The plain versions under the wrappers' names: what a decode step calls, on any
+# device, where decode_kernels_fit / head_kernels_fit rule the kernels out.
+PLAIN = types.SimpleNamespace(
+    fused_stack_step=fused_stack_step_plain, fused_layer_step=fused_layer_step_plain,
+    self_attn_block=self_attn_block_plain, cross_attn_block=cross_attn_block_plain,
+    ff_block=ff_block_plain, self_attn_block_beam=self_attn_block_beam_plain,
+    mlp_head_argmax=mlp_head_argmax_plain, mlp_head_topk=mlp_head_topk_plain)
+
+
 # ---------------------------------------------------------------------------------
 # CUDA launch plumbing (csrc/*.cu through ctypes)
 # ---------------------------------------------------------------------------------
@@ -318,7 +367,7 @@ class _HeadArgs(ctypes.Structure):
     """Mirror of ``struct HeadArgs`` in csrc/head_kernels.cu (same field order)."""
 
     _fields_ = [(n, ctypes.c_int) for n in ("B", "C", "Hd", "V", "k")] + [
-        (n, ctypes.c_void_p) for n in ("x", "w1", "b1", "w2", "b2", "h2", "w3", "b3",
+        (n, ctypes.c_void_p) for n in ("x", "w1", "b1", "w2", "b2", "h1", "h2", "w3", "b3",
                                        "vals", "idx", "mx", "se")
     ]
 
@@ -407,7 +456,7 @@ def _check(kernel: str, dtype: torch.dtype, shapes: Dict[str, tuple], **tensors)
 
 
 def _check_width(kernel: str, c: int, num_heads: int, f: int = 256) -> None:
-    if c != WIDTH or num_heads != HEADS or f % 256:
+    if not decode_kernels_fit(c, num_heads, f):
         raise ValueError(f"{kernel}: the CUDA kernel is written for width {WIDTH}, {HEADS} heads "
                          f"and an FF width that is a multiple of 256 (got {c}, {num_heads}, {f})")
 
@@ -688,9 +737,9 @@ def self_attn_block_beam(p: Params, x, anc, qpos, k_cache, v_cache, step, *, num
     bk, c = x.shape
     _check_width("self_attn_block_beam", c, num_heads)
     tmax = k_cache.shape[2]
-    if not 1 <= num_beams <= 8 or bk % num_beams:
+    if not 1 <= num_beams <= MAX_BEAMS or bk % num_beams:
         raise ValueError(f"self_attn_block_beam: {bk} rows are not whole groups of {num_beams} "
-                         "beams, or the beam is outside 1..8")
+                         f"beams, or the beam is outside 1..{MAX_BEAMS}")
     if (k_cache.shape != (bk, num_heads, tmax, c // num_heads) or v_cache.shape != k_cache.shape
             or anc.shape != (bk, tmax)):
         raise ValueError(f"self_attn_block_beam: caches {tuple(k_cache.shape)} / anc "
@@ -706,18 +755,21 @@ def self_attn_block_beam(p: Params, x, anc, qpos, k_cache, v_cache, step, *, num
     return y, k_cache, v_cache
 
 
-_SLAB = 256  # vocab columns per block of csrc/head_kernels.cu
+_SLAB = 128  # vocab columns per block of csrc/head_kernels.cu
 
 
 def _head_slabs(kernel: str, p: Params, h2, k: int):
-    """rt_head_blocks on h2 [N, Hd]: per row and 256-wide vocab slab the top-k
+    """rt_head_blocks on h2 [N, Hd]: per row and 128-wide vocab slab the top-k
     logits and ids [N, G, k], the slab max and sum(exp(x - max)) [N, G]."""
     l3 = p["layers"][2]
     n, hd = h2.shape
     v = l3["w"].shape[1]
-    if hd % 32 or not 1 <= k <= min(v, _SLAB):
+    if hd % 32 or not 1 <= k <= min(v, HEAD_KMAX):
         raise ValueError(f"{kernel}: hidden width {hd} must be a multiple of 32 and k = {k} "
-                         f"within 1..min(vocab {v}, {_SLAB})")
+                         f"within 1..min(vocab {v}, {HEAD_KMAX})")
+    if v % HEAD_ALIGN:
+        raise ValueError(f"{kernel}: W3's rows must be 16-byte aligned: a vocab that is a multiple of "
+                         f"{HEAD_ALIGN} (got {v}; pack_head pads it)")
     g = (v + _SLAB - 1) // _SLAB
     vals = torch.empty((n, g, k), dtype=torch.float32, device=h2.device)
     idx = torch.empty((n, g, k), dtype=torch.int32, device=h2.device)
@@ -731,13 +783,17 @@ def _head_slabs(kernel: str, p: Params, h2, k: int):
 
 def mlp_head_argmax(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x: [B, C] post-final-norm hidden -> greedy token ids [B] int32, equal to
-    argmax of the MLP head's f32 logits (first index on ties).
+    argmax of the MLP head's f32 logits (first index on ties). On CUDA tensors
+    ``p`` must be packed (:func:`pack_head`).
 
     Replaces retr_tpu/ops/decoder_kernels.py ``mlp_head_argmax``
-    (``_head_kernel``). Bound on the card: bytes — W3 (Hd x V) against 2
-    operations per element per row. Design: a trunk kernel writes h2 (the
-    [B, Hd] activations), then one block per (8-row tile, 256-wide vocab slab)
-    emits the slab's (max, first argmax); the [B, V] logits never reach device
+    (``_head_kernel``). Bound on the card: bytes below ~300 rows (W3, Hd x V,
+    against 2 operations per element per row), operations above. Design
+    (csrc/head_kernels.cu): two launches of a trunk kernel write h1 and h2
+    (one block per 16-row x 8-column tile, bf16 on tensor cores), then the
+    vocab kernel multiplies h2 by the packed W3 in tiles of up to 128 rows x one
+    128-wide vocab slab (bf16 on tensor cores, W3 from device memory about once) and
+    emits each slab's (max, first argmax); the [B, V] logits never reach device
     memory. The pick across slabs (first slab on ties) is one torch argmax.
     """
     if x.device.type == "cpu":
@@ -750,9 +806,9 @@ def mlp_head_argmax(p: Params, x: torch.Tensor) -> torch.Tensor:
     t = dict(w1=l1["w"], b1=l1["b"], w2=l2["w"], b2=l2["b"])
     _check("mlp_head_argmax", x.dtype, {"w1": (c, hd), "b1": (hd,), "w2": (hd, hd), "b2": (hd,)},
            x=x, **t)
-    h2 = torch.empty((b, hd), dtype=x.dtype, device=x.device)
-    _run("head_kernels", "rt_head_trunk", x, B=b, C=c, Hd=hd, x=x, h2=h2, **t)
-    vals, idx, _, _ = _head_slabs("mlp_head_argmax", p, h2, 1)
+    h = torch.empty((2, b, hd), dtype=x.dtype, device=x.device)    # h1, h2
+    _run("head_kernels", "rt_head_trunk", x, B=b, C=c, Hd=hd, x=x, h1=h[0], h2=h[1], **t)
+    vals, idx, _, _ = _head_slabs("mlp_head_argmax", p, h[1], 1)
     best = vals[:, :, 0].argmax(dim=1, keepdim=True)       # first slab on ties
     LAUNCHES["mlp_head_argmax"] += 1
     return idx[:, :, 0].gather(1, best)[:, 0]
@@ -760,17 +816,18 @@ def mlp_head_argmax(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def mlp_head_topk(p: Params, x: torch.Tensor, k: int):
     """x: [N, C] hidden -> (log-softmax of the top ``k`` tokens [N, k] f32, their
-    ids [N, k] int32), first index on ties.
+    ids [N, k] int32), first index on ties; k <= HEAD_KMAX. On CUDA tensors ``p``
+    must be packed (:func:`pack_head`).
 
     Replaces retr_tpu/ops/decoder_kernels.py ``mlp_head_topk``
     (``_head_topk_kernel``). The trunk runs in torch (the MLP head's first two
-    layers), as it ran in XLA outside the TPU kernel. Bound on the card: bytes,
-    as mlp_head_argmax. Design: one block per (8-row tile, 256-wide vocab slab)
-    emits the slab's top-k (value, first index), max and sum(exp(x - max)); the
-    combine across slabs (online logsumexp, top-k of the G*k candidates in
-    (slab, slot) order) runs in torch. Token choice is exact on the f32 logits;
-    the log-softmax differs from the flat one only by the logsumexp's summation
-    order.
+    layers), as it ran in XLA outside the TPU kernel. Bound on the card: bytes
+    below ~300 rows, operations above, as mlp_head_argmax. Design: the vocab
+    kernel of mlp_head_argmax emits each 128-wide slab's top-k (value, first
+    index), max and sum(exp(x - max)); the combine across slabs (online
+    logsumexp, top-k of the G*k candidates in (slab, slot) order) runs in torch.
+    Token choice is exact on the f32 logits; the log-softmax differs from the
+    flat one only by the logsumexp's summation order.
     """
     if x.device.type == "cpu":
         return mlp_head_topk_plain(p, x, k)

@@ -369,30 +369,53 @@ def _head(gen, dev, dtype, vocab, ties=()):
     return p
 
 
+def _head_ties(vocab):
+    """Equal best columns: an early one, both sides of the first two 128-wide
+    slab boundaries, the first and last column of the ragged last slab."""
+    last = (vocab - 1) // 128 * 128
+    return (3, 127, 128, 256, last, vocab - 1)
+
+
+def _bits32(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("vocab", [5000, 30522])
+@pytest.mark.parametrize("rows", [1, 5, 19, 32, 160, 512, 2560])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ties", [(), (3, 255, 256, 4096, 4999)])
-def test_head_kernels_match_plain_versions(dev, dtype, ties):
-    """Vocab 5000 (a ragged last slab). Tokens: the plain logit of each chosen
-    token is within summation-order tolerance of the plain choice's (exactly
-    equal tokens where ties are built in); scores within 1e-4 of max(1, |s|)."""
-    gen = torch.Generator(device=dev).manual_seed(4)
-    p = _head(gen, dev, dtype, 5000, ties)
-    x = torch.randn(19, C, generator=gen, device=dev).to(dtype)
+def test_head_kernels_match_plain_versions(dev, dtype, rows, vocab, k, ties):
+    """Vocab 5000 and 30522 (ragged last slabs of 8 and 58 columns), rows 1 to
+    2560 (row tiles of 32, 64 and 128, ragged), k 1, 5 and 8. Tokens: the
+    plain logit of each chosen token is within summation-order tolerance of the
+    plain choice's (exactly the lowest tied indices where ties are built in,
+    across slab boundaries and in the last slab); scores within 1e-4 of
+    max(1, |s|); a second launch gives the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(4 + rows + vocab + k)
+    tie_cols = _head_ties(vocab) if ties else ()
+    p = _head(gen, dev, dtype, vocab, tie_cols)
+    kp = dk.pack_head(p)                   # 30522 -> 30528 columns; 5000 as it is
+    x = torch.randn(rows, C, generator=gen, device=dev).to(dtype)
     dk.reset_launches()
-    ids = dk.mlp_head_argmax(p, x)
-    scores, tokens = dk.mlp_head_topk(p, x, 5)
+    ids, ids_again = dk.mlp_head_argmax(kp, x), dk.mlp_head_argmax(kp, x)
+    (scores, tokens), (scores_again, tokens_again) = dk.mlp_head_topk(kp, x, k), dk.mlp_head_topk(kp, x, k)
     with matmul_precision(torch.float32):
         want_ids = dk.mlp_head_argmax_plain(p, x)
-        want_scores, _ = dk.mlp_head_topk_plain(p, x, 5)
+        want_scores, _ = dk.mlp_head_topk_plain(p, x, k)
         # the f32 logits of each head (their trunks round differently in bf16)
         l3 = p["layers"][2]
         logits = dk._dot(dk._head_trunk(p, x), l3["w"]) + l3["b"].float()
         logits_k = dk._dot(dk._torch_trunk(p, x), l3["w"]) + l3["b"].float()
     torch.cuda.synchronize()
-    assert dk.LAUNCHES["mlp_head_argmax"] == 1 and dk.LAUNCHES["mlp_head_topk"] == 1
-    assert ids.dtype == tokens.dtype == torch.int32
+    assert dk.LAUNCHES["mlp_head_argmax"] == 2 and dk.LAUNCHES["mlp_head_topk"] == 2
+    assert ids.dtype == tokens.dtype == torch.int32 and tuple(tokens.shape) == (rows, k)
+    assert torch.equal(ids, ids_again) and torch.equal(tokens, tokens_again)
+    assert torch.equal(_bits32(scores), _bits32(scores_again))
     if ties:
-        assert (ids == 3).all() and (tokens == torch.tensor(ties, device=dev, dtype=torch.int32)).all()
+        want = torch.tensor(tie_cols, device=dev, dtype=torch.int32)
+        n = min(k, len(tie_cols))
+        assert (ids == tie_cols[0]).all() and (tokens[:, :n] == want[:n]).all()
     tol = 1e-4 * max(1.0, float(logits.abs().max()))
     gap = logits.gather(1, want_ids.long()[:, None]) - logits.gather(1, ids.long()[:, None])
     assert float(gap.abs().max()) <= tol
@@ -401,6 +424,78 @@ def test_head_kernels_match_plain_versions(dev, dtype, ties):
     own = torch.log_softmax(logits_k, dim=1).gather(1, tokens.long())
     assert float((scores - own).abs().max()) <= tol
     assert float((scores - want_scores).abs().max()) <= tol
+
+
+def test_head_kernels_reject_what_they_do_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = _head(gen, dev, torch.float32, 5000)
+    x = torch.randn(4, C, generator=gen, device=dev)
+    narrow = {"layers": [{"w": torch.zeros(48, 512, device=dev), "b": torch.zeros(512, device=dev)},
+                         *p["layers"][1:]]}
+    with pytest.raises(ValueError, match="width"):
+        dk.mlp_head_argmax(narrow, torch.zeros(4, 48, device=dev))
+    hidden = {"layers": [{"w": torch.zeros(C, 500, device=dev), "b": torch.zeros(500, device=dev)},
+                         {"w": torch.zeros(500, 500, device=dev), "b": torch.zeros(500, device=dev)},
+                         {"w": torch.zeros(500, 5000, device=dev), "b": torch.zeros(5000, device=dev)}]}
+    with pytest.raises(ValueError, match="width"):
+        dk.mlp_head_topk(hidden, x, 5)
+    for k in (0, 9):
+        with pytest.raises(ValueError, match=f"k = {k}"):
+            dk.mlp_head_topk(p, x, k)
+    half = {"layers": [{n: t.half() for n, t in lp.items()} for lp in p["layers"]]}
+    with pytest.raises(ValueError, match="float16"):
+        dk.mlp_head_argmax(half, x.half())
+    with pytest.raises(ValueError, match="aligned"):
+        dk.mlp_head_argmax(p, torch.zeros(4, C + 1, device=dev)[:, 1:])
+    odd = _head(gen, dev, torch.bfloat16, 4999)
+    with pytest.raises(ValueError, match="aligned"):
+        dk.mlp_head_topk(odd, x.bfloat16(), 5)       # unpacked: W3's rows are 9998 bytes apart
+    got = dk.mlp_head_topk(dk.pack_head(odd), x.bfloat16(), 5)
+    with matmul_precision(torch.float32):
+        want = dk.mlp_head_topk_plain(odd, x.bfloat16(), 5)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-4 * max(1.0, float(want[0].abs().max()))
+
+
+TINY = dict(backbone="ResNet18", dilation=False, hidden_dim=64, nheads=4, enc_layers=1, dec_layers=2,
+            dim_feedforward=128, vocab_size=96, max_position_embeddings=16, dropout=0.0, image_size=32)
+
+
+@pytest.mark.parametrize("decoder", ["greedy", "beam"])
+def test_decode_at_a_width_the_kernels_do_not_take_matches_cpu(dev, decoder):
+    """Hidden 64 with 4 heads (the CPU tests' width): decode_kernels_fit rules
+    the decoder-layer kernels out, so the steps run their plain versions on
+    the card (no launch counted); f32 tokens equal the CPU run's."""
+    cfg = Config(**TINY)
+    torch.manual_seed(0)
+    state = weights.reference_module(cfg).state_dict()
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn(3, 3, 32, 32, generator=gen)
+    mask = torch.zeros(3, 32, 32, dtype=torch.bool)
+    mask[1, :, 20:] = True
+    run = decode.greedy if decoder == "greedy" else decode.beam_search
+    kw = dict(max_len=16, bos_token=1, eos_token=6, **({} if decoder == "greedy" else {"beam_size": 3}))
+    cpu = run(weights.to_params(state, cfg, device="cpu"), cfg, Masked(img, mask), **kw)
+    dk.reset_launches()
+    gpu = run(weights.to_params(state, cfg, device=dev), cfg, Masked(img.to(dev), mask.to(dev)), **kw)
+    torch.cuda.synchronize()
+    assert not dk.decode_kernels_fit(cfg.hidden_dim, cfg.nheads, cfg.dim_feedforward)
+    assert sum(dk.LAUNCHES.values()) == 0, dk.LAUNCHES
+    if decoder == "greedy":
+        assert torch.equal(gpu.cpu(), cpu)
+    else:
+        assert torch.equal(gpu[0].cpu(), cpu[0]) and float((gpu[1].cpu() - cpu[1]).abs().max()) <= 1e-4
+
+
+def test_attention_at_a_head_dim_the_kernel_does_not_take_runs_the_plain_version(dev):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn(2, 3, s, 48, generator=gen, device=dev) for s in (9, 13, 13))
+    kb = torch.where(torch.rand(2, 13, generator=gen, device=dev) < 0.3, float("-inf"), 0.0)
+    kb[:, 0] = 0.0
+    dk.reset_launches()
+    out, _ = fa.attention(q, k, v, None, use_pallas=True, causal=False, key_bias=kb)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["fused_attention"] == 0
+    assert torch.equal(out, fa.fused_attention_plain(q, k, v, kb))
 
 
 @pytest.mark.parametrize("topk_kernel", [False, True])

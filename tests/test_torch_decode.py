@@ -3,8 +3,9 @@
 - greedy token buffers equal retr_tpu.decode.greedy's in f32, post-EOS junk and
   the skipped final write included, with the stacked-kernel dispatch on and off;
 - in bf16 storage, decode-step logits within a stated tolerance of retr_tpu's
-  kernel path (Pallas in interpret mode): argmax near-ties of random weights
-  flip under bf16, so tokens are not compared there;
+  kernel path (Pallas in interpret mode) and of its default XLA path: argmax
+  near-ties of random weights flip under bf16, so tokens are not compared there;
+- the decode steps call the kernel wrappers only at the widths the kernels take;
 - Predictor strings equal retr_tpu.predictor.Predictor's;
 - the package imports without jax and without any retr_tpu module;
 - an entry point asked for CUDA where there is none raises.
@@ -89,27 +90,27 @@ def test_greedy_tokens_equal_reference(model, layer_grid, check_every):
     np.testing.assert_array_equal(free_got.numpy(), free)
 
 
-@pytest.mark.parametrize("layer_grid", [True, False])
-def test_bf16_decode_step_logits_match_kernel_path(model, layer_grid):
-    """bf16 storage: 5 teacher-forced steps of the port's decode step against
-    retr_tpu's Pallas decode step (interpret mode, same dispatch). Tolerance
-    0.05 on logits of magnitude ~1: both round at the same points; f32 summation
-    order may flip single bf16 roundings that then propagate."""
-    jcfg = model["jcfg"].replace(use_pallas_decode=True)
-    cfg = model["cfg"]
-    b, s, t = 8, 7, 10
+def _bf16_step_inputs():
+    """Encoder memory, mask, positions and teacher-forced tokens for 5 decode
+    steps at batch 8, from a seeded rng."""
     rng = np.random.default_rng(2)
-    memory = rng.standard_normal((b, s, 64)).astype(np.float32)
-    mem_mask = np.zeros((b, s), bool)
+    memory = rng.standard_normal((8, 7, 64)).astype(np.float32)
+    mem_mask = np.zeros((8, 7), bool)
     mem_mask[:, -2:] = True
-    pos = rng.standard_normal((s, 64)).astype(np.float32)
-    tokens = rng.integers(0, 96, (b, t)).astype(np.int32)
+    pos = rng.standard_normal((7, 64)).astype(np.float32)
+    tokens = rng.integers(0, 96, (8, 10)).astype(np.int32)
+    return memory, mem_mask, pos, tokens
 
+
+def _jax_bf16_step_logits(model, jcfg, layer_grid, interpret):
+    """retr_tpu's bf16 decode step, 5 teacher-forced steps: f32 logits."""
+    memory, mem_mask, pos, tokens = _bf16_step_inputs()
     jp, jmem, jpos = jdecode._cast_for_decode(model["params"], jnp.asarray(memory), jnp.asarray(pos), jnp.bfloat16)
     old_grid, old_int = dk.LAYER_GRID, dk.FORCE_INTERPRET
-    dk.LAYER_GRID, dk.FORCE_INTERPRET = layer_grid, True
+    dk.LAYER_GRID, dk.FORCE_INTERPRET = layer_grid, interpret
     try:
-        cache, cross = jtransformer.init_decode_state(jp["transformer"], jmem, jnp.asarray(mem_mask), jpos, jcfg, t)
+        cache, cross = jtransformer.init_decode_state(jp["transformer"], jmem, jnp.asarray(mem_mask), jpos, jcfg,
+                                                      tokens.shape[1])
         ref = []
         for i in range(5):
             hs, cache = jtransformer.decode_step(jp["transformer"], cache, cross, jnp.asarray(tokens[:, i]),
@@ -117,23 +118,94 @@ def test_bf16_decode_step_logits_match_kernel_path(model, layer_grid):
             ref.append(np.asarray(jcaption.mlp_head(jp["mlp"], hs).astype(jnp.float32)))
     finally:
         dk.LAYER_GRID, dk.FORCE_INTERPRET = old_grid, old_int
+    return ref
 
+
+def _port_bf16_step_logits(model, layer_grid):
+    """The port's bf16 decode step on the same inputs: f32 logits."""
+    memory, mem_mask, pos, tokens = _bf16_step_inputs()
+    cfg = model["cfg"]
     tp, tmem, tpos = decode._cast_for_decode(model["tp"], torch.from_numpy(memory), torch.from_numpy(pos),
                                              torch.bfloat16)
     tparams = transformer.prepare_decoder(tp["transformer"])
     old = tk.LAYER_GRID
     tk.LAYER_GRID = layer_grid
     try:
-        cache, cross = transformer.init_decode_state(tparams, tmem, torch.from_numpy(mem_mask), tpos, cfg, t)
+        cache, cross = transformer.init_decode_state(tparams, tmem, torch.from_numpy(mem_mask), tpos, cfg,
+                                                     tokens.shape[1])
         assert cache.self_k.dtype == cross.cross_k.dtype == torch.bfloat16
         step = torch.zeros((), dtype=torch.int32)
+        got = []
         for i in range(5):
             hs, cache = transformer.decode_step(tparams, cache, cross, torch.from_numpy(tokens[:, i]), step, cfg)
-            got = caption.mlp_head(tp["mlp"], hs).float().numpy()
-            np.testing.assert_allclose(got, ref[i], atol=0.05, rtol=0, err_msg=f"step {i}")
+            got.append(caption.mlp_head(tp["mlp"], hs).float().numpy())
             step += 1
     finally:
         tk.LAYER_GRID = old
+    return got
+
+
+@pytest.mark.parametrize("layer_grid", [True, False])
+def test_bf16_decode_step_logits_match_kernel_path(model, layer_grid):
+    """bf16 storage: 5 teacher-forced steps of the port's decode step against
+    retr_tpu's Pallas decode step (interpret mode, same dispatch). Tolerance
+    0.05 on logits of magnitude ~1: both round at the same points; f32 summation
+    order may flip single bf16 roundings that then propagate."""
+    ref = _jax_bf16_step_logits(model, model["jcfg"].replace(use_pallas_decode=True), layer_grid, True)
+    for i, got in enumerate(_port_bf16_step_logits(model, layer_grid)):
+        np.testing.assert_allclose(got, ref[i], atol=0.05, rtol=0, err_msg=f"step {i}")
+
+
+@pytest.mark.parametrize("layer_grid", [True, False])
+def test_bf16_decode_step_logits_match_xla_path(model, layer_grid):
+    """bf16 storage: the same 5 steps against retr_tpu's default decode step,
+    the XLA path (``use_pallas_decode=False``, a knob the port does not read: it
+    always computes the kernels' arithmetic). XLA rounds each product's output
+    to bf16 where the kernels keep f32 (the stacked step's residual, q/k/v
+    before the cache write). Measured on this config: at most 0.0039 on logits
+    of magnitude <= 0.36 (one to two bf16 ulps), the same as against the
+    Pallas trio; tolerance 2**-7."""
+    assert not model["jcfg"].use_pallas_decode
+    ref = _jax_bf16_step_logits(model, model["jcfg"], layer_grid, False)
+    for i, got in enumerate(_port_bf16_step_logits(model, layer_grid)):
+        np.testing.assert_allclose(got, ref[i], atol=2 ** -7, rtol=0, err_msg=f"step {i}")
+
+
+def _spy_wrappers(monkeypatch):
+    """Record which kernel wrappers of ops/decoder_kernels a run calls (each
+    still runs: on the CPU it takes its plain version)."""
+    called = set()
+    for name in vars(tk.PLAIN):
+        fn = getattr(tk, name)
+
+        def spy(*a, _name=name, _fn=fn, **kw):
+            called.add(_name)
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(tk, name, spy)
+    return called
+
+
+@pytest.mark.parametrize("width,heads,ff,layers", [(64, 4, 128, set()),
+                                                   (256, 8, 256, {"fused_stack_step", "self_attn_block_beam",
+                                                                  "cross_attn_block", "ff_block"})])
+def test_decode_calls_the_kernels_only_where_the_rule_allows(monkeypatch, width, heads, ff, layers):
+    """Greedy (HEAD_KERNEL on) and beam 3 (BEAM_TOPK_KERNEL on) decode: the
+    decoder-layer wrappers are called only at the width the kernels take
+    (decode_kernels_fit), elsewhere their plain versions directly; the head
+    wrappers at both (C 64 or 256, Hd 512 and vocab 96 fit head_kernels_fit)."""
+    cfg = Config(**{**TINY, "hidden_dim": width, "nheads": heads, "dim_feedforward": ff, "dec_layers": 1})
+    torch.manual_seed(0)
+    params = weights.to_params(weights.reference_module(cfg).state_dict(), cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    samples = Masked(torch.from_numpy(rng.standard_normal((2, 3, 32, 32)).astype(np.float32)),
+                     torch.zeros(2, 32, 32, dtype=torch.bool))
+    called = _spy_wrappers(monkeypatch)
+    monkeypatch.setattr(tk, "HEAD_KERNEL", True)
+    monkeypatch.setattr(tk, "BEAM_TOPK_KERNEL", True)
+    decode.greedy(params, cfg, samples, max_len=6, bos_token=BOS, eos_token=-1)
+    decode.beam_search(params, cfg, samples, max_len=6, bos_token=BOS, eos_token=-1, beam_size=3)
+    assert called == layers | {"mlp_head_argmax", "mlp_head_topk"}
 
 
 @pytest.mark.parametrize("use_global,use_location", [(False, False), (True, True)])

@@ -338,3 +338,52 @@ def test_topk_first_orders_ties_by_index():
     assert torch.equal(vals, v[:, idx[0]])
     _, jidx = jax.lax.top_k(jnp.asarray(v.numpy()), 9)
     assert idx.tolist() == np.asarray(jidx).tolist()
+
+
+@pytest.mark.parametrize("c,heads,f,beams,fits", [
+    (256, 8, 2048, 1, True), (256, 8, 256, 5, True), (256, 8, 2048, 8, True),
+    (64, 4, 128, 1, False), (256, 4, 2048, 1, False), (512, 8, 2048, 1, False),
+    (256, 8, 1000, 1, False), (256, 8, 2048, 9, False), (256, 8, 2048, 0, False)])
+def test_decode_kernels_fit_rule(c, heads, f, beams, fits):
+    """The decoder-layer kernels take width 256 with 8 heads, an FF width that
+    is a multiple of 256 and beam groups of 1..8; the wrappers raise elsewhere."""
+    assert tk.decode_kernels_fit(c, heads, f, beams) == fits
+
+
+@pytest.mark.parametrize("c,hd,v,k,dtype,fits", [
+    (256, 512, 30522, 1, torch.bfloat16, True), (256, 512, 30522, 8, torch.bfloat16, True),
+    (64, 512, 96, 5, torch.float32, True), (256, 512, 30521, 5, torch.bfloat16, True),
+    (256, 512, 30522, 9, torch.bfloat16, False),
+    (256, 512, 4, 5, torch.float32, False), (256, 512, 30522, 0, torch.float32, False),
+    (48, 512, 30522, 1, torch.float32, False), (256, 500, 30522, 1, torch.float32, False),
+    (256, 512, 30522, 1, torch.float16, False)])
+def test_head_kernels_fit_rule(c, hd, v, k, dtype, fits):
+    """The head kernels take widths that are multiples of 32, 1 <= k <= min(V,
+    8), f32 or bf16, and any vocab (pack_head pads W3's rows for them)."""
+    p = {"layers": [{"w": torch.empty(c, hd, dtype=dtype)}, {"w": torch.empty(hd, hd, dtype=dtype)},
+                    {"w": torch.empty(hd, v, dtype=dtype)}]}
+    assert tk.head_kernels_fit(p, k) == fits
+
+
+@pytest.mark.parametrize("ties", sorted(HEAD_CASES))
+def test_packed_head_plain_matches_pallas(case, ties):
+    """pack_head pads vocab 5003 to 5008 (zero weights, a -inf bias): both
+    heads' plain versions on the packed head give the Pallas kernels' tokens
+    (lowest tied index first) and scores on the head as it is."""
+    jdt, tdt = case["jdt"], case["tdt"]
+    p, x = _head(np.random.default_rng(13), 5003, HEAD_CASES[ties])
+    packed = tk.pack_head(_torch_tree(p, tdt))
+    assert packed["layers"][2]["w"].shape == (96, 5008) and packed["layers"][2]["b"].shape == (5008,)
+    assert torch.isneginf(packed["layers"][2]["b"][5003:]).all()
+    assert not packed["layers"][2]["w"][:, 5003:].any()
+    jp, jx = jax.tree.map(lambda a: jnp.asarray(a, jdt), p), jnp.asarray(x, jdt)
+    tx = torch.from_numpy(x).to(tdt)
+    np.testing.assert_array_equal(tk.mlp_head_argmax(packed, tx).numpy(),
+                                  np.asarray(dk.mlp_head_argmax(jp, jx, interpret=True)))
+    ref_s, ref_t = dk.mlp_head_topk(jp, jx, 5, interpret=True)
+    got_s, got_t = tk.mlp_head_topk(packed, tx, 5)
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(ref_t))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), atol=1e-5, rtol=0)
+    if HEAD_CASES[ties]:
+        assert (got_t.numpy() == [3, 2047, 2048, 4096, 4999]).all()
+    assert tk.pack_head(packed) is packed            # already aligned: returned as it is
