@@ -23,9 +23,11 @@ Phases (any failure raises, exits non-zero and prints no result line):
      unmasked key per row (a second launch bit-equal, x unwritten), the beam block and
      the top-k head at 160 and 2560 rows (batch 32 and 512 x beam 5), the
      argmax head at 32 and 512 rows (both heads with their profiled device
-     time), both heads unclocked at rows 1, 5, 19, 33 and 129, vocab 5000 and
-     30522, k 1, 5 and 8, with ties across 128-wide slab boundaries and in
-     the ragged last slab (a second launch bit-equal), fused_attention at batch 32 for the
+     time: the hand-written kernels alone, every kernel of the wrapper, and
+     every kernel of the library yardstick), both heads unclocked at rows 1,
+     5, 19, 33 and 129, vocab 5000 and 30522, k 1, 5, 8 and 256, with ties
+     across 128-wide slab boundaries and in the ragged last slab (a second
+     launch bit-equal), fused_attention at batch 32 for the
      encoder (196x196, key padding), the causal decoder (128x128, ~15 real
      tokens), the cross attention (128x196) and the (T,T) encoder (397x397),
      its yardstick scaled_dot_product_attention with the same additive mask;
@@ -41,7 +43,10 @@ Phases (any failure raises, exits non-zero and prints no result line):
      with torch.profiler (device time by kernel, idle share); then greedy with
      use_pallas_attention on, whose encoder launches fused_attention (6
      launches per batch);
-  5. f32 on the GPU and on the CPU (plain path): a greedy batch of 4 has equal
+  5. decoding at a width the tuned kernels do not take (hidden 64, 4 heads,
+     2 layers, f32, head kernels on): greedy and beam 3 on the GPU, through
+     csrc/width_kernels.cu, equal to the CPU's tokens;
+     f32 on the GPU and on the CPU (plain path): a greedy batch of 4 has equal
      token buffers except where the CPU logits' top-2 margin is below 1e-4; a
      beam batch of 2 has equal top hypotheses except where the CPU search had
      a near-tie (gap below 1e-4 between its k-th and (k+1)-th candidate, or
@@ -75,11 +80,6 @@ and prints a digest of the tree's stacked step on seeded inputs
 
 times ff_block and cross_attn_block (bf16, device time) at every row tile
 they are built for, and at their own choice, at 32, 160, 512 and 2560 rows.
-
-    python3 chip_smoke.py --heads
-
-builds the kernels, then runs phase 3's head checks alone (both heads timed
-at their main-path rows, then the head_edges cases; ~40 s).
 """
 
 from __future__ import annotations
@@ -595,6 +595,57 @@ def random_head(gen, dev, dtype):
 HEAD_KERNEL_NAMES = {"mlp_head_argmax": ("trunk_kernel", "vocab_kernel"), "mlp_head_topk": ("vocab_kernel",)}
 
 
+def head_device_times(kernel_call, library_call, name):
+    """Profiled device time per call of a head: its hand-written kernels alone
+    (``device_ms``), every kernel its wrapper launches, the torch trunk and
+    the combine across slabs included (``wrapper_device_ms``), and every
+    kernel of the library yardstick (``library_device_ms``): the last two
+    compare like with like."""
+    return {"device_ms": device_ms(kernel_call, HEAD_KERNEL_NAMES[name], per_call=True),
+            "wrapper_device_ms": device_ms(kernel_call, "", per_call=True),
+            "library_device_ms": device_ms(library_call, "", per_call=True)}
+
+
+def head_ties(vocab):
+    """Equal best columns: an early one, both sides of the first two 128-wide
+    slab boundaries, the first and last column of the ragged last slab."""
+    last = (vocab - 1) // 128 * 128
+    return (3, 127, 128, 256, last, vocab - 1)
+
+
+def head_case(head, packed, x, k, ties=()):
+    """Both head kernels on ``packed`` (pack_head of ``head``) against their
+    plain versions on ``head``, for rows ``x`` and ``k`` tokens: ``err``, the
+    f32 logit the argmax kernel's pick gives up against the plain pick and the
+    top-k scores' distance from the plain ones and from the plain
+    log-softmax of the tokens the kernel chose, within ``tol`` (1e-4 of
+    max(1, max|logit|)); ``same``, a second launch of each gives the same bits;
+    ``lowest``, where ``ties`` lists tied best columns, the lowest come out
+    first. Launches each kernel twice."""
+    import torch
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+    from retr_tpu_torch.precision import matmul_precision
+
+    ids, again = dk.mlp_head_argmax(packed, x), dk.mlp_head_argmax(packed, x)
+    (sc, tok), (sc2, tok2) = dk.mlp_head_topk(packed, x, k), dk.mlp_head_topk(packed, x, k)
+    with matmul_precision(torch.float32):
+        want_ids = dk.mlp_head_argmax_plain(head, x)
+        want_sc, _ = dk.mlp_head_topk_plain(head, x, k)
+        l3 = head["layers"][2]
+        lg = dk._dot(dk._head_trunk(head, x), l3["w"]) + l3["b"].float()      # the argmax head's logits
+        lg_k = dk._dot(dk._torch_trunk(head, x), l3["w"]) + l3["b"].float()   # the top-k head's
+    torch.cuda.synchronize()
+    assert ids.dtype == tok.dtype == torch.int32 and tuple(tok.shape) == (x.shape[0], k)
+    gap = float((lg.gather(1, want_ids.long()[:, None]) - lg.gather(1, ids.long()[:, None])).abs().max())
+    own = torch.log_softmax(lg_k, dim=1).gather(1, tok.long())
+    err = max(gap, float((sc - own).abs().max()), float((sc - want_sc).abs().max()))
+    same = torch.equal(ids, again) and torch.equal(tok, tok2) and torch.equal(_bits(sc), _bits(sc2))
+    n = min(k, len(ties))
+    lowest = not ties or (bool((ids == ties[0]).all()) and tok[:, :n].tolist() == [list(ties[:n])] * x.shape[0])
+    return {"err": err, "tol": TOL["float32"] * max(1.0, float(lg.abs().max())), "same": same, "lowest": lowest}
+
+
 def check_beam_and_heads(dev):
     """The beam block and the top-k head at 160 and 2560 rows (batch 32 and 512
     x beam 5), the argmax head at 32 and 512 rows; the heads with their
@@ -654,45 +705,40 @@ def check_beam_and_heads(dev):
 
             xk = rn(bk, C)
             topk_call = lambda: dk.mlp_head_topk(packed, xk, BEAM)  # noqa: E731
+            # yardstick (several calls): cuBLAS head, topk, logsumexp
+            topk_lib = lambda: (lambda lg: (lg.topk(BEAM, dim=-1), lg.logsumexp(dim=-1)))(  # noqa: E731
+                caption.mlp_head(head, xk).float())
             out[("mlp_head_topk", dname, bk)] = measure(
                 "mlp_head_topk", dname, bk, lambda li: topk_call(),
-                lambda li: dk.mlp_head_topk_plain(head, xk, BEAM),
-                # yardstick (several calls): cuBLAS head, topk, logsumexp
-                lambda li: (lambda lg: (lg.topk(BEAM, dim=-1), lg.logsumexp(dim=-1)))(
-                    caption.mlp_head(head, xk).float()),
-                1, topk_err,
-                {"device_ms": device_ms(topk_call, HEAD_KERNEL_NAMES["mlp_head_topk"], per_call=True)})
+                lambda li: dk.mlp_head_topk_plain(head, xk, BEAM), lambda li: topk_lib(), 1, topk_err,
+                head_device_times(topk_call, topk_lib, "mlp_head_topk"))
             xh = rn(b, C)
             argmax_call = lambda: dk.mlp_head_argmax(packed, xh)  # noqa: E731
+            argmax_lib = lambda: caption.mlp_head(head, xh).argmax(dim=-1)  # noqa: E731   cuBLAS head, argmax
             out[("mlp_head_argmax", dname, b)] = measure(
                 "mlp_head_argmax", dname, b, lambda li: argmax_call(),
-                lambda li: dk.mlp_head_argmax_plain(head, xh),
-                # yardstick (several calls): cuBLAS head and argmax
-                lambda li: caption.mlp_head(head, xh).argmax(dim=-1), 1, argmax_err,
-                {"device_ms": device_ms(argmax_call, HEAD_KERNEL_NAMES["mlp_head_argmax"], per_call=True)})
+                lambda li: dk.mlp_head_argmax_plain(head, xh), lambda li: argmax_lib(), 1, argmax_err,
+                head_device_times(argmax_call, argmax_lib, "mlp_head_argmax"))
             torch.cuda.empty_cache()
     return out
 
 
 def check_head_edges(dev):
-    """Both heads, untimed, against their plain versions: rows 1, 5, 19, 33
-    and 129 (ragged row tiles of 32, 64 and 128), vocab 5000 and 30522 (ragged
-    last slabs of 8 and 58 columns), k 1, 5 and 8, f32 and bf16, random
-    weights and weights whose best columns tie across 128-wide slab
-    boundaries and in the last slab (the lowest tied ids must come out). A
-    second launch must give the same bits. Prints one line; raises on a miss."""
+    """Both heads, untimed, against their plain versions (head_case): rows 1,
+    5, 19, 33 and 129 (ragged row tiles of 32, 64 and 128), vocab 5000 and
+    30522 (ragged last slabs of 8 and 58 columns), k 1, 5, 8 and 256, f32 and
+    bf16, random weights and weights whose best columns tie across 128-wide
+    slab boundaries and in the last slab. Prints one line; raises on a miss."""
     import torch
 
     from retr_tpu_torch.ops import decoder_kernels as dk
-    from retr_tpu_torch.precision import matmul_precision
 
     gen = torch.Generator(device=dev).manual_seed(10)
     worst, cases = {}, 0
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         for vocab in (5000, V):
-            last = (vocab - 1) // 128 * 128
-            ties = (3, 127, 128, 256, last, vocab - 1)
+            ties = head_ties(vocab)
             for tied in (False, True):
                 head = {"layers": [{"w": (torch.randn(i, o, generator=gen, device=dev) * i ** -0.5).to(dtype),
                                     "b": (torch.randn(o, generator=gen, device=dev) * 0.1).to(dtype)}
@@ -703,29 +749,13 @@ def check_head_edges(dev):
                 packed = dk.pack_head(head)
                 for b in (1, 5, 19, 33, 129):
                     x = torch.randn(b, C, generator=gen, device=dev).to(dtype)
-                    for k in (1, 5, 8):
-                        ids, again = dk.mlp_head_argmax(packed, x), dk.mlp_head_argmax(packed, x)
-                        (sc, tok), (sc2, tok2) = dk.mlp_head_topk(packed, x, k), dk.mlp_head_topk(packed, x, k)
-                        with matmul_precision(torch.float32):
-                            want_ids = dk.mlp_head_argmax_plain(head, x)
-                            want_sc, _ = dk.mlp_head_topk_plain(head, x, k)
-                            l3 = head["layers"][2]
-                            lg = dk._dot(dk._head_trunk(head, x), l3["w"]) + l3["b"].float()
-                        torch.cuda.synchronize()
-                        tol = TOL["float32"] * max(1.0, float(lg.abs().max()))
-                        gap = float((lg.gather(1, want_ids.long()[:, None]) - lg.gather(1, ids.long()[:, None])).abs().max())
-                        err = max(gap, float((sc - want_sc).abs().max()))
-                        same = (torch.equal(ids, again) and torch.equal(tok, tok2)
-                                and torch.equal(_bits(sc), _bits(sc2)))
-                        n = min(k, len(ties))
-                        lowest = not tied or (bool((ids == ties[0]).all())
-                                              and tok[:, :n].tolist() == [list(ties[:n])] * b)
+                    for k in (1, 5, 8, 256):
+                        got = head_case(head, packed, x, k, ties if tied else ())
                         key = f"{dname} vocab {vocab}"
-                        worst[key] = max(worst.get(key, 0.0), err / tol)
+                        worst[key] = max(worst.get(key, 0.0), got["err"] / got["tol"])
                         cases += 1
-                        if not (err <= tol and same and lowest):
-                            raise AssertionError(f"heads {dname} vocab {vocab} rows {b} k {k} ties {tied}: err {err} "
-                                                 f"(tol {tol}), same bits {same}, lowest tied ids {lowest}")
+                        if not (got["err"] <= got["tol"] and got["same"] and got["lowest"]):
+                            raise AssertionError(f"heads {dname} vocab {vocab} rows {b} k {k} ties {tied}: {got}")
     log("head_edges", json.dumps({"cases": cases, "worst_err_over_tol": worst}))
 
 
@@ -1081,6 +1111,44 @@ def parity_images(n):
     return img, mask
 
 
+def other_width(dev):
+    """Greedy (the stacked step) and beam 3 at hidden 64 with 4 heads, FF 128,
+    2 layers, vocab 96, f32, head kernels on: the tuned decoder-layer kernels
+    do not take this width, so the wrappers launch csrc/width_kernels.cu. The
+    tokens must equal the CPU's, and each decoder wrapper must have launched."""
+    import torch
+
+    from retr_tpu_torch import decode
+    from retr_tpu_torch.config import Config
+    from retr_tpu_torch.masking import Masked
+    from retr_tpu_torch.models import weights
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    cfg = Config(backbone="ResNet18", dilation=False, hidden_dim=64, nheads=4, enc_layers=1, dec_layers=2,
+                 dim_feedforward=128, vocab_size=96, max_position_embeddings=16, dropout=0.0, image_size=32)
+    state = random_state(cfg)
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn(3, 3, 32, 32, generator=gen)
+    mask = torch.zeros(3, 32, 32, dtype=torch.bool)
+    mask[1, :, 20:] = True
+    out = {}
+    with flags(HEAD_KERNEL=True, BEAM_TOPK_KERNEL=True):
+        for name, run, kw in (("greedy", decode.greedy, {}), ("beam", decode.beam_search, {"beam_size": 3})):
+            kw = dict(max_len=16, bos_token=1, eos_token=6, **kw)
+            cpu = run(weights.to_params(state, cfg, device="cpu"), cfg, Masked(img, mask), **kw)
+            dk.reset_launches()
+            gpu = run(weights.to_params(state, cfg, device=dev), cfg, Masked(img.to(dev), mask.to(dev)), **kw)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in dk.LAUNCHES.items() if v}
+            want = (("fused_stack_step", "mlp_head_argmax") if name == "greedy"
+                    else ("self_attn_block_beam", "cross_attn_block", "ff_block", "mlp_head_topk"))
+            equal = torch.equal(gpu.cpu(), cpu) if name == "greedy" else torch.equal(gpu[0].cpu(), cpu[0])
+            out[name] = {"launches": launched, "tokens_equal_cpu": equal}
+            if not equal or set(launched) != set(want):
+                raise AssertionError(f"other width {name}: {out[name]}")
+    log("other_width", json.dumps(out))
+
+
 def f32_parity(dev, state):
     from retr_tpu_torch import decode
     from retr_tpu_torch.masking import Masked
@@ -1351,12 +1419,6 @@ def main(mode=None) -> int:
     if mode == "--block-rows":
         block_rows(dev, card)
         return 0
-    if mode == "--heads":
-        log("card", card)
-        dk.build()
-        check_beam_and_heads(dev)
-        check_head_edges(dev)
-        return 0
     log("card", card)                                                      # phase 1
 
     t0 = time.perf_counter()
@@ -1377,7 +1439,8 @@ def main(mode=None) -> int:
     del params
     torch.cuda.empty_cache()
 
-    f32_parity(dev, state)                                                 # phase 5
+    other_width(dev)                                                       # phase 5
+    f32_parity(dev, state)
     f32_beam_parity(dev, state)
     torch.cuda.empty_cache()
 

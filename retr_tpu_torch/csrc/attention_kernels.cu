@@ -5,7 +5,8 @@
 //                                          (+ causal mask)) . v[b,h]
 //
 // q [B,H,Sq,D], k/v [B,H,Sk,D] and out [B,H,Sq,D] are contiguous, in f32 or bf16;
-// key_bias [B,Sk] is f32 (or null: no bias). D is 16, 32 or 64.
+// key_bias [B,Sk] is f32 (or null: no bias). Any D and Sk whose one-query
+// score row fits a block's shared memory (~58000 keys).
 //
 // Numerics are the TPU kernel's: q is upcast to f32 and scaled, the scores
 // are f32 products, the bias is clamped at -1e30 and added, the causal mask
@@ -28,6 +29,13 @@
 // operations on CUDA cores (67 TFLOP/s) and the bytes take about the same time.
 // This first kernel multiplies on CUDA cores with fmaf and makes no use of the
 // tensor cores: it is right first, fast in a later change.
+//
+// Other shapes (any_kernel): a head dim other than 16, 32 or 64, or a score
+// block of 32 rows too large for shared memory. Same two passes and the same
+// numerics, with D and the query rows per block (QT halved until the scores
+// fit, down to 1) known at run time: pass 1 gives a thread a (row, key) pair,
+// which reads its key row from global memory; pass 2 a (row, column) pair,
+// which walks V's column in key order. Right first: no tiles are staged.
 //
 // An all-masked row (every key at -1e30) gets uniform probabilities over the
 // real Sk keys: the mean of V (the TPU kernel averaged over its 128-padded
@@ -209,6 +217,78 @@ int launch_d(const AttnArgs& a, int bf16, cudaStream_t st) {
   return bf16 ? launch_t<D, __nv_bfloat16>(a, st) : launch_t<D, float>(a, st);
 }
 
+size_t any_smem_bytes(int qt, int d, int sk) { return (size_t)qt * (d + sk) * sizeof(float); }
+
+// Any D, qt query rows per block: qs [qt][D] scaled f32 queries, sc [qt][Sk].
+template <typename T>
+__global__ void __launch_bounds__(NT) any_kernel(const AttnArgs a, int qt) {
+  extern __shared__ float4 smem_raw[];
+  const int d = a.D, sk = a.Sk;
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* sc = qs + (size_t)qt * d;
+  const int bh = blockIdx.x, b = bh / a.H, q0 = blockIdx.y * qt, nq = min(qt, a.Sq - q0);
+  const T* q = static_cast<const T*>(a.q) + ((size_t)bh * a.Sq + q0) * d;
+  const T* k = static_cast<const T*>(a.k) + (size_t)bh * sk * d;
+  const T* v = static_cast<const T*>(a.v) + (size_t)bh * sk * d;
+  const float* bias = a.key_bias ? a.key_bias + (size_t)b * sk : nullptr;
+  for (int i = threadIdx.x; i < nq * d; i += NT) qs[i] = to_f(q[i]) * a.scale;
+  __syncthreads();
+  for (int i = threadIdx.x; i < nq * sk; i += NT) {
+    const int r = i / sk, j = i % sk;
+    const float* qr = qs + (size_t)r * d;
+    const T* kr = k + (size_t)j * d;
+    float acc = 0.f;
+    for (int c = 0; c < d; ++c) acc = fmaf(qr[c], to_f(kr[c]), acc);
+    float s = acc + (bias ? fmaxf(bias[j], kNegInf) : 0.f);
+    if (a.causal && j > q0 + r) s = kNegInf;
+    sc[i] = s;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < nq; r += NT / 32) {
+    float* row = sc + (size_t)r * sk;
+    float m = -INFINITY;
+    for (int c = lane; c < sk; c += 32) m = fmaxf(m, row[c]);
+    m = warp_max(m);
+    float s = 0.f;
+    for (int c = lane; c < sk; c += 32) {
+      const float e = expf(row[c] - m);
+      row[c] = e;
+      s += e;
+    }
+    s = warp_sum(s);
+    for (int c = lane; c < sk; c += 32) row[c] = to_f(from_f<T>(row[c] / s));
+  }
+  __syncthreads();
+  T* out = static_cast<T*>(a.out) + ((size_t)bh * a.Sq + q0) * d;
+  for (int i = threadIdx.x; i < nq * d; i += NT) {
+    const int r = i / d, c = i % d;
+    const float* p = sc + (size_t)r * sk;
+    float o = 0.f;
+    for (int j = 0; j < sk; ++j) o = fmaf(p[j], to_f(v[(size_t)j * d + c]), o);
+    out[i] = from_f<T>(o);
+  }
+}
+
+template <typename T>
+int launch_any(const AttnArgs& a, cudaStream_t stream) {
+  int qt = QT;
+  while (qt > 1 && any_smem_bytes(qt, a.D, a.Sk) > kMaxSmem) qt /= 2;
+  const size_t bytes = any_smem_bytes(qt, a.D, a.Sk);
+  if (bytes > kMaxSmem || a.Sq > 65535 * qt) return (int)cudaErrorInvalidValue;
+  static size_t granted = 0;
+  if (bytes > 48 * 1024 && bytes > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(any_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    granted = bytes;
+  }
+  any_kernel<T><<<dim3(a.B * a.H, (a.Sq + qt - 1) / qt), NT, bytes, stream>>>(a, qt);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+bool tiled_fits(const AttnArgs& a) { return a.D == D && smem_bytes<D>(a.Sk) <= kMaxSmem; }
+
 }  // namespace
 
 extern "C" {
@@ -216,13 +296,13 @@ extern "C" {
 // Returns cudaGetLastError() after the launch (0 = launched).
 int rt_fused_attention(const AttnArgs* a, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a->B < 1 || a->H < 1 || a->Sq < 1 || a->Sk < 1 || a->Sq > 65535 * QT) return (int)cudaErrorInvalidValue;
-  switch (a->D) {
-    case 16: return launch_d<16>(*a, bf16, st);
-    case 32: return launch_d<32>(*a, bf16, st);
-    case 64: return launch_d<64>(*a, bf16, st);
-    default: return (int)cudaErrorInvalidValue;
+  if (a->B < 1 || a->H < 1 || a->Sq < 1 || a->Sk < 1 || a->D < 1) return (int)cudaErrorInvalidValue;
+  if (a->Sq <= 65535 * QT) {
+    if (tiled_fits<16>(*a)) return launch_d<16>(*a, bf16, st);
+    if (tiled_fits<32>(*a)) return launch_d<32>(*a, bf16, st);
+    if (tiled_fits<64>(*a)) return launch_d<64>(*a, bf16, st);
   }
+  return bf16 ? launch_any<__nv_bfloat16>(*a, st) : launch_any<float>(*a, st);
 }
 
 const char* rt_attn_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

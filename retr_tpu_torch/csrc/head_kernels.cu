@@ -30,7 +30,8 @@
 // row take that row's statistics over interleaved columns, merged by warp
 // shuffles in a fixed order: the max with its lowest column, the sum of
 // exponentials, then each further top-k entry as the best column after the
-// previous one in (value desc, column asc) order, so no list is kept.
+// previous one in (value desc, column asc) order, so no list is kept, and k
+// may be anything up to 256 (rounds past a slab's 128 columns give -inf).
 //
 // W3's rows are 2V bytes apart in bf16, not 16-byte aligned at V = 30522, and
 // cp.async and ldmatrix need 16 bytes. So the kernel takes W3 packed: its vocab
@@ -43,7 +44,9 @@
 // The trunk (latency-bound: 0.75 MB of weights): one block per 16-row x 8-column
 // tile of a layer's output (128 blocks at 32 rows and Hd = 512), whose 8 warps
 // take the K dimension's 32-row chunks in turn and add their partials in warp
-// order.
+// order. Hd is a multiple of 32 (pack_head pads it with zero units); the input
+// width C may be anything: the tiles are zero-filled up to a multiple of 32,
+// and an input whose rows are not 16-byte aligned is copied element by element.
 //
 // Numerics follow the TPU kernels: each product casts its input to the weight
 // type and accumulates in f32; h1 and h2 are rounded to the storage type where
@@ -70,7 +73,7 @@ struct HeadArgs {
 namespace {
 
 constexpr int SLAB = 128;    // vocab columns per block
-constexpr int KMAX = 8;      // most top-k entries a row keeps (HEAD_KMAX in ops/decoder_kernels.py)
+constexpr int KMAX = 256;    // most top-k entries a row returns (HEAD_KMAX in ops/decoder_kernels.py)
 constexpr int NSTAGE = 6;    // cp.async ring depth of the vocab product (2 blocks per SM)
 constexpr int TR = 16;       // trunk tile rows (the mma M)
 constexpr int TN = 8;        // trunk tile columns (one mma N)
@@ -144,32 +147,44 @@ template <typename T> __device__ __forceinline__ void trunk_partials(float* red,
   }
 }
 
+// K rounded up to the trunk's 32-row chunks.
+__host__ __device__ inline int trunk_k(int K) { return (K + 31) & ~31; }
+
 // out = ReLU(in W + bias) for rows blockIdx.x * TR.., columns blockIdx.y * TN..:
-// in [B, K], W [K, N], out [B, N], all row-major in T.
+// in [B, K], W [K, N], out [B, N], all row-major in T; N a multiple of 8. The
+// tiles hold K rounded up to 32 (trunk_k), zeros past K; `vec`: in's rows are
+// 16-byte aligned (K a multiple of 16 bytes), so they are copied by cp.async.
 template <typename T>
 __global__ void __launch_bounds__(NT) trunk_kernel(const T* in, const T* W, const T* bias, T* out, int B, int K,
-                                                   int N) {
+                                                   int N, int vec) {
   constexpr int E = 16 / sizeof(T);               // elements per 16-byte piece
   extern __shared__ float4 smem_raw[];
-  const int lda = K + E;
+  const int KP = trunk_k(K), lda = KP + E;
   T* A = reinterpret_cast<T*>(smem_raw);          // [TR][lda]
-  T* Ws = A + TR * lda;                           // [K][TN]
-  float* red = reinterpret_cast<float*>(Ws + K * TN);   // [NW][TR][TN]
+  T* Ws = A + TR * lda;                           // [KP][TN]
+  float* red = reinterpret_cast<float*>(Ws + KP * TN);   // [NW][TR][TN]
   const int row0 = blockIdx.x * TR, n0 = blockIdx.y * TN;
-  for (int i = threadIdx.x; i < TR * K / E; i += NT) {
-    const int r = i / (K / E), s = i % (K / E);
-    const bool in_b = row0 + r < B;               // rows past B: zeros
-    cp_async16z(A + r * lda + s * E, in + (in_b ? (size_t)(row0 + r) * K + s * E : 0), in_b ? 16 : 0);
+  if (vec) {
+    for (int i = threadIdx.x; i < TR * KP / E; i += NT) {
+      const int r = i / (KP / E), s = i % (KP / E);
+      const bool in_b = row0 + r < B && s * E < K;   // rows past B, columns past K: zeros
+      cp_async16z(A + r * lda + s * E, in + (in_b ? (size_t)(row0 + r) * K + s * E : 0), in_b ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < TR * KP; i += NT) {
+      const int r = i / KP, k = i % KP;
+      A[r * lda + k] = row0 + r < B && k < K ? in[(size_t)(row0 + r) * K + k] : from_f<T>(0.f);
+    }
   }
-  for (int i = threadIdx.x; i < K * TN / E; i += NT) {
+  for (int i = threadIdx.x; i < KP * TN / E; i += NT) {
     const int r = i / (TN / E), s = i % (TN / E);
-    cp_async16(Ws + r * TN + s * E, W + (size_t)r * N + n0 + s * E);
+    cp_async16z(Ws + r * TN + s * E, W + (r < K ? (size_t)r * N + n0 + s * E : 0), r < K ? 16 : 0);
   }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  trunk_chunks(A, lda, Ws, K, acc);
+  trunk_chunks(A, lda, Ws, KP, acc);
   trunk_partials<T>(red, acc);
   __syncthreads();
   if (threadIdx.x < TR * TN) {
@@ -430,15 +445,17 @@ int set_smem(Kern kern, size_t bytes, size_t& granted) {
 template <typename T>
 int launch_trunk_layer(const T* in, const T* W, const T* bias, T* out, int B, int K, int N, cudaStream_t st) {
   static size_t granted = 0;
-  const size_t bytes = ((size_t)TR * (K + 16 / sizeof(T)) + (size_t)K * TN) * sizeof(T) + NW * TR * TN * sizeof(float);
+  const int KP = trunk_k(K);
+  const size_t bytes = ((size_t)TR * (KP + 16 / sizeof(T)) + (size_t)KP * TN) * sizeof(T) + NW * TR * TN * sizeof(float);
   if (const int e = set_smem(trunk_kernel<T>, bytes, granted)) return e;
-  trunk_kernel<T><<<dim3((B + TR - 1) / TR, N / TN), NT, bytes, st>>>(in, W, bias, out, B, K, N);
+  const int vec = (K * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0;
+  trunk_kernel<T><<<dim3((B + TR - 1) / TR, N / TN), NT, bytes, st>>>(in, W, bias, out, B, K, N, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_trunk(const HeadArgs& a, cudaStream_t st) {
-  if (a.B < 1 || a.C % 32 || a.Hd % 32) return (int)cudaErrorInvalidValue;
+  if (a.B < 1 || a.C < 1 || a.Hd % 32) return (int)cudaErrorInvalidValue;
   T* h1 = static_cast<T*>(a.h1);
   if (const int e = launch_trunk_layer<T>(static_cast<const T*>(a.x), static_cast<const T*>(a.w1),
                                           static_cast<const T*>(a.b1), h1, a.B, a.C, a.Hd, st))

@@ -19,9 +19,8 @@ finished are no-ops (the write is skipped). A beam step is not a no-op, so each
 beam step's carry update is gated by the device bool ``running`` (the JAX
 loop's condition, which stays false once false). Unlike the JAX package, no
 rows are padded: the CUDA kernels take any batch. Under the head flags the
-head is packed once per call (``ops.decoder_kernels.pack_head``); a head the
-head kernels do not take (``head_kernels_fit``) runs their plain versions, as
-the decoder layers do at widths their kernels do not take.
+head is packed once per call, as the head kernels read it
+(``ops.decoder_kernels.pack_head``).
 """
 
 from __future__ import annotations
@@ -62,16 +61,6 @@ def _cast_for_decode(params: Params, memory, pos, compute_dtype):
     return params, memory.to(dt), pos.to(dt)
 
 
-def _head_kernel(mlp: Params, name: str, flag: bool, k: int):
-    """The head function a flagged tail calls, and the head parameters it
-    takes: the kernel wrapper ``name`` on the packed head (made once per decode
-    call) where the kernels take it, else its plain version on the head as it
-    is. With the flag off nothing is packed."""
-    if flag and dk.head_kernels_fit(mlp, k):
-        return getattr(dk, name), dk.pack_head(mlp)
-    return getattr(dk.PLAIN, name), mlp
-
-
 def greedy_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, *,
                        max_len: int, bos_token: int, eos_token: int) -> torch.Tensor:
     """Greedy decode given the encoder output; returns the [B, max_len] int32
@@ -84,14 +73,14 @@ def greedy_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, *,
     captions[:, 0] = bos_token
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     step = torch.zeros((), dtype=torch.int32, device=dev)
-    head, head_p = _head_kernel(params["mlp"], "mlp_head_argmax", dk.HEAD_KERNEL, 1)
+    head_p = dk.pack_head(params["mlp"]) if dk.HEAD_KERNEL else None
     with matmul_precision(memory.dtype):
         for i in range(max_len - 1):
             if i and i % CHECK_EVERY == 0 and bool(finished.all()):
                 break
             hs, cache = transformer.decode_step(tparams, cache, cross, captions[:, i], step, cfg)
             if dk.HEAD_KERNEL:
-                pred = head(head_p, hs)
+                pred = dk.mlp_head_argmax(head_p, hs)
             else:
                 pred = caption.mlp_head(params["mlp"], hs).argmax(dim=-1).to(torch.int32)
             finished |= pred == eos_token
@@ -176,7 +165,7 @@ def beam_search_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, 
     step = torch.zeros((), dtype=torch.int32, device=dev)
     running = _beam_active(scores, finished, fin_len, 0, length_penalty=length_penalty,
                            early_stop=early_stop)
-    topk_head, head_p = _head_kernel(params["mlp"], "mlp_head_topk", dk.BEAM_TOPK_KERNEL, k)
+    head_p = dk.pack_head(params["mlp"]) if dk.BEAM_TOPK_KERNEL else None
     with matmul_precision(memory.dtype):
         for i in range(max_len - 1):
             if i % CHECK_EVERY == 0 and not bool(running):
@@ -190,7 +179,7 @@ def beam_search_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, 
             hs, cache = transformer.decode_step_beam(tparams, cache, cross, tokens[:, :, i].reshape(b * k),
                                                      step, cfg, anc_i, k)
             if dk.BEAM_TOPK_KERNEL:
-                row_scores, row_tokens = topk_head(head_p, hs, k)
+                row_scores, row_tokens = dk.mlp_head_topk(head_p, hs, k)
             else:
                 row_scores, row_tokens = dk.topk_log_softmax(caption.mlp_head(params["mlp"], hs).float(), k)
             row_scores, row_tokens = row_scores.view(b, k, k), row_tokens.view(b, k, k)

@@ -17,8 +17,6 @@ The decode step runs the decoder layers through ops/decoder_kernels.py: one
 ``fused_layer_step`` per layer when ``MERGED_LAYER`` is on, else the per-layer
 ``self_attn_block`` / ``cross_attn_block`` / ``ff_block`` trio. The beam step
 runs ``self_attn_block_beam`` / ``cross_attn_block`` / ``ff_block`` per layer.
-Where ``decode_kernels_fit`` says the kernels do not take the model's widths
-(or beam), both steps run the same functions' plain versions, on any device.
 """
 
 from __future__ import annotations
@@ -224,24 +222,23 @@ def decode_step(params: Params, state: DecodeCache, cross: CrossContext,
     x = decoder_embed(emb, token_ids, cfg, step)
     qpos = emb["pos"]["table"].index_select(0, step.reshape(1))[0]
     dec = params["decoder"]
-    ops = dk if dk.decode_kernels_fit(cfg.hidden_dim, cfg.nheads, cfg.dim_feedforward) else dk.PLAIN
     if dk.LAYER_GRID:
-        x, _, _ = ops.fused_stack_step(
+        x, _, _ = dk.fused_stack_step(
             dec["stacked"], x, qpos, state.self_k, state.self_v, cross.cross_k, cross.cross_v,
             cross.mem_bias, step, num_heads=cfg.nheads,
         )
     elif dk.MERGED_LAYER:
         for li, lp in enumerate(dec["layers"]):
-            x, _, _ = ops.fused_layer_step(lp, x, qpos, state.self_k[li], state.self_v[li],
-                                           cross.cross_k[li], cross.cross_v[li], cross.mem_bias, step,
-                                           num_heads=cfg.nheads)
+            x, _, _ = dk.fused_layer_step(lp, x, qpos, state.self_k[li], state.self_v[li],
+                                          cross.cross_k[li], cross.cross_v[li], cross.mem_bias, step,
+                                          num_heads=cfg.nheads)
     else:
         for li, lp in enumerate(dec["layers"]):
-            x, _, _ = ops.self_attn_block(lp["self_attn"], x, qpos, state.self_k[li],
-                                          state.self_v[li], step, num_heads=cfg.nheads)
-            x = ops.cross_attn_block(lp["cross_attn"], x, qpos, cross.cross_k[li],
-                                     cross.cross_v[li], cross.mem_bias, num_heads=cfg.nheads)
-            x = ops.ff_block(lp["ff"], x)
+            x, _, _ = dk.self_attn_block(lp["self_attn"], x, qpos, state.self_k[li],
+                                         state.self_v[li], step, num_heads=cfg.nheads)
+            x = dk.cross_attn_block(lp["cross_attn"], x, qpos, cross.cross_k[li],
+                                    cross.cross_v[li], cross.mem_bias, num_heads=cfg.nheads)
+            x = dk.ff_block(lp["ff"], x)
     return layers.layer_norm(dec["norm"], x), state
 
 
@@ -262,13 +259,11 @@ def decode_step_beam(params: Params, state: DecodeCache, cross: CrossContext,
     qpos = emb["pos"]["table"].index_select(0, step.reshape(1))[0]
     anc_rows = anc.reshape(token_ids.shape[0], -1)
     dec = params["decoder"]
-    fit = dk.decode_kernels_fit(cfg.hidden_dim, cfg.nheads, cfg.dim_feedforward, num_beams)
-    ops = dk if fit else dk.PLAIN
     for li, lp in enumerate(dec["layers"]):
-        x, _, _ = ops.self_attn_block_beam(lp["self_attn"], x, anc_rows, qpos, state.self_k[li],
-                                           state.self_v[li], step, num_heads=cfg.nheads,
-                                           num_beams=num_beams)
-        x = ops.cross_attn_block(lp["cross_attn"], x, qpos, cross.cross_k[li], cross.cross_v[li],
-                                 cross.mem_bias, num_heads=cfg.nheads)
-        x = ops.ff_block(lp["ff"], x)
+        x, _, _ = dk.self_attn_block_beam(lp["self_attn"], x, anc_rows, qpos, state.self_k[li],
+                                          state.self_v[li], step, num_heads=cfg.nheads,
+                                          num_beams=num_beams)
+        x = dk.cross_attn_block(lp["cross_attn"], x, qpos, cross.cross_k[li], cross.cross_v[li],
+                                cross.mem_bias, num_heads=cfg.nheads)
+        x = dk.ff_block(lp["ff"], x)
     return layers.layer_norm(dec["norm"], x), state

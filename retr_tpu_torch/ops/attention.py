@@ -31,8 +31,7 @@ from retr_tpu_torch.ops import decoder_kernels as dk
 
 NEG_INF = -1e30  # finite sentinel: an all-masked row stays finite
 LAUNCHES = dk.LAUNCHES
-HEAD_DIMS = (16, 32, 64)  # the head widths the CUDA kernel is compiled for
-_QT, _KT, _SMEM_MAX = 32, 64, 232448  # query tile, key tile, a block's shared-memory limit
+_SMEM_MAX = 232448  # a block's shared-memory limit on Hopper
 
 
 def fused_attention_plain(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
@@ -57,23 +56,16 @@ def fused_attention_plain(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
     return torch.matmul(probs.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
-def _smem_bytes(d: int, sk: int) -> int:
-    """Shared memory of one rt_fused_attention block: the q and key tiles and
-    the whole score block of its 32 query rows, f32."""
-    return ((_QT + _KT) * (d + 1) + _QT * sk) * 4
-
-
 def attention_kernel_fits(d: int, sk: int) -> bool:
-    """Whether rt_fused_attention takes head dim ``d`` and ``sk`` keys."""
-    return d in HEAD_DIMS and _smem_bytes(d, sk) <= _SMEM_MAX
+    """Whether rt_fused_attention takes head dim ``d`` and ``sk`` keys: any
+    whose one-query row (q and the ``sk`` scores, f32) fits a block's shared
+    memory. The tiled kernel takes head dims 16, 32 and 64 up to the key count
+    whose 32-row score block fits (1717 at D = 32); the any-width kernel the rest."""
+    return d >= 1 and sk >= 1 and (d + sk) * 4 <= _SMEM_MAX
 
 
-def _refuse_grad(*tensors) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "fused_attention has no backward: retr_tpu defines no VJP for its Pallas kernel "
-            "(retr_tpu/ops/attention.py), so neither package differentiates it. Train with "
-            "attention dropout on (the plain path), or with use_pallas_attention off.")
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def fused_attention(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
@@ -84,22 +76,25 @@ def fused_attention(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
     CUDA-core operations take about the same time. Design (csrc/attention_kernels.cu):
     one block per (b, h, 32 query rows) keeps its whole score block in shared
     memory, streams K then V through it in 64-key tiles, and normalises exactly
-    once between the two passes.
+    once between the two passes. Other head dims, and key counts whose 32-row
+    score block does not fit, run the same passes untiled with fewer query
+    rows per block (down to 1).
     """
-    _refuse_grad(q, k, v, key_bias)
+    if _needs_grad(q, k, v, key_bias):
+        raise NotImplementedError(
+            "fused_attention has no backward: retr_tpu defines no VJP for its Pallas kernel "
+            "(retr_tpu/ops/attention.py), so neither package differentiates it. Train with "
+            "attention dropout on (the plain path), or with use_pallas_attention off.")
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, key_bias, causal=causal)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"fused_attention: head dim {d} (the CUDA kernel takes {HEAD_DIMS})")
     if k.shape != (b, h, sk, d) or v.shape != k.shape:
         raise ValueError(f"fused_attention: k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
                          f"q {tuple(q.shape)}")
-    smem = _smem_bytes(d, sk)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"fused_attention: {sk} keys need {smem} bytes of shared memory "
-                         f"(at most {_SMEM_MAX})")
+    if not attention_kernel_fits(d, sk):
+        raise ValueError(f"fused_attention: head dim {d} and {sk} keys need {(d + sk) * 4} bytes of shared "
+                         f"memory for one query row (at most {_SMEM_MAX})")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     t = dict(q=q, k=k, v=v)
     shapes = {}
@@ -125,14 +120,9 @@ def attention(q, k, v, bias: Optional[torch.Tensor], *, need_weights: bool = Fal
     ``bias`` is the general additive [B or 1, 1, Sq or 1, Sk] form of the plain
     path; the fused path takes the decomposed (``key_bias`` [B, Sk], ``causal``)
     form instead. Unlike retr_tpu there is no CPU-backend test: on the CPU the
-    wrapper runs the kernel's plain version. A head dim or key count the kernel
-    does not take (:func:`attention_kernel_fits`) runs the plain version on any
-    device, as the Pallas kernel takes every shape."""
+    wrapper runs the kernel's plain version."""
     from retr_tpu_torch.models.layers import attention_core
 
     if use_pallas and not need_weights:
-        if attention_kernel_fits(q.shape[-1], k.shape[2]):
-            return fused_attention(q, k, v, key_bias, causal=causal), None
-        _refuse_grad(q, k, v, key_bias)
-        return fused_attention_plain(q, k, v, key_bias, causal=causal), None
+        return fused_attention(q, k, v, key_bias, causal=causal), None
     return attention_core(q, k, v, bias, need_weights=need_weights)

@@ -16,9 +16,14 @@ the greedy and beam serving paths run:
 The stacked step (``fused_stack_step``, ``fused_layer_step``) is
 csrc/stack_kernels.cu, the self-attention blocks csrc/decoder_kernels.cu, the
 cross-attention and FF blocks csrc/block_kernels.cu, the head kernels
-csrc/head_kernels.cu. The library registry here (``_LIBS``, ``build()``) also
-holds csrc/attention_kernels.cu, the full-sequence attention kernel of
-ops/attention.py, whose launches ``LAUNCHES["fused_attention"]`` counts.
+csrc/head_kernels.cu. Those decoder-layer kernels are tuned for the served
+width (:func:`decode_kernels_fit`: C = 256, 8 heads, F a multiple of 256, beam
+groups of 1..8); at any other width the same wrappers launch
+csrc/width_kernels.cu, which takes the widths, head count, FF width and
+lengths at run time, as the Pallas kernels take any width. The library
+registry here (``_LIBS``, ``build()``) also holds csrc/attention_kernels.cu,
+the full-sequence attention kernel of ops/attention.py, whose launches
+``LAUNCHES["fused_attention"]`` counts.
 
 Each takes the JAX package's parameter dicts (linear weights ``[in, out]``) and
 its XLA-path layouts: self caches ``[B, H, T, D]`` (stacked ``[L, B, H, T, D]``),
@@ -27,12 +32,8 @@ lane layout, batch blocking and ``b <= 32`` limit were VMEM rules and are not
 copied: the CUDA kernels take any batch.
 
 Dispatch: a CPU tensor goes to the plain version (``*_plain``), which repeats
-the TPU kernel's arithmetic with torch ops; a CUDA tensor launches the kernel or
+the TPU kernel's arithmetic with torch ops; a CUDA tensor launches a kernel or
 raises. ``LAUNCHES`` counts kernel launches per wrapper (plain calls never count).
-The decode steps choose before they call: where :func:`decode_kernels_fit` or
-:func:`head_kernels_fit` says the kernels do not take the shapes, they call the
-plain versions (``PLAIN``) on any device, as the JAX package runs XLA wherever
-its Pallas kernels are not eligible. The rules read shapes and types only.
 
 Numerics shared by both versions (the TPU kernels'): products cast the
 activation to the weight's type and accumulate in f32; LayerNorm (eps 1e-5) and
@@ -49,7 +50,6 @@ The self-attention functions update the caches IN PLACE (only the slot at
 from __future__ import annotations
 
 import ctypes
-import types
 from typing import Dict
 
 import numpy as np
@@ -75,10 +75,12 @@ LAUNCHES = {"fused_stack_step": 0, "self_attn_block": 0, "cross_attn_block": 0, 
             "self_attn_block_beam": 0, "mlp_head_argmax": 0, "mlp_head_topk": 0,
             "fused_layer_step": 0, "fused_attention": 0}  # the last: ops/attention.py
 
-WIDTH, HEADS = 256, 8  # the widths the CUDA kernels are written for
-HEAD_KMAX = 8          # the most top-k entries per row the head kernel keeps
-HEAD_ALIGN = 8         # the head kernel reads W3 rows padded to a multiple of 8 columns (pack_head)
-MAX_BEAMS = 8          # the largest beam group self_attn_block_beam takes
+WIDTH, HEADS = 256, 8  # the widths the tuned decoder-layer kernels are written for
+MAX_BEAMS = 8          # the largest beam group the tuned self_attn_block_beam takes
+WIDTH_MAX_BEAMS = 16   # the largest beam group csrc/width_kernels.cu takes
+HEAD_KMAX = 256        # the most top-k entries per row the head kernels return
+HEAD_ALIGN = 8         # the head kernels read W3 rows padded to a multiple of 8 columns (pack_head)
+HEAD_HIDDEN_ALIGN = 32  # ... and a hidden width padded to a multiple of 32 (pack_head)
 
 
 def reset_launches() -> None:
@@ -87,35 +89,46 @@ def reset_launches() -> None:
 
 
 def decode_kernels_fit(c: int, num_heads: int, f: int = 256, num_beams: int = 1) -> bool:
-    """Whether the decoder-layer kernels take a model of width ``c`` with
-    ``num_heads`` heads, FF width ``f`` and beam groups of ``num_beams``."""
-    return c == WIDTH and num_heads == HEADS and f % 256 == 0 and 1 <= num_beams <= MAX_BEAMS
+    """Whether the tuned decoder-layer kernels take a model of width ``c`` with
+    ``num_heads`` heads, FF width ``f`` and beam groups of ``num_beams``; the
+    wrappers launch csrc/width_kernels.cu elsewhere."""
+    return c == WIDTH and num_heads == HEADS and f >= 256 and f % 256 == 0 and 1 <= num_beams <= MAX_BEAMS
 
 
 def head_kernels_fit(p: Params, k: int = 1) -> bool:
-    """Whether the head kernels take the MLP head ``p`` (its widths and storage
-    type), once packed (:func:`pack_head`), with ``k`` tokens per row: widths
-    that are multiples of 32, 1 <= k <= min(vocab, HEAD_KMAX), f32 or bf16."""
-    (c, hd), v = p["layers"][0]["w"].shape, p["layers"][2]["w"].shape[1]
-    return (c % 32 == 0 and hd % 32 == 0 and 1 <= k <= min(v, HEAD_KMAX)
-            and p["layers"][2]["w"].dtype in (torch.float32, torch.bfloat16))
+    """Whether the head kernels take the MLP head ``p``, once packed
+    (:func:`pack_head`), with ``k`` tokens per row: f32 or bf16 storage and
+    1 <= k <= min(vocab, HEAD_KMAX); any widths."""
+    v = p["layers"][2]["w"].shape[1]
+    return 1 <= k <= min(v, HEAD_KMAX) and p["layers"][2]["w"].dtype in (torch.float32, torch.bfloat16)
+
+
+def _pad_cols(t: torch.Tensor, n: int, value: float = 0.0) -> torch.Tensor:
+    return torch.nn.functional.pad(t, (0, n), value=value) if n else t
 
 
 def pack_head(p: Params) -> Params:
-    """The MLP head with W3 and b3 padded to a multiple of HEAD_ALIGN vocab
-    columns (zero weights, a -inf bias), so that each W3 row starts on a
-    16-byte boundary: what the head kernels read. The padding is never
-    chosen and adds nothing to a sum of exponentials, so every function of the
-    head (the plain versions too) gives the same tokens and scores on the
-    packed head. A copy of W3 (31 MB in bf16 at 512 x 30522): made once per
-    decode call, where the decode loop prepares its parameters."""
-    l3 = p["layers"][2]
-    pad = -l3["w"].shape[1] % HEAD_ALIGN
-    if pad == 0:
+    """The MLP head as the head kernels read it: the hidden width padded to a
+    multiple of HEAD_HIDDEN_ALIGN (zero columns of W1, b1, W2 and b2, zero
+    rows of W2 and W3: the padded hidden units are ReLU(0) = 0 and add
+    nothing), and W3 and b3 padded to a multiple of HEAD_ALIGN vocab columns
+    (zero weights, a -inf bias), so that each W3 row starts on a 16-byte
+    boundary. The padding is never chosen and adds nothing to a sum of
+    exponentials, so every function of the head (the plain versions too) gives
+    the same tokens and scores on the packed head. A copy of W3 (31 MB in bf16
+    at 512 x 30522): made once per decode call, where the decode loop prepares
+    its parameters. Returns ``p`` itself where nothing needs padding."""
+    l1, l2, l3 = p["layers"]
+    hp = -l1["w"].shape[1] % HEAD_HIDDEN_ALIGN
+    vp = -l3["w"].shape[1] % HEAD_ALIGN
+    if hp == 0 and vp == 0:
         return p
-    w = torch.nn.functional.pad(l3["w"], (0, pad))
-    b = torch.nn.functional.pad(l3["b"], (0, pad), value=float("-inf"))
-    return {**p, "layers": [*p["layers"][:2], {**l3, "w": w, "b": b}]}
+    w2 = _pad_cols(l2["w"], hp)
+    return {**p, "layers": [
+        {**l1, "w": _pad_cols(l1["w"], hp), "b": _pad_cols(l1["b"], hp)},
+        {**l2, "w": torch.nn.functional.pad(w2, (0, 0, 0, hp)), "b": _pad_cols(l2["b"], hp)},
+        {**l3, "w": torch.nn.functional.pad(_pad_cols(l3["w"], vp), (0, 0, 0, hp)),
+         "b": _pad_cols(l3["b"], vp, float("-inf"))}]}
 
 
 # ---------------------------------------------------------------------------------
@@ -319,15 +332,6 @@ def fused_stack_step_plain(slp: Params, x, qpos, k_cache, v_cache, cross_k, cros
     return xs.to(x.dtype), k_cache, v_cache
 
 
-# The plain versions under the wrappers' names: what a decode step calls, on any
-# device, where decode_kernels_fit / head_kernels_fit rule the kernels out.
-PLAIN = types.SimpleNamespace(
-    fused_stack_step=fused_stack_step_plain, fused_layer_step=fused_layer_step_plain,
-    self_attn_block=self_attn_block_plain, cross_attn_block=cross_attn_block_plain,
-    ff_block=ff_block_plain, self_attn_block_beam=self_attn_block_beam_plain,
-    mlp_head_argmax=mlp_head_argmax_plain, mlp_head_topk=mlp_head_topk_plain)
-
-
 # ---------------------------------------------------------------------------------
 # CUDA launch plumbing (csrc/*.cu through ctypes)
 # ---------------------------------------------------------------------------------
@@ -380,6 +384,18 @@ class _AttnArgs(ctypes.Structure):
         ("scale", ctypes.c_float)] + [(n, ctypes.c_void_p) for n in ("q", "k", "v", "key_bias", "out")]
 
 
+_WIDTH_PTRS = _SELF_PTRS + ("ln2s", "ln2b", "cwq", "cbq", "cwo", "cbo", "ln3s", "ln3b", "w1", "b1", "w2", "b2",
+                            "kc", "vc", "ck", "cv", "key_bias", "step", "anc", "res")
+
+
+class _WidthArgs(ctypes.Structure):
+    """Mirror of ``struct WidthArgs`` in csrc/width_kernels.cu (same field order)."""
+
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "C", "H", "F", "T", "S", "K", "L", "xf32", "yf32", "exact")] + [
+        (n, ctypes.c_void_p) for n in _WIDTH_PTRS
+    ]
+
+
 # source -> (argument struct, entry points, error-string function)
 _LIBS = {
     "decoder_kernels": (_Args, ("rt_self_attn_block", "rt_self_attn_block_beam"), "rt_error_string"),
@@ -387,6 +403,8 @@ _LIBS = {
     "stack_kernels": (_StackArgs, ("rt_stack_step",), "rt_stack_error_string"),
     "head_kernels": (_HeadArgs, ("rt_head_trunk", "rt_head_blocks"), "rt_head_error_string"),
     "attention_kernels": (_AttnArgs, ("rt_fused_attention",), "rt_attn_error_string"),
+    "width_kernels": (_WidthArgs, ("rt_width_self", "rt_width_cross", "rt_width_ff", "rt_width_stack"),
+                      "rt_width_error_string"),
 }
 # wrapper -> (source, entry point)
 _ENTRY = {"fused_stack_step": ("stack_kernels", "rt_stack_step"),
@@ -424,11 +442,11 @@ def build() -> None:
         _lib(name)
 
 
-def _param_shapes(f: int = WIDTH, nl=None) -> Dict[str, tuple]:
+def _param_shapes(f: int = WIDTH, nl=None, c: int = WIDTH) -> Dict[str, tuple]:
     """Shapes of the Args parameter fields (a leading layer axis when ``nl``)."""
     lead = () if nl is None else (nl,)
-    vec, sq = lead + (WIDTH,), lead + (WIDTH, WIDTH)
-    shapes = {"qpos": (WIDTH,), "w1": lead + (WIDTH, f), "b1": lead + (f,), "w2": lead + (f, WIDTH)}
+    vec, sq = lead + (c,), lead + (c, c)
+    shapes = {"qpos": (c,), "w1": lead + (c, f), "b1": lead + (f,), "w2": lead + (f, c)}
     for n in ("ln1s", "ln1b", "sbq", "sbk", "sbv", "sbo", "ln2s", "ln2b", "cbq", "cbo", "ln3s", "ln3b",
               "b2", "lns", "lnb", "bq", "bo"):
         shapes[n] = vec
@@ -437,16 +455,16 @@ def _param_shapes(f: int = WIDTH, nl=None) -> Dict[str, tuple]:
     return shapes
 
 
-def _check(kernel: str, dtype: torch.dtype, shapes: Dict[str, tuple], **tensors) -> None:
-    """Device, type, contiguity, 16-byte alignment (the kernels load 16 bytes at
-    a time) and, for parameters, shape of every tensor handed to a kernel."""
+def _check(kernel: str, dtype: torch.dtype, shapes: Dict[str, tuple], align: int = 16, **tensors) -> None:
+    """Device, type, contiguity, alignment (16 bytes: the tuned kernels load 16
+    bytes at a time) and, for parameters, shape of every tensor handed to a kernel."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{kernel}: storage type {dtype} (float32 or bfloat16 only)")
     for name, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{kernel}: {name} is on {t.device}, the kernel needs CUDA tensors")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{kernel}: {name} must be contiguous and 16-byte aligned")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{kernel}: {name} must be contiguous and {align}-byte aligned")
         want = (torch.float32 if name in ("key_bias", "vals", "mx", "se")
                 else torch.int32 if name in ("step", "anc", "idx") else dtype)
         if t.dtype != want:
@@ -456,9 +474,19 @@ def _check(kernel: str, dtype: torch.dtype, shapes: Dict[str, tuple], **tensors)
 
 
 def _check_width(kernel: str, c: int, num_heads: int, f: int = 256) -> None:
-    if not decode_kernels_fit(c, num_heads, f):
-        raise ValueError(f"{kernel}: the CUDA kernel is written for width {WIDTH}, {HEADS} heads "
-                         f"and an FF width that is a multiple of 256 (got {c}, {num_heads}, {f})")
+    if num_heads < 1 or c < num_heads or c % num_heads or f < 1:
+        raise ValueError(f"{kernel}: width {c} is not a whole number of {num_heads} heads, "
+                         f"or the FF width {f} is empty")
+
+
+def _width_launch(kernel: str, entry: str, ref: torch.Tensor, /, **fields) -> None:
+    """Check (element alignment: the width kernels load single elements) and
+    launch an entry of csrc/width_kernels.cu for wrapper ``kernel``; count it."""
+    tensors = {k: v for k, v in fields.items() if isinstance(v, torch.Tensor) and k not in ("y", "res")}
+    shapes = _param_shapes(fields.get("F", 1), fields.get("L") if entry == "rt_width_stack" else None, fields["C"])
+    _check(kernel, ref.dtype, shapes, align=ref.element_size(), **tensors)
+    _run("width_kernels", entry, ref, **fields)
+    LAUNCHES[kernel] += 1
 
 
 def _run(lib_name: str, entry: str, ref: torch.Tensor, /, **fields) -> None:
@@ -505,16 +533,22 @@ def ff_block(p: Params, x: torch.Tensor) -> torch.Tensor:
     LN tile and hidden slice in shared memory, multiplies on tensor cores (bf16)
     and hands its f32 FF2 partial to its peers through distributed shared
     memory, which sum them in slice order. Nothing goes to device memory but y.
+    At other widths: rt_width_ff (csrc/width_kernels.cu).
     """
     if x.device.type == "cpu":
         return ff_block_plain(p, x)
     b, c = x.shape
     f = p["lin1"]["w"].shape[1]
-    _check_width("ff_block", c, HEADS, f)
+    y = torch.empty_like(x)
+    if not decode_kernels_fit(c, HEADS, f):
+        _check_width("ff_block", c, 1, f)
+        _width_launch("ff_block", "rt_width_ff", x, B=b, C=c, H=1, F=f, x=x, y=y, ln3s=p["norm"]["scale"],
+                      ln3b=p["norm"]["bias"], w1=p["lin1"]["w"], b1=p["lin1"]["b"], w2=p["lin2"]["w"],
+                      b2=p["lin2"]["b"])
+        return y
     t = dict(lns=p["norm"]["scale"], lnb=p["norm"]["bias"], w1=p["lin1"]["w"],
              b1=p["lin1"]["b"], w2=p["lin2"]["w"], b2=p["lin2"]["b"])
     _check("ff_block", x.dtype, _param_shapes(f), x=x, **t)
-    y = torch.empty_like(x)
     _launch("ff_block", x, B=b, F=f, rows=_block_rows, x=x, y=y, **t)
     return y
 
@@ -531,7 +565,8 @@ def cross_attn_block(p: Params, x, qpos, k, v, key_bias, *, num_heads: int) -> t
     (bf16), attends each row (a warp per row) with 16-byte K loads and V rows
     staged into shared memory during the score pass, and hands its f32
     out-projection part to its peers through distributed shared memory, which
-    add the heads in order, rounding after each as the TPU kernel does.
+    add the heads in order, rounding after each as the TPU kernel does. At
+    other widths: rt_width_cross (csrc/width_kernels.cu).
     """
     if x.device.type == "cpu":
         return cross_attn_block_plain(p, x, qpos, k, v, key_bias, num_heads=num_heads)
@@ -542,6 +577,12 @@ def cross_attn_block(p: Params, x, qpos, k, v, key_bias, *, num_heads: int) -> t
         raise ValueError(f"cross_attn_block: k/v {tuple(k.shape)} / key_bias {tuple(key_bias.shape)} "
                          f"do not match x {tuple(x.shape)}")
     m = p["mha"]
+    if not decode_kernels_fit(c, num_heads):
+        y = torch.empty_like(x)
+        _width_launch("cross_attn_block", "rt_width_cross", x, B=b, C=c, H=num_heads, F=1, S=s, x=x, y=y,
+                      qpos=qpos, ln2s=p["norm"]["scale"], ln2b=p["norm"]["bias"], cwq=m["q"]["w"],
+                      cbq=m["q"]["b"], cwo=m["out"]["w"], cbo=m["out"]["b"], ck=k, cv=v, key_bias=key_bias)
+        return y
     t = dict(qpos=qpos, lns=p["norm"]["scale"], lnb=p["norm"]["bias"], wq=m["q"]["w"],
              bq=m["q"]["b"], wo=m["out"]["w"], bo=m["out"]["b"], ck=k, cv=v, key_bias=key_bias)
     _check("cross_attn_block", x.dtype, _param_shapes(), x=x, **t)
@@ -575,7 +616,8 @@ def self_attn_block(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: in
     the cache rows up to ``step``. Design: one block per row tile computes
     q/k/v, writes only the new cache slot (the TPU kernel rewrote whole cache
     blocks), attends over positions <= step from shared-memory scores, and sums
-    the out-projection head by head.
+    the out-projection head by head. At other widths: rt_width_self
+    (csrc/width_kernels.cu).
     """
     if x.device.type == "cpu":
         return self_attn_block_plain(p, x, qpos, k_cache, v_cache, step, num_heads=num_heads)
@@ -585,6 +627,8 @@ def self_attn_block(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: in
     if k_cache.shape != (b, num_heads, tmax, c // num_heads) or v_cache.shape != k_cache.shape:
         raise ValueError(f"self_attn_block: caches {tuple(k_cache.shape)} do not match x {tuple(x.shape)}")
     m = p["mha"]
+    if not decode_kernels_fit(c, num_heads):
+        return _width_self("self_attn_block", p, x, qpos, k_cache, v_cache, step, num_heads, 0, None)
     t = dict(qpos=qpos, ln1s=p["norm"]["scale"], ln1b=p["norm"]["bias"],
              swq=m["q"]["w"], sbq=m["q"]["b"], swk=m["k"]["w"], sbk=m["k"]["b"],
              swv=m["v"]["w"], sbv=m["v"]["b"], swo=m["out"]["w"], sbo=m["out"]["b"],
@@ -592,6 +636,19 @@ def self_attn_block(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: in
     _check("self_attn_block", x.dtype, _param_shapes(), x=x, **t)
     y = torch.empty_like(x)
     _launch("self_attn_block", x, B=b, T=tmax, x=x, y=y, **t)
+    return y, k_cache, v_cache
+
+
+def _width_self(kernel, p, x, qpos, k_cache, v_cache, step, num_heads, num_beams, anc):
+    """rt_width_self for self_attn_block (``num_beams`` 0) and self_attn_block_beam."""
+    m = p["mha"]
+    b, c = x.shape
+    y = torch.empty_like(x)
+    extra = {} if anc is None else {"anc": anc}
+    _width_launch(kernel, "rt_width_self", x, B=b, C=c, H=num_heads, F=1, T=k_cache.shape[2], K=num_beams,
+                  x=x, y=y, qpos=qpos, ln1s=p["norm"]["scale"], ln1b=p["norm"]["bias"], swq=m["q"]["w"],
+                  sbq=m["q"]["b"], swk=m["k"]["w"], sbk=m["k"]["b"], swv=m["v"]["w"], sbv=m["v"]["b"],
+                  swo=m["out"]["w"], sbo=m["out"]["b"], kc=k_cache, vc=v_cache, step=step, **extra)
     return y, k_cache, v_cache
 
 
@@ -611,6 +668,8 @@ def fused_stack_step(slp: Params, x, qpos, k_cache, v_cache, cross_k, cross_v, k
     tensor cores; attention split by (row, head)); the residual, q/k/v, the
     attention output, the FF hidden and FF2's per-chunk products pass between
     phases through scratch allocated here; only the new cache slots are written.
+    At other widths: rt_width_stack (csrc/width_kernels.cu), 3 L launches with
+    the residual in f32 scratch.
     """
     if x.device.type == "cpu":
         return fused_stack_step_plain(slp, x, qpos, k_cache, v_cache, cross_k, cross_v,
@@ -630,7 +689,8 @@ _stack_trace = None
 
 
 def _stack_launch(kernel, slp, x, qpos, k_cache, v_cache, cross_k, cross_v, key_bias, step, num_heads):
-    """Check and launch rt_stack_step over the layer-stacked ``slp`` / caches."""
+    """Check and launch rt_stack_step over the layer-stacked ``slp`` / caches
+    (rt_width_stack at the widths it does not take)."""
     b, c = x.shape
     nl, _, _, tmax, _ = k_cache.shape
     s = cross_k.shape[3]
@@ -642,6 +702,7 @@ def _stack_launch(kernel, slp, x, qpos, k_cache, v_cache, cross_k, cross_v, key_
             or cross_k.shape != (nl, b, num_heads, s, d) or cross_v.shape != cross_k.shape
             or key_bias.shape != (b, s)):
         raise ValueError(f"{kernel}: cache / cross K/V shapes do not match x")
+    fits = decode_kernels_fit(c, num_heads, f)
     t = dict(qpos=qpos,
              ln1s=sp["norm"]["scale"], ln1b=sp["norm"]["bias"],
              swq=sp["mha"]["q"]["w"], sbq=sp["mha"]["q"]["b"],
@@ -654,8 +715,13 @@ def _stack_launch(kernel, slp, x, qpos, k_cache, v_cache, cross_k, cross_v, key_
              ln3s=fp["norm"]["scale"], ln3b=fp["norm"]["bias"],
              w1=fp["lin1"]["w"], b1=fp["lin1"]["b"], w2=fp["lin2"]["w"], b2=fp["lin2"]["b"],
              kc=k_cache, vc=v_cache, ck=cross_k, cv=cross_v, key_bias=key_bias, step=step)
-    _check(kernel, x.dtype, _param_shapes(f, nl), x=x, **t)
     y = torch.empty_like(x)
+    if not fits:
+        res = torch.empty((b, c), dtype=torch.float32, device=x.device)
+        _width_launch(kernel, "rt_width_stack", x, B=b, C=c, H=num_heads, F=f, T=tmax, S=s, L=nl, x=x, y=y,
+                      res=res, **t)
+        return y
+    _check(kernel, x.dtype, _param_shapes(f, nl), x=x, **t)
     buf, scratch = _stack_scratch(b, f, x.device)
     _launch(kernel, x, B=b, T=tmax, S=s, F=f, L=nl, max_blocks=_stack_max_blocks, x=x, y=y, **t, **scratch,
             trace=_stack_trace)
@@ -729,7 +795,8 @@ def self_attn_block_beam(p: Params, x, anc, qpos, k_cache, v_cache, step, *, num
     Design: one block owns whole beam groups (5-row tiles at K = 5), so the
     fresh slot at ``step`` of any ancestor is in its shared memory; each row
     reads only its ancestor's K/V at each earlier position (the TPU kernel
-    formed q.K against all K rows and selected one).
+    formed q.K against all K rows and selected one). At other widths, or beam
+    groups of 9..16: rt_width_self (csrc/width_kernels.cu).
     """
     if x.device.type == "cpu":
         return self_attn_block_beam_plain(p, x, anc, qpos, k_cache, v_cache, step,
@@ -737,13 +804,15 @@ def self_attn_block_beam(p: Params, x, anc, qpos, k_cache, v_cache, step, *, num
     bk, c = x.shape
     _check_width("self_attn_block_beam", c, num_heads)
     tmax = k_cache.shape[2]
-    if not 1 <= num_beams <= MAX_BEAMS or bk % num_beams:
+    if not 1 <= num_beams <= WIDTH_MAX_BEAMS or bk % num_beams:
         raise ValueError(f"self_attn_block_beam: {bk} rows are not whole groups of {num_beams} "
-                         f"beams, or the beam is outside 1..{MAX_BEAMS}")
+                         f"beams, or the beam is outside 1..{WIDTH_MAX_BEAMS}")
     if (k_cache.shape != (bk, num_heads, tmax, c // num_heads) or v_cache.shape != k_cache.shape
             or anc.shape != (bk, tmax)):
         raise ValueError(f"self_attn_block_beam: caches {tuple(k_cache.shape)} / anc "
                          f"{tuple(anc.shape)} do not match x {tuple(x.shape)}")
+    if not decode_kernels_fit(c, num_heads, 256, num_beams):
+        return _width_self("self_attn_block_beam", p, x, qpos, k_cache, v_cache, step, num_heads, num_beams, anc)
     m = p["mha"]
     t = dict(qpos=qpos, ln1s=p["norm"]["scale"], ln1b=p["norm"]["bias"],
              swq=m["q"]["w"], sbq=m["q"]["b"], swk=m["k"]["w"], sbk=m["k"]["b"],
@@ -764,9 +833,12 @@ def _head_slabs(kernel: str, p: Params, h2, k: int):
     l3 = p["layers"][2]
     n, hd = h2.shape
     v = l3["w"].shape[1]
-    if hd % 32 or not 1 <= k <= min(v, HEAD_KMAX):
-        raise ValueError(f"{kernel}: hidden width {hd} must be a multiple of 32 and k = {k} "
-                         f"within 1..min(vocab {v}, {HEAD_KMAX})")
+    if not head_kernels_fit(p, k):
+        raise ValueError(f"{kernel}: k = {k} is outside 1..min(vocab {v}, {HEAD_KMAX}), or the storage "
+                         f"type {l3['w'].dtype} is not float32 or bfloat16")
+    if hd % HEAD_HIDDEN_ALIGN:
+        raise ValueError(f"{kernel}: hidden width {hd} must be a multiple of {HEAD_HIDDEN_ALIGN} "
+                         f"(pack_head pads it)")
     if v % HEAD_ALIGN:
         raise ValueError(f"{kernel}: W3's rows must be 16-byte aligned: a vocab that is a multiple of "
                          f"{HEAD_ALIGN} (got {v}; pack_head pads it)")
@@ -790,7 +862,8 @@ def mlp_head_argmax(p: Params, x: torch.Tensor) -> torch.Tensor:
     (``_head_kernel``). Bound on the card: bytes below ~300 rows (W3, Hd x V,
     against 2 operations per element per row), operations above. Design
     (csrc/head_kernels.cu): two launches of a trunk kernel write h1 and h2
-    (one block per 16-row x 8-column tile, bf16 on tensor cores), then the
+    (one block per 16-row x 8-column tile, bf16 on tensor cores; any input
+    width C, zero-filled to a multiple of 32), then the
     vocab kernel multiplies h2 by the packed W3 in tiles of up to 128 rows x one
     128-wide vocab slab (bf16 on tensor cores, W3 from device memory about once) and
     emits each slab's (max, first argmax); the [B, V] logits never reach device
@@ -801,8 +874,9 @@ def mlp_head_argmax(p: Params, x: torch.Tensor) -> torch.Tensor:
     l1, l2 = p["layers"][0], p["layers"][1]
     b, c = x.shape
     hd = l1["w"].shape[1]
-    if c % 32 or hd % 32:
-        raise ValueError(f"mlp_head_argmax: widths {c}, {hd} must be multiples of 32")
+    if hd % HEAD_HIDDEN_ALIGN:
+        raise ValueError(f"mlp_head_argmax: hidden width {hd} must be a multiple of {HEAD_HIDDEN_ALIGN} "
+                         f"(pack_head pads it)")
     t = dict(w1=l1["w"], b1=l1["b"], w2=l2["w"], b2=l2["b"])
     _check("mlp_head_argmax", x.dtype, {"w1": (c, hd), "b1": (hd,), "w2": (hd, hd), "b2": (hd,)},
            x=x, **t)
@@ -816,7 +890,7 @@ def mlp_head_argmax(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def mlp_head_topk(p: Params, x: torch.Tensor, k: int):
     """x: [N, C] hidden -> (log-softmax of the top ``k`` tokens [N, k] f32, their
-    ids [N, k] int32), first index on ties; k <= HEAD_KMAX. On CUDA tensors ``p``
+    ids [N, k] int32), first index on ties; k <= min(vocab, HEAD_KMAX). On CUDA tensors ``p``
     must be packed (:func:`pack_head`).
 
     Replaces retr_tpu/ops/decoder_kernels.py ``mlp_head_topk``

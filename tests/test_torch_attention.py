@@ -131,22 +131,25 @@ def test_dispatch_takes_the_kernel_where_retr_tpu_does(monkeypatch, use_pallas, 
     assert tuple(out.shape) == (2, 6, e)
 
 
-@pytest.mark.parametrize("d,sk,fits", [(16, 53, True), (32, 397, True), (64, 1024, True), (32, 1717, True),
-                                       (32, 1718, False), (48, 53, False), (128, 53, False)])
+@pytest.mark.parametrize("d,sk,fits", [(16, 53, True), (32, 397, True), (64, 1024, True), (32, 1718, True),
+                                       (32, 58080, True), (32, 58081, False), (48, 53, True)])
 def test_attention_kernel_fits_rule(d, sk, fits):
-    """The kernel takes head dims 16, 32 and 64 and the key counts whose score
-    block fits a block's shared memory (1717 keys at D = 32)."""
+    """The kernel takes any head dim and the key counts whose one-query score
+    row fits a block's shared memory (58080 keys at D = 32)."""
     assert tattn.attention_kernel_fits(d, sk) == fits
 
 
 def test_dispatch_runs_the_plain_version_where_the_kernel_does_not_fit(monkeypatch):
-    """use_pallas at head dim 48: the plain version of the kernel runs (on any
-    device), the wrapper is never called; a gradient is still refused."""
+    """use_pallas at head dim 48, which the tiled CUDA kernel is not built for:
+    the dispatch still calls the wrapper (the any-width kernel takes it on the
+    card; on the CPU the wrapper runs the plain version); a gradient is still
+    refused."""
     calls = []
-    monkeypatch.setattr(tattn, "fused_attention", lambda *a, **kw: calls.append(1))
+    real = tattn.fused_attention
+    monkeypatch.setattr(tattn, "fused_attention", lambda *a, **kw: calls.append(1) or real(*a, **kw))
     q, k, v, bias = (torch.from_numpy(x) for x in _inputs(2, 2, 5, 9, 48, seed=6, pad_rate=0.3))
     out, w = tattn.attention(q, k, v, None, use_pallas=True, causal=True, key_bias=bias)
-    assert calls == [] and w is None
+    assert calls == [1] and w is None
     torch.testing.assert_close(out, tattn.fused_attention_plain(q, k, v, bias, causal=True), rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="no VJP"):
         tattn.attention(q.clone().requires_grad_(True), k, v, None, use_pallas=True, key_bias=bias)

@@ -12,6 +12,7 @@ through the attention kernel against the plain attention path. Run on the card w
 import pytest
 import torch
 
+import chip_smoke
 from retr_tpu_torch import decode
 from retr_tpu_torch.config import Config
 from retr_tpu_torch.masking import Masked
@@ -36,7 +37,7 @@ def dev():
     return torch.device("cuda")
 
 
-def _decoder(gen, dev, dtype, nl=L):
+def _decoder(gen, dev, dtype, nl=L, c=C, f=F):
     def rn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
@@ -44,13 +45,13 @@ def _decoder(gen, dev, dtype, nl=L):
         return {"w": rn(nl, i, o, scale=(2.0 / (i + o)) ** 0.5), "b": rn(nl, o, scale=0.02)}
 
     def norm():
-        return {"scale": (1 + rn(nl, C, scale=0.1).float()).to(dtype), "bias": rn(nl, C, scale=0.1)}
+        return {"scale": (1 + rn(nl, c, scale=0.1).float()).to(dtype), "bias": rn(nl, c, scale=0.1)}
 
     def mha():
-        return {k: lin(C, C) for k in ("q", "k", "v", "out")}
+        return {k: lin(c, c) for k in ("q", "k", "v", "out")}
 
     return {"self_attn": {"norm": norm(), "mha": mha()}, "cross_attn": {"norm": norm(), "mha": mha()},
-            "ff": {"norm": norm(), "lin1": lin(C, F), "lin2": lin(F, C)}}
+            "ff": {"norm": norm(), "lin1": lin(c, f), "lin2": lin(f, c)}}
 
 
 def _close_to_plain(got, want, tol):
@@ -100,9 +101,9 @@ def test_kernels_match_plain_versions(dev, dtype, tol):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     p = {"norm": {"scale": torch.ones(64, device=dev), "bias": torch.zeros(64, device=dev)},
-         "lin1": {"w": torch.zeros(64, 256, device=dev), "b": torch.zeros(256, device=dev)},
-         "lin2": {"w": torch.zeros(256, 64, device=dev), "b": torch.zeros(64, device=dev)}}
-    with pytest.raises(ValueError, match="width"):
+         "lin1": {"w": torch.zeros(64, 0, device=dev), "b": torch.zeros(0, device=dev)},
+         "lin2": {"w": torch.zeros(0, 64, device=dev), "b": torch.zeros(64, device=dev)}}
+    with pytest.raises(ValueError, match="width"):                  # an empty FF width
         dk.ff_block(p, torch.zeros(4, 64, device=dev))
     q = {"norm": {"scale": torch.ones(C, device=dev), "bias": torch.zeros(C, device=dev)},
          "lin1": {"w": torch.zeros(C, F, device=dev), "b": torch.zeros(F, device=dev)},
@@ -344,8 +345,8 @@ def test_stacked_step_rejects_what_the_kernel_does_not_take(dev):
     x, qpos = torch.zeros(4, C, device=dev), torch.zeros(C, device=dev)
     kc, ck = torch.zeros(L, 4, H, T, D, device=dev), torch.zeros(L, 4, H, S, D, device=dev)
     kb, st = torch.zeros(4, S, device=dev), torch.zeros((), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="width"):
-        dk.fused_stack_step(slp, x, qpos, kc, kc.clone(), ck, ck.clone(), kb, st, num_heads=4)
+    with pytest.raises(ValueError, match="width"):                  # 256 is not a whole number of 3 heads
+        dk.fused_stack_step(slp, x, qpos, kc, kc.clone(), ck, ck.clone(), kb, st, num_heads=3)
     with pytest.raises(ValueError, match="shapes"):
         dk.fused_stack_step(slp, x, qpos, kc[:, :3], kc[:, :3].clone(), ck, ck.clone(), kb, st, num_heads=H)
     with pytest.raises(ValueError, match="float16"):
@@ -369,17 +370,6 @@ def _head(gen, dev, dtype, vocab, ties=()):
     return p
 
 
-def _head_ties(vocab):
-    """Equal best columns: an early one, both sides of the first two 128-wide
-    slab boundaries, the first and last column of the ragged last slab."""
-    last = (vocab - 1) // 128 * 128
-    return (3, 127, 128, 256, last, vocab - 1)
-
-
-def _bits32(t):
-    return t.view(torch.int32)
-
-
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("k", [1, 5, 8])
 @pytest.mark.parametrize("vocab", [5000, 30522])
@@ -387,59 +377,31 @@ def _bits32(t):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head_kernels_match_plain_versions(dev, dtype, rows, vocab, k, ties):
     """Vocab 5000 and 30522 (ragged last slabs of 8 and 58 columns), rows 1 to
-    2560 (row tiles of 32, 64 and 128, ragged), k 1, 5 and 8. Tokens: the
-    plain logit of each chosen token is within summation-order tolerance of the
-    plain choice's (exactly the lowest tied indices where ties are built in,
-    across slab boundaries and in the last slab); scores within 1e-4 of
-    max(1, |s|); a second launch gives the same bits."""
+    2560 (row tiles of 32, 64 and 128, ragged), k 1, 5 and 8: the checks of
+    chip_smoke.head_case (tokens within summation-order tolerance of the plain
+    choice, exactly the lowest tied indices where ties are built in across
+    slab boundaries and in the last slab; scores within 1e-4 of max(1, |s|);
+    a second launch gives the same bits)."""
     gen = torch.Generator(device=dev).manual_seed(4 + rows + vocab + k)
-    tie_cols = _head_ties(vocab) if ties else ()
+    tie_cols = chip_smoke.head_ties(vocab) if ties else ()
     p = _head(gen, dev, dtype, vocab, tie_cols)
-    kp = dk.pack_head(p)                   # 30522 -> 30528 columns; 5000 as it is
     x = torch.randn(rows, C, generator=gen, device=dev).to(dtype)
     dk.reset_launches()
-    ids, ids_again = dk.mlp_head_argmax(kp, x), dk.mlp_head_argmax(kp, x)
-    (scores, tokens), (scores_again, tokens_again) = dk.mlp_head_topk(kp, x, k), dk.mlp_head_topk(kp, x, k)
-    with matmul_precision(torch.float32):
-        want_ids = dk.mlp_head_argmax_plain(p, x)
-        want_scores, _ = dk.mlp_head_topk_plain(p, x, k)
-        # the f32 logits of each head (their trunks round differently in bf16)
-        l3 = p["layers"][2]
-        logits = dk._dot(dk._head_trunk(p, x), l3["w"]) + l3["b"].float()
-        logits_k = dk._dot(dk._torch_trunk(p, x), l3["w"]) + l3["b"].float()
-    torch.cuda.synchronize()
+    got = chip_smoke.head_case(p, dk.pack_head(p), x, k, tie_cols)   # 30522 -> 30528 columns
     assert dk.LAUNCHES["mlp_head_argmax"] == 2 and dk.LAUNCHES["mlp_head_topk"] == 2
-    assert ids.dtype == tokens.dtype == torch.int32 and tuple(tokens.shape) == (rows, k)
-    assert torch.equal(ids, ids_again) and torch.equal(tokens, tokens_again)
-    assert torch.equal(_bits32(scores), _bits32(scores_again))
-    if ties:
-        want = torch.tensor(tie_cols, device=dev, dtype=torch.int32)
-        n = min(k, len(tie_cols))
-        assert (ids == tie_cols[0]).all() and (tokens[:, :n] == want[:n]).all()
-    tol = 1e-4 * max(1.0, float(logits.abs().max()))
-    gap = logits.gather(1, want_ids.long()[:, None]) - logits.gather(1, ids.long()[:, None])
-    assert float(gap.abs().max()) <= tol
-    # each returned token carries its own log-probability, and the k values
-    # are the plain version's
-    own = torch.log_softmax(logits_k, dim=1).gather(1, tokens.long())
-    assert float((scores - own).abs().max()) <= tol
-    assert float((scores - want_scores).abs().max()) <= tol
+    assert got["err"] <= got["tol"] and got["same"] and got["lowest"], got
 
 
 def test_head_kernels_reject_what_they_do_not_take(dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     p = _head(gen, dev, torch.float32, 5000)
     x = torch.randn(4, C, generator=gen, device=dev)
-    narrow = {"layers": [{"w": torch.zeros(48, 512, device=dev), "b": torch.zeros(512, device=dev)},
-                         *p["layers"][1:]]}
-    with pytest.raises(ValueError, match="width"):
-        dk.mlp_head_argmax(narrow, torch.zeros(4, 48, device=dev))
     hidden = {"layers": [{"w": torch.zeros(C, 500, device=dev), "b": torch.zeros(500, device=dev)},
                          {"w": torch.zeros(500, 500, device=dev), "b": torch.zeros(500, device=dev)},
                          {"w": torch.zeros(500, 5000, device=dev), "b": torch.zeros(5000, device=dev)}]}
-    with pytest.raises(ValueError, match="width"):
+    with pytest.raises(ValueError, match="width"):                  # unpacked: pack_head pads it to 512
         dk.mlp_head_topk(hidden, x, 5)
-    for k in (0, 9):
+    for k in (0, 257):
         with pytest.raises(ValueError, match=f"k = {k}"):
             dk.mlp_head_topk(p, x, k)
     half = {"layers": [{n: t.half() for n, t in lp.items()} for lp in p["layers"]]}
@@ -460,11 +422,97 @@ TINY = dict(backbone="ResNet18", dilation=False, hidden_dim=64, nheads=4, enc_la
             dim_feedforward=128, vocab_size=96, max_position_embeddings=16, dropout=0.0, image_size=32)
 
 
-@pytest.mark.parametrize("decoder", ["greedy", "beam"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [9, 40, 256])
+@pytest.mark.parametrize("widths", [(48, 500), (36, 512), (C, 512)])
+def test_head_kernels_take_any_width_and_k(dev, widths, k, dtype):
+    """Input widths 48 and 36 (rows not 16-byte aligned in bf16: copied
+    element by element), hidden 500 (pack_head pads it to 512), k up to 256
+    (two slabs' worth of rounds): the checks of chip_smoke.head_case."""
+    c, hd = widths
+    gen = torch.Generator(device=dev).manual_seed(6 + c + k)
+
+    def lin(i, o):
+        return {"w": (torch.randn(i, o, generator=gen, device=dev) * i ** -0.5).to(dtype),
+                "b": (torch.randn(o, generator=gen, device=dev) * 0.1).to(dtype)}
+    p = {"layers": [lin(c, hd), lin(hd, hd), lin(hd, 5000)]}
+    x = torch.randn(37, c, generator=gen, device=dev).to(dtype)
+    dk.reset_launches()
+    got = chip_smoke.head_case(p, dk.pack_head(p), x, k)
+    assert dk.LAUNCHES["mlp_head_argmax"] == 2 and dk.LAUNCHES["mlp_head_topk"] == 2
+    assert got["err"] <= got["tol"] and got["same"], got
+
+
+WIDTHS = [(64, 4, 128), (96, 3, 200), (128, 2, 256), (256, 4, 512), (512, 16, 1024)]  # (C, heads, F)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)])
+@pytest.mark.parametrize("widths", WIDTHS)
+def test_width_kernels_match_plain_versions(dev, widths, dtype, tol):
+    """csrc/width_kernels.cu, which the wrappers launch at every width but the
+    tuned one (head dims 16, 32, 64 and 32 at 16 heads; F not a multiple of
+    256): each decoder-layer wrapper against its plain version, one launch
+    counted per call, a second launch bit-equal; beam groups of 3 and 11 (past
+    the tuned kernel's 8), the ancestry crossing rows at ``step`` too."""
+    c, h, f = widths
+    d = c // h
+    gen = torch.Generator(device=dev).manual_seed(c + h + f)
+    slp = _decoder(gen, dev, dtype, 2, c, f)
+    lp = dk.layer_params(slp, 1)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    b = 33
+    x, qpos = rn(b, c), rn(c)
+    kc, vc, ck, cv = rn(2, b, h, T, d), rn(2, b, h, T, d), rn(2, b, h, S, d), rn(2, b, h, S, d)
+    pad = torch.rand(b, S, generator=gen, device=dev) < 0.3
+    pad[:, 0] = False
+    pad[0, 1:] = True
+    kb = torch.where(pad, float("-inf"), 0.0)
+    step = torch.tensor(9, dtype=torch.int32, device=dev)
+    assert not dk.decode_kernels_fit(c, h, f)
+    # (wrapper, call(module, suffix, (k cache, v cache)), the caches it updates)
+    cases = [
+        ("ff_block", lambda m, sfx, kv: getattr(m, "ff_block" + sfx)(lp["ff"], x), (kc, vc)),
+        ("cross_attn_block", lambda m, sfx, kv: getattr(m, "cross_attn_block" + sfx)(
+            lp["cross_attn"], x, qpos, ck[1], cv[1], kb, num_heads=h), (kc, vc)),
+        ("self_attn_block", lambda m, sfx, kv: getattr(m, "self_attn_block" + sfx)(
+            lp["self_attn"], x, qpos, kv[0][1], kv[1][1], step, num_heads=h)[0], (kc, vc)),
+        ("fused_stack_step", lambda m, sfx, kv: getattr(m, "fused_stack_step" + sfx)(
+            slp, x, qpos, kv[0], kv[1], ck, cv, kb, step, num_heads=h)[0], (kc, vc)),
+        ("fused_layer_step", lambda m, sfx, kv: getattr(m, "fused_layer_step" + sfx)(
+            lp, x, qpos, kv[0][1], kv[1][1], ck[1], cv[1], kb, step, num_heads=h)[0], (kc, vc)),
+    ]
+    for beams in (3, 11):
+        bk = 3 * beams
+        anc = torch.randint(0, beams, (bk, T), generator=gen, device=dev, dtype=torch.int32)
+        xb, kcb, vcb = rn(bk, c), rn(bk, h, T, d), rn(bk, h, T, d)
+        cases.append(("self_attn_block_beam", lambda m, sfx, kv, xb=xb, anc=anc, beams=beams: getattr(
+            m, "self_attn_block_beam" + sfx)(lp["self_attn"], xb, anc, qpos, kv[0], kv[1], step, num_heads=h,
+                                             num_beams=beams)[0], (kcb, vcb)))
+    for wrapper, call, caches in cases:
+        runs = [tuple(t.clone() for t in caches) for _ in range(3)]
+        dk.reset_launches()
+        got, again = call(dk, "", runs[0]), call(dk, "", runs[1])
+        with matmul_precision(torch.float32):
+            want = call(dk, "_plain", runs[2])
+        torch.cuda.synchronize()
+        assert dk.LAUNCHES[wrapper] == 2 and sum(dk.LAUNCHES.values()) == 2, (wrapper, dk.LAUNCHES)
+        _close_to_plain(got, want, tol)
+        assert torch.equal(got.view(torch.uint8), again.view(torch.uint8)), wrapper
+        for i in (0, 1):                                 # only the slot at `step` is written
+            assert torch.equal(runs[0][i].view(torch.uint8), runs[1][i].view(torch.uint8)), wrapper
+            _close_to_plain(runs[0][i][..., 9, :], runs[2][i][..., 9, :], tol)
+
+
+@pytest.mark.parametrize("decoder", ["greedy", "greedy trio", "greedy merged", "beam", "beam 11"])
 def test_decode_at_a_width_the_kernels_do_not_take_matches_cpu(dev, decoder):
-    """Hidden 64 with 4 heads (the CPU tests' width): decode_kernels_fit rules
-    the decoder-layer kernels out, so the steps run their plain versions on
-    the card (no launch counted); f32 tokens equal the CPU run's."""
+    """Hidden 64 with 4 heads (the CPU tests' width), which the tuned kernels
+    do not take: the wrappers launch csrc/width_kernels.cu (launches counted
+    under their names), with the head kernels on; f32 tokens equal the CPU
+    run's. Greedy with the stacked step, the trio and MERGED_LAYER; beam 3,
+    and beam 11 (a group the tuned beam kernel does not take)."""
     cfg = Config(**TINY)
     torch.manual_seed(0)
     state = weights.reference_module(cfg).state_dict()
@@ -472,30 +520,53 @@ def test_decode_at_a_width_the_kernels_do_not_take_matches_cpu(dev, decoder):
     img = torch.randn(3, 3, 32, 32, generator=gen)
     mask = torch.zeros(3, 32, 32, dtype=torch.bool)
     mask[1, :, 20:] = True
-    run = decode.greedy if decoder == "greedy" else decode.beam_search
-    kw = dict(max_len=16, bos_token=1, eos_token=6, **({} if decoder == "greedy" else {"beam_size": 3}))
-    cpu = run(weights.to_params(state, cfg, device="cpu"), cfg, Masked(img, mask), **kw)
-    dk.reset_launches()
-    gpu = run(weights.to_params(state, cfg, device=dev), cfg, Masked(img.to(dev), mask.to(dev)), **kw)
-    torch.cuda.synchronize()
+    greedy = decoder.startswith("greedy")
+    run = decode.greedy if greedy else decode.beam_search
+    kw = dict(max_len=16, bos_token=1, eos_token=6,
+              **({} if greedy else {"beam_size": 11 if decoder.endswith("11") else 3}))
+    flags = {"LAYER_GRID": decoder == "greedy", "MERGED_LAYER": decoder == "greedy merged",
+             "HEAD_KERNEL": True, "BEAM_TOPK_KERNEL": True}
+    old = {n: getattr(dk, n) for n in flags}
+    try:
+        for n, v in flags.items():
+            setattr(dk, n, v)
+        cpu = run(weights.to_params(state, cfg, device="cpu"), cfg, Masked(img, mask), **kw)
+        dk.reset_launches()
+        gpu = run(weights.to_params(state, cfg, device=dev), cfg, Masked(img.to(dev), mask.to(dev)), **kw)
+        torch.cuda.synchronize()
+    finally:
+        for n, v in old.items():
+            setattr(dk, n, v)
     assert not dk.decode_kernels_fit(cfg.hidden_dim, cfg.nheads, cfg.dim_feedforward)
-    assert sum(dk.LAUNCHES.values()) == 0, dk.LAUNCHES
-    if decoder == "greedy":
+    layer = {"greedy": "fused_stack_step", "greedy trio": "ff_block", "greedy merged": "fused_layer_step"}
+    launched = {n for n, v in dk.LAUNCHES.items() if v > 0}
+    if greedy:
+        assert launched == {layer[decoder], "mlp_head_argmax"} | (
+            {"self_attn_block", "cross_attn_block"} if decoder == "greedy trio" else set()), dk.LAUNCHES
         assert torch.equal(gpu.cpu(), cpu)
     else:
+        assert launched == {"self_attn_block_beam", "cross_attn_block", "ff_block", "mlp_head_topk"}, dk.LAUNCHES
         assert torch.equal(gpu[0].cpu(), cpu[0]) and float((gpu[1].cpu() - cpu[1]).abs().max()) <= 1e-4
 
 
-def test_attention_at_a_head_dim_the_kernel_does_not_take_runs_the_plain_version(dev):
-    gen = torch.Generator(device=dev).manual_seed(8)
-    q, k, v = (torch.randn(2, 3, s, 48, generator=gen, device=dev) for s in (9, 13, 13))
-    kb = torch.where(torch.rand(2, 13, generator=gen, device=dev) < 0.3, float("-inf"), 0.0)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)])
+@pytest.mark.parametrize("d,sq,sk,causal", [(48, 9, 13, False), (8, 40, 37, True), (128, 33, 200, False),
+                                            (32, 70, 4000, False), (64, 5, 30000, True)])
+def test_attention_at_a_head_dim_the_kernel_does_not_take_runs_the_plain_version(dev, d, sq, sk, causal, dtype, tol):
+    """Head dims the tiled kernel is not built for (8, 48, 128) and key counts
+    whose 32-row score block does not fit shared memory (4000, 30000: 8 and 1
+    query rows per block): the dispatch launches the any-width kernel (one
+    launch), within tolerance of the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(8 + d + sk)
+    q, k, v = (torch.randn(2, 3, s, d, generator=gen, device=dev).to(dtype) for s in (sq, sk, sk))
+    kb = torch.where(torch.rand(2, sk, generator=gen, device=dev) < 0.3, float("-inf"), 0.0)
     kb[:, 0] = 0.0
     dk.reset_launches()
-    out, _ = fa.attention(q, k, v, None, use_pallas=True, causal=False, key_bias=kb)
+    out, _ = fa.attention(q, k, v, None, use_pallas=True, causal=causal, key_bias=kb)
     torch.cuda.synchronize()
-    assert dk.LAUNCHES["fused_attention"] == 0
-    assert torch.equal(out, fa.fused_attention_plain(q, k, v, kb))
+    assert dk.LAUNCHES["fused_attention"] == 1
+    with matmul_precision(torch.float32):
+        _close_to_plain(out, fa.fused_attention_plain(q, k, v, kb, causal=causal), tol)
 
 
 @pytest.mark.parametrize("topk_kernel", [False, True])
@@ -563,11 +634,11 @@ def test_fused_attention_matches_plain_version(dev, dtype, tol, d, case):
 
 def test_fused_attention_rejects_what_the_kernel_does_not_take(dev):
     q = torch.zeros(1, 2, 8, 48, device=dev)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.fused_attention(q, q, q)
+    with pytest.raises(ValueError, match="do not match"):
+        fa.fused_attention(q, q, q[..., :32])
     q = torch.zeros(1, 2, 8, 32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
-        fa.fused_attention(q, torch.zeros(1, 2, 4000, 32, device=dev), torch.zeros(1, 2, 4000, 32, device=dev))
+        fa.fused_attention(q, torch.zeros(1, 2, 60000, 32, device=dev), torch.zeros(1, 2, 60000, 32, device=dev))
     with pytest.raises(ValueError, match="expected torch.float32"):
         fa.fused_attention(q, q, q, torch.zeros(1, 8, device=dev, dtype=torch.bfloat16))
     with pytest.raises(NotImplementedError):

@@ -171,11 +171,15 @@ def test_bf16_decode_step_logits_match_xla_path(model, layer_grid):
         np.testing.assert_allclose(got, ref[i], atol=2 ** -7, rtol=0, err_msg=f"step {i}")
 
 
+WRAPPERS = ("fused_stack_step", "fused_layer_step", "self_attn_block", "cross_attn_block", "ff_block",
+            "self_attn_block_beam", "mlp_head_argmax", "mlp_head_topk")
+
+
 def _spy_wrappers(monkeypatch):
     """Record which kernel wrappers of ops/decoder_kernels a run calls (each
     still runs: on the CPU it takes its plain version)."""
     called = set()
-    for name in vars(tk.PLAIN):
+    for name in WRAPPERS:
         fn = getattr(tk, name)
 
         def spy(*a, _name=name, _fn=fn, **kw):
@@ -186,14 +190,15 @@ def _spy_wrappers(monkeypatch):
     return called
 
 
-@pytest.mark.parametrize("width,heads,ff,layers", [(64, 4, 128, set()),
+@pytest.mark.parametrize("width,heads,ff,layers", [(64, 4, 128, {"fused_stack_step", "self_attn_block_beam",
+                                                                 "cross_attn_block", "ff_block"}),
                                                    (256, 8, 256, {"fused_stack_step", "self_attn_block_beam",
                                                                   "cross_attn_block", "ff_block"})])
 def test_decode_calls_the_kernels_only_where_the_rule_allows(monkeypatch, width, heads, ff, layers):
     """Greedy (HEAD_KERNEL on) and beam 3 (BEAM_TOPK_KERNEL on) decode: the
-    decoder-layer wrappers are called only at the width the kernels take
-    (decode_kernels_fit), elsewhere their plain versions directly; the head
-    wrappers at both (C 64 or 256, Hd 512 and vocab 96 fit head_kernels_fit)."""
+    steps call the kernel wrappers at every width, the tuned width
+    (decode_kernels_fit) and any other; the rule is the wrappers' own, which
+    choose between the tuned and the any-width CUDA kernels on the card."""
     cfg = Config(**{**TINY, "hidden_dim": width, "nheads": heads, "dim_feedforward": ff, "dec_layers": 1})
     torch.manual_seed(0)
     params = weights.to_params(weights.reference_module(cfg).state_dict(), cfg, device="cpu")

@@ -203,7 +203,7 @@ def test_ctypes_structs_mirror_the_cuda_argument_structs():
     from retr_tpu_torch.ops import cuda_build
 
     mirrors = {"Args": tk._Args, "StackArgs": tk._StackArgs, "HeadArgs": tk._HeadArgs,
-               "AttnArgs": tk._AttnArgs, "BlockArgs": tk._BlockArgs}
+               "AttnArgs": tk._AttnArgs, "BlockArgs": tk._BlockArgs, "WidthArgs": tk._WidthArgs}
     seen = set()
     for path in sorted(glob.glob(os.path.join(cuda_build.CSRC_DIR, "*.cu"))):
         source = open(path).read()
@@ -345,21 +345,21 @@ def test_topk_first_orders_ties_by_index():
     (64, 4, 128, 1, False), (256, 4, 2048, 1, False), (512, 8, 2048, 1, False),
     (256, 8, 1000, 1, False), (256, 8, 2048, 9, False), (256, 8, 2048, 0, False)])
 def test_decode_kernels_fit_rule(c, heads, f, beams, fits):
-    """The decoder-layer kernels take width 256 with 8 heads, an FF width that
-    is a multiple of 256 and beam groups of 1..8; the wrappers raise elsewhere."""
+    """The tuned decoder-layer kernels take width 256 with 8 heads, an FF width
+    that is a multiple of 256 and beam groups of 1..8; the wrappers launch the
+    any-width kernels elsewhere."""
     assert tk.decode_kernels_fit(c, heads, f, beams) == fits
 
 
 @pytest.mark.parametrize("c,hd,v,k,dtype,fits", [
     (256, 512, 30522, 1, torch.bfloat16, True), (256, 512, 30522, 8, torch.bfloat16, True),
     (64, 512, 96, 5, torch.float32, True), (256, 512, 30521, 5, torch.bfloat16, True),
-    (256, 512, 30522, 9, torch.bfloat16, False),
+    (256, 512, 30522, 256, torch.bfloat16, True), (256, 512, 30522, 257, torch.bfloat16, False),
     (256, 512, 4, 5, torch.float32, False), (256, 512, 30522, 0, torch.float32, False),
-    (48, 512, 30522, 1, torch.float32, False), (256, 500, 30522, 1, torch.float32, False),
-    (256, 512, 30522, 1, torch.float16, False)])
+    (48, 500, 30522, 1, torch.float32, True), (256, 512, 30522, 1, torch.float16, False)])
 def test_head_kernels_fit_rule(c, hd, v, k, dtype, fits):
-    """The head kernels take widths that are multiples of 32, 1 <= k <= min(V,
-    8), f32 or bf16, and any vocab (pack_head pads W3's rows for them)."""
+    """The head kernels take any widths (pack_head pads the hidden width and
+    W3's rows for them), 1 <= k <= min(V, 256), f32 or bf16."""
     p = {"layers": [{"w": torch.empty(c, hd, dtype=dtype)}, {"w": torch.empty(hd, hd, dtype=dtype)},
                     {"w": torch.empty(hd, v, dtype=dtype)}]}
     assert tk.head_kernels_fit(p, k) == fits
@@ -387,3 +387,33 @@ def test_packed_head_plain_matches_pallas(case, ties):
     if HEAD_CASES[ties]:
         assert (got_t.numpy() == [3, 2047, 2048, 4096, 4999]).all()
     assert tk.pack_head(packed) is packed            # already aligned: returned as it is
+
+
+@pytest.mark.parametrize("k", [1, 5, 40])
+def test_pack_head_pads_the_hidden_width(case, k):
+    """A head of input width 36 and hidden width 100 (neither a multiple of 32):
+    pack_head pads the hidden width to 128 with zero units (W1, b1, W2's rows
+    and columns, b2, W3's rows) and the vocab 1000 stays; both heads' plain
+    versions on the packed head give the Pallas kernels' tokens and scores on
+    the head as it is, at k up to 40."""
+    jdt, tdt = case["jdt"], case["tdt"]
+    rng = np.random.default_rng(14)
+
+    def lin(i, o):
+        return {"w": rng.standard_normal((i, o)).astype(np.float32) * (1 / np.sqrt(i)),
+                "b": 0.1 * rng.standard_normal(o).astype(np.float32)}
+    p = {"layers": [lin(36, 100), lin(100, 100), lin(100, 1000)]}
+    x = rng.standard_normal((12, 36)).astype(np.float32)
+    packed = tk.pack_head(_torch_tree(p, tdt))
+    l1, l2, l3 = packed["layers"]
+    assert l1["w"].shape == (36, 128) and l2["w"].shape == (128, 128) and l3["w"].shape == (128, 1000)
+    assert not l1["w"][:, 100:].any() and not l1["b"][100:].any() and not l2["w"][100:].any()
+    assert not l2["w"][:, 100:].any() and not l2["b"][100:].any() and not l3["w"][100:].any()
+    jp, jx = jax.tree.map(lambda a: jnp.asarray(a, jdt), p), jnp.asarray(x, jdt)
+    tx = torch.from_numpy(x).to(tdt)
+    np.testing.assert_array_equal(tk.mlp_head_argmax(packed, tx).numpy(),
+                                  np.asarray(dk.mlp_head_argmax(jp, jx, interpret=True)))
+    ref_s, ref_t = dk.mlp_head_topk(jp, jx, k, interpret=True)
+    got_s, got_t = tk.mlp_head_topk(packed, tx, k)
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(ref_t))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), atol=1e-5, rtol=0)
