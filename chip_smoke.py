@@ -30,7 +30,17 @@ Phases (any failure raises, exits non-zero and prints no result line):
      launch bit-equal), fused_attention at batch 32 for the
      encoder (196x196, key padding), the causal decoder (128x128, ~15 real
      tokens), the cross attention (128x196) and the (T,T) encoder (397x397),
-     its yardstick scaled_dot_product_attention with the same additive mask;
+     with its plan and device time, its yardstick scaled_dot_product_attention
+     with the same additive mask (CUDA events and device time);
+     attention_edges: fused_attention unclocked at head dims 16, 32 and 64,
+     f32 and bf16, one query, 1, 15, 17, 397 and 1718 keys (the last past the
+     tensor-core kernel: the untiled one), causal tiles the diagonal crosses,
+     padding from a tile boundary, all-masked rows (a second launch
+     bit-equal); beam_edges: self_attn_block_beam unclocked at beams 1, 2,
+     3, 5 and 8, 1 and 33 groups, step 0, 63 and 127, ancestry on one row, a
+     permutation, crossing at step (a second launch bit-equal, only the slot
+     at step written); the beam block's records carry its cluster plan and
+     device time;
   4. serve requests through Predictor at the served width (ResNet-50 dilated,
      6+6 layers, d=256, vocab 30522, bf16, random weights from a seed): greedy
      with the one-launch stacked kernel, with the per-layer trio, with
@@ -68,7 +78,9 @@ the repository beside it and a CUDA device.
     python3 chip_smoke.py --compare PARENT_TREE CHANGE_TREE
 
 compares two checkouts on one card: in turns (parent, change, change, parent,
-parent, change), a process per turn times the decode loops of the
+parent, change), a process per turn profiles fused_attention and
+self_attn_block_beam (`--kernel-times TREE`: device time per launch,
+fused_attention beside SDPA's) and another times the decode loops of the
 retr_tpu_torch package under that tree (`--loop-times TREE`: greedy stacked
 and trio at batch 32 and 512, beam 5 at batch 32 and 512 (top-k head kernel
 off and on) where the tree has it, 127 steps, EOS out of range, encode outside the
@@ -107,7 +119,7 @@ KERNELS = {  # wrapper -> (the Pallas kernel it replaces, CUDA source, the main 
     # the default beam path's shape: batch 32 x beam 5
     "cross_attn_block": ("retr_tpu/ops/decoder_kernels.py:450", BLOCK_SRC, ("bfloat16", 32 * BEAM)),
     "ff_block": ("retr_tpu/ops/decoder_kernels.py:96", BLOCK_SRC, ("bfloat16", 32 * BEAM)),
-    "self_attn_block_beam": ("retr_tpu/ops/decoder_kernels.py:380", DEC_SRC, ("bfloat16", 32 * BEAM)),
+    "self_attn_block_beam": ("retr_tpu/ops/decoder_kernels.py:380", BLOCK_SRC, ("bfloat16", 32 * BEAM)),
     "mlp_head_argmax": ("retr_tpu/ops/decoder_kernels.py:525", HEAD_SRC, ("bfloat16", 32)),
     "mlp_head_topk": ("retr_tpu/ops/decoder_kernels.py:615", HEAD_SRC, ("bfloat16", 32 * BEAM)),
     "fused_layer_step": ("retr_tpu/ops/decoder_kernels.py:774", STACK_SRC, ("bfloat16", 32)),
@@ -694,13 +706,15 @@ def check_beam_and_heads(dev):
             # (the gather done once, outside the timing)
             kg = kc.transpose(2, 3)[:, src, pos].transpose(2, 3).contiguous()   # [L, rows, H, step+1, D]
             vg = vc.transpose(2, 3)[:, src, pos].transpose(2, 3).contiguous()
+            beam_kern = lambda li: dk.self_attn_block_beam(  # noqa: E731
+                layers_[li]["self_attn"], x, anc, qpos, kc_k[li], vc_k[li], step, num_heads=H, num_beams=BEAM)
+            extra = {"plan": dk.block_plan("self_attn_block_beam", dtype, bk, t=T, num_beams=BEAM),
+                     "device_ms": device_ms(lambda: [beam_kern(li) for li in range(L)], "self_beam_kernel")}
             out[("self_attn_block_beam", dname, bk)] = measure(
-                "self_attn_block_beam", dname, bk,
-                lambda li: dk.self_attn_block_beam(layers_[li]["self_attn"], x, anc, qpos, kc_k[li], vc_k[li], step,
-                                                   num_heads=H, num_beams=BEAM),
+                "self_attn_block_beam", dname, bk, beam_kern,
                 lambda li: dk.self_attn_block_beam_plain(layers_[li]["self_attn"], x, anc, qpos, kc_p[li], vc_p[li],
                                                          step, num_heads=H, num_beams=BEAM),
-                lambda li: Fn.scaled_dot_product_attention(x.view(bk, H, 1, D), kg[li], vg[li]), L)
+                lambda li: Fn.scaled_dot_product_attention(x.view(bk, H, 1, D), kg[li], vg[li]), L, extra=extra)
             del kg, vg, kc, vc, kc_k, vc_k, kc_p, vc_p
 
             xk = rn(bk, C)
@@ -721,6 +735,85 @@ def check_beam_and_heads(dev):
                 head_device_times(argmax_call, argmax_lib, "mlp_head_argmax"))
             torch.cuda.empty_cache()
     return out
+
+
+BEAM_EDGE_ANCESTRY = ("one row", "permutation", "crossing at step")
+
+
+def beam_case(dev, gen, lp, beams, groups, step, ancestry, rows=0):
+    """self_attn_block_beam twice (``rows``: dk._beam_rows for the launch) and
+    self_attn_block_beam_plain on seeded inputs, caches of T positions:
+    ``err`` and ``tol`` over the output and the written slot, ``same`` (the
+    two launches bit-equal, output and caches), ``untouched`` (no other cache
+    slot changed). Ancestry: every row of a group reads one random row
+    ("one row"), each position a random permutation of the group
+    ("permutation"), or rows read another row, at ``step`` too ("crossing at
+    step"). Launches the kernel twice."""
+    import torch
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+    from retr_tpu_torch.precision import matmul_precision
+
+    dtype = lp["mha"]["q"]["w"].dtype
+    bk = beams * groups
+    x = torch.randn(bk, C, generator=gen, device=dev).to(dtype)
+    qpos = (torch.randn(C, generator=gen, device=dev) * 0.5).to(dtype)
+    kc, vc = (torch.randn(bk, H, T, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+    if ancestry == "one row":
+        anc = torch.randint(0, beams, (groups, 1, 1), generator=gen, device=dev).expand(groups, beams, T)
+    elif ancestry == "permutation":
+        anc = torch.rand(groups, T, beams, generator=gen, device=dev).argsort(dim=2).transpose(1, 2)
+    else:
+        anc = (torch.arange(beams, device=dev)[None, :, None] + 1 +
+               torch.randint(0, max(beams - 1, 1), (groups, beams, T), generator=gen, device=dev)) % beams
+    anc = anc.reshape(bk, T).to(torch.int32).contiguous()
+    stept = torch.tensor(step, dtype=torch.int32, device=dev)
+    runs = [(kc.clone(), vc.clone()) for _ in range(3)]
+    old = dk._beam_rows
+    dk._beam_rows = rows
+    try:
+        got, again = (dk.self_attn_block_beam(lp, x, anc, qpos, *runs[i], stept, num_heads=H, num_beams=beams)[0]
+                      for i in (0, 1))
+    finally:
+        dk._beam_rows = old
+    with matmul_precision(torch.float32):
+        want = dk.self_attn_block_beam_plain(lp, x, anc, qpos, *runs[2], stept, num_heads=H, num_beams=beams)[0]
+    torch.cuda.synchronize()
+    err, tol = _tensor_err((got, runs[0][0][:, :, step], runs[0][1][:, :, step]),
+                           (want, runs[2][0][:, :, step], runs[2][1][:, :, step]), str(dtype)[6:])
+    keep = torch.arange(T, device=dev) != step
+    same = torch.equal(_bits(got), _bits(again)) and all(torch.equal(_bits(runs[0][i]), _bits(runs[1][i]))
+                                                         for i in (0, 1))
+    untouched = all(torch.equal(_bits(runs[0][i][:, :, keep]), _bits(orig[:, :, keep]))
+                    for i, orig in enumerate((kc, vc)))
+    return {"err": err, "tol": tol, "same": same, "untouched": untouched, "out": got}
+
+
+def check_beam_edges(dev):
+    """self_attn_block_beam, untimed, against its plain version (beam_case) at
+    beams 1, 2, 3, 5 and 8, 1 and 33 groups, step 0, 63 and T-1, the three
+    ancestries, f32 and bf16. Prints one line; raises on a miss."""
+    import torch
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    worst, cases, tiles = {}, 0, set()
+    for dtype in (torch.float32, torch.bfloat16):
+        lp = dk.layer_params(random_decoder(gen, dev, dtype), 0)["self_attn"]
+        for beams in (1, 2, 3, 5, 8):
+            for groups in (1, 33):
+                tiles.add(dk.block_plan("self_attn_block_beam", dtype, beams * groups, t=T, num_beams=beams)["rows"])
+                for step in (0, CHECK_STEP, T - 1):
+                    for ancestry in BEAM_EDGE_ANCESTRY:
+                        got = beam_case(dev, gen, lp, beams, groups, step, ancestry)
+                        key = f"{str(dtype)[6:]} beam {beams}"
+                        worst[key] = max(worst.get(key, 0.0), got["err"] / got["tol"])
+                        cases += 1
+                        if not (got["err"] <= got["tol"] and got["same"] and got["untouched"]):
+                            raise AssertionError(f"self_attn_block_beam {key} groups {groups} step {step} "
+                                                 f"{ancestry}: {({k: v for k, v in got.items() if k != 'out'})}")
+    log("beam_edges", json.dumps({"cases": cases, "row_tiles": sorted(tiles), "worst_err_over_tol": worst}))
 
 
 def check_head_edges(dev):
@@ -759,6 +852,76 @@ def check_head_edges(dev):
     log("head_edges", json.dumps({"cases": cases, "worst_err_over_tol": worst}))
 
 
+ATTN_KERNEL_NAMES = ("mma_kernel", "any_kernel")   # csrc/attention_kernels.cu's CUDA functions
+# attention_edges cases: label -> (batch, heads, Sq, Sk, causal, key masking)
+ATTN_EDGES = {
+    "one query": (2, 3, 1, 53, False, "random"),
+    "one key": (2, 3, 20, 1, False, "none"),
+    "15 keys (below one 16-key mma step)": (2, 3, 33, 15, False, "random"),
+    "17 keys, causal": (2, 3, 33, 17, True, "random"),
+    "129 x 129 causal (the diagonal crosses 32- and 64-row tiles)": (2, 3, 129, 129, True, "random"),
+    "causal 100 x 130": (2, 2, 100, 130, True, "random"),
+    "397 keys": (2, 3, 70, 397, False, "random"),
+    "1718 keys (the untiled kernel)": (1, 2, 40, 1718, False, "random"),
+    "padding from key 128 (a tile boundary)": (2, 3, 65, 192, False, "from 128"),
+    "an all-masked row (mean of V)": (3, 2, 70, 100, False, "row 1 masked"),
+    "an all-masked row, causal (every key tile)": (3, 2, 100, 100, True, "row 1 masked"),
+    "causal, the first 10 keys masked (rows 0-9 see none)": (2, 2, 100, 100, True, "first 10"),
+}
+
+
+def attention_case(dev, gen, dtype, d, b, h, sq, sk, causal, masking):
+    """fused_attention twice and fused_attention_plain on seeded inputs:
+    ``err`` and its ``tol`` (TOL of max(1, max|plain|)), ``same`` (the two
+    launches bit-equal), ``plan``; launches the kernel twice."""
+    import torch
+
+    from retr_tpu_torch.ops import attention as fa
+    from retr_tpu_torch.precision import matmul_precision
+
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype) for s in (sq, sk, sk))
+    if masking == "none":
+        kb = None
+    else:
+        pad = torch.rand(b, sk, generator=gen, device=dev) < 0.3
+        pad[:, 0] = False
+        if masking == "from 128":
+            pad[:, 128:] = True
+        elif masking == "row 1 masked":
+            pad[1] = True
+        elif masking == "first 10":
+            pad[:, :10] = True
+        kb = torch.where(pad, float("-inf"), 0.0)
+    got, again = (fa.fused_attention(q, k, v, kb, causal=causal) for _ in range(2))
+    with matmul_precision(torch.float32):
+        want = fa.fused_attention_plain(q, k, v, kb, causal=causal)
+    torch.cuda.synchronize()
+    err, tol = _tensor_err(got, want, str(dtype)[6:])
+    return {"err": err, "tol": tol, "same": torch.equal(_bits(got), _bits(again)),
+            "plan": fa.attention_plan(dtype, d, sq, sk)}
+
+
+def check_attention_edges(dev):
+    """fused_attention, untimed, against its plain version at ATTN_EDGES, head
+    dims 16, 32 and 64, f32 and bf16 (attention_case). Prints one line;
+    raises on a miss."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst, cases, paths = {}, 0, set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (16, 32, 64):
+            for label, shape in ATTN_EDGES.items():
+                got = attention_case(dev, gen, dtype, d, *shape)
+                key = f"{str(dtype)[6:]} D={d}"
+                worst[key] = max(worst.get(key, 0.0), got["err"] / got["tol"])
+                paths.add(f"{got['plan']['path']} {got['plan']['rows']}")
+                cases += 1
+                if not (got["err"] <= got["tol"] and got["same"]):
+                    raise AssertionError(f"fused_attention {key} {label}: {got}")
+    log("attention_edges", json.dumps({"cases": cases, "paths": sorted(paths), "worst_err_over_tol": worst}))
+
+
 def attention_work(b, sq, sk, causal, esize):
     """(bytes, operations) of fused_attention: q, k, v read and the output
     written once, the [B, Sk] f32 bias read once; QK and PV products, the
@@ -768,8 +931,10 @@ def attention_work(b, sq, sk, causal, esize):
 
 
 def check_attention(dev):
-    """fused_attention at batch 32 in f32 and bf16 for ATTN_SHAPES. Returns
-    {(name, dtype, label): record}."""
+    """fused_attention at batch 32 in f32 and bf16 for ATTN_SHAPES, with its
+    plan (attention_plan) and the device time per call by torch.profiler of
+    the kernel (``device_ms``) and of SDPA (``library_device_ms``) beside the
+    CUDA events' times. Returns {(name, dtype, label): record}."""
     import torch
     import torch.nn.functional as Fn
 
@@ -801,15 +966,21 @@ def check_attention(dev):
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
                 err, tol = _tensor_err(got, want, dname)
+                lib = lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa: E731
                 ms = time_ms(kern)
                 plain_ms = time_ms(plain, reps=5, rounds=3)
-                lib_ms = time_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+                lib_ms = time_ms(lib)
+                dev_ms = device_ms(kern, ATTN_KERNEL_NAMES, per_call=True)
+                lib_dev_ms = device_ms(lib, "", per_call=True)
             nbytes, ops = attention_work(b, sq, sk, causal, 4 if dname == "float32" else 2)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
             rec = dict(name="fused_attention", dtype=dname, batch=b,
                        shape=f"{dname}, batch {b}, {label} {sq}x{sk}" + (", causal" if causal else ""),
-                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+                       max_abs_err=err, tol=tol, ms=dev_ms if isinstance(dev_ms, float) else ms, device_ms=dev_ms,
+                       ms_events=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       library_device_ms=lib_dev_ms, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       plan=fa.attention_plan(dtype, D, sq, sk))
             log("kernel", json.dumps(rec))
             if not err <= tol:
                 raise AssertionError(f"fused_attention {dname} {label}: max_abs_err {err} > {tol}")
@@ -1392,11 +1563,66 @@ def stack_digest(dev) -> dict:
     return out
 
 
+def kernel_times(tree) -> int:
+    """Device time per launch (torch.profiler) and CUDA-event time per call of
+    fused_attention at batch 32 (ATTN_SHAPES, f32 and bf16, beside SDPA's)
+    and of self_attn_block_beam at 160 and 2560 rows (step 63, the six
+    layers' weights and caches cycled) in the retr_tpu_torch package under
+    ``tree``: the same seeded inputs for every tree."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    import torch.nn.functional as Fn
+
+    from retr_tpu_torch.ops import attention as fa
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    card, dev = gpu_line(), torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        gen = torch.Generator(device=dev).manual_seed(7)
+        for label, (sq, sk, causal, _) in ATTN_SHAPES.items():
+            q, k, v = (torch.randn(TRAIN_BATCH, H, s_, D, generator=gen, device=dev).to(dtype) for s_ in (sq, sk, sk))
+            pad = torch.rand(TRAIN_BATCH, sk, generator=gen, device=dev) < 0.3
+            pad[:, 0] = False
+            kb = torch.where(pad, float("-inf"), 0.0)
+            mask = kb.clamp_min(-1e30)[:, None, None, :]
+            if causal:
+                mask = mask + torch.full((sq, sk), -1e30, device=dev).triu(1)
+            mask = mask.to(dtype)
+            kern = lambda: fa.fused_attention(q, k, v, kb, causal=causal)  # noqa: E731
+            lib = lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa: E731
+            rec = {"tree": tree, "kernel": "fused_attention", "dtype": dname, "shape": f"{label} {sq}x{sk}",
+                   "device_ms": device_ms(kern, "", per_call=True), "ms_events": time_ms(kern),
+                   "library_device_ms": device_ms(lib, "", per_call=True), "library_ms_events": time_ms(lib),
+                   "card": card}
+            if hasattr(fa, "attention_plan"):
+                rec["plan"] = fa.attention_plan(dtype, D, sq, sk)
+            log("kernel_times", json.dumps(rec))
+        gen = torch.Generator(device=dev).manual_seed(5)
+        layers_ = [dk.layer_params(random_decoder(gen, dev, dtype), li)["self_attn"] for li in range(L)]
+        for bk in (32 * BEAM, 512 * BEAM):
+            x, qpos = torch.randn(bk, C, generator=gen, device=dev).to(dtype), torch.zeros(C, device=dev).to(dtype)
+            kc, vc = (torch.randn(L, bk, H, T, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+            anc = torch.randint(0, BEAM, (bk, T), generator=gen, device=dev, dtype=torch.int32)
+            step = torch.tensor(CHECK_STEP, dtype=torch.int32, device=dev)
+            call = lambda: [dk.self_attn_block_beam(layers_[li], x, anc, qpos, kc[li], vc[li], step,  # noqa: E731
+                                                    num_heads=H, num_beams=BEAM) for li in range(L)]
+            rec = {"tree": tree, "kernel": "self_attn_block_beam", "dtype": dname, "rows": bk,
+                   "device_ms": device_ms(call, ""), "ms_events": time_ms(call) / L, "card": card}
+            if "self_attn_block_beam" in getattr(dk, "_PLAN_KIND", {}):
+                rec["plan"] = dk.block_plan("self_attn_block_beam", dtype, bk, t=T, num_beams=BEAM)
+            log("kernel_times", json.dumps(rec))
+            del kc, vc
+            torch.cuda.empty_cache()
+    return 0
+
+
 def compare(parent, change) -> int:
     for tree in (parent, change, change, parent, parent, change):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--loop-times", tree])
-        if proc.returncode != 0:
-            return proc.returncode
+        for mode in ("--kernel-times", "--loop-times"):
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), mode, tree])
+            if proc.returncode != 0:
+                return proc.returncode
     return 0
 
 
@@ -1430,6 +1656,8 @@ def main(mode=None) -> int:
     check_stack_edges(dev)
     check_block_edges(dev)
     check_head_edges(dev)
+    check_attention_edges(dev)
+    check_beam_edges(dev)
     torch.cuda.empty_cache()
 
     state = random_state(served_config("bfloat16"))                        # phase 4
@@ -1459,10 +1687,10 @@ def main(mode=None) -> int:
             "library_ms": main_rec["library_ms"],
             "shape": main_rec.get("shape", f"bf16, {case[1]} rows, step {CHECK_STEP}"),
             "cases": [{k: r[k] for k in ("dtype", "batch", "shape", "max_abs_err", "ms", "ms_events", "plain_ms",
-                                          "bound_ms", "library_ms") if k in r}
+                                          "bound_ms", "library_ms", "library_device_ms", "plan") if k in r}
                       for (n, _, _), r in checks.items() if n == name],
         }
-        for key in ("grid", "plan", "device_ms", "ms_events", "phase_us"):   # the kernel's own lines
+        for key in ("grid", "plan", "device_ms", "ms_events", "library_device_ms", "phase_us"):   # the kernel's own lines
             if key in main_rec:
                 entry[key] = main_rec[key]
         if len(by_run.get(name, {})) > 1:
@@ -1480,6 +1708,8 @@ def main(mode=None) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--loop-times"]:
         sys.exit(loop_times(sys.argv[2]))
+    if sys.argv[1:2] == ["--kernel-times"]:
+        sys.exit(kernel_times(sys.argv[2]))
     if sys.argv[1:2] == ["--compare"]:
         sys.exit(compare(sys.argv[2], sys.argv[3]))
     sys.exit(main(*sys.argv[1:2]))

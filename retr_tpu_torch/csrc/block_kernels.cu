@@ -1,13 +1,18 @@
-// The cross-attention and FF residual blocks of one decode position for Hopper
-// (sm_90a), each one launch of thread-block clusters.
+// The cross-attention, FF and beam self-attention residual blocks of one
+// decode position for Hopper (sm_90a), each one launch of thread-block clusters.
 //
 //   rt_ff_block         <- retr_tpu/ops/decoder_kernels.py ff_block (_ff_kernel)
 //   rt_cross_attn_block <- retr_tpu/ops/decoder_kernels.py cross_attn_block (_cross_kernel)
+//   rt_self_attn_block_beam <- retr_tpu/ops/decoder_kernels.py self_attn_block_beam
+//                          (_make_self_beam_kernel)
 //
 // Bound. ff_block: bytes below ~300 rows (the two [256, F] weights, 2.1 MB in
 // bf16 at F = 2048, against 4*B*C*F operations), operations above (0.0054 ms
 // at 2560 rows in bf16). cross_attn_block: bytes, the memory K/V (2*B*H*S*D
 // elements: 32.7 MB at 160 rows and S = 196 in bf16, 0.0098 ms at 3.35 TB/s).
+// self_attn_block_beam: bytes, the four [256, 256] weights below ~100 rows,
+// the ancestry-gathered cache rows above (2*B*H*step*D elements: 168 MB at
+// 2560 rows, step 63, bf16; 0.050 ms).
 //
 // Design. The TPU kernels hold the whole FF width in VMEM (ff_block) or walk
 // the heads as a sequential grid axis, accumulating the out-projection into
@@ -35,6 +40,22 @@
 //     start. Rank r then finishes columns [32r, 32r+32):
 //     rnd(rnd(x + bo) + part_0), then rnd(acc + rnd(part_h)) for h = 1..7,
 //     the TPU split kernels' rounding in head order.
+//   self_beam_kernel: one cluster of 8 blocks, one per head, per tile of R
+//     rows, R a whole number of beam groups (up to 32 rows). Block h:
+//     LayerNorm + qpos (rounded) into q_h (times 32**-0.5) and k_h, LayerNorm
+//     alone into v_h, from the 32-column slices of Wq, Wk, Wv, in f32 (bf16:
+//     the three slices in flight at once, then one pass on tensor cores with
+//     no partials across warps; f32: product_unit); slot `step` of head h of
+//     the rows' caches written (rounded); then a warp per row attends over
+//     positions 0..step, reading position t from row anc[i, t] of the row's
+//     group (kept in shared memory as local rows; the ancestry gather: one
+//     64-byte cache row per position and head in bf16, 8 positions per warp
+//     step and 8 steps' 16-byte loads in flight per lane), position `step`
+//     from the group's fresh f32 k/v in shared memory (the TPU kernel updated
+//     the whole group's cache before reading it), exact softmax in f32;
+//     part_h (Wo's rows loaded during the attention) and the reduction as
+//     cross_kernel. The row tile is up to 32 rows: the products' and the
+//     reduction's fixed costs are the block's, the attention the rows'.
 // Products: bf16 on tensor cores (mma.sync.m16n8k16, ldmatrix / ldmatrix.trans
 // from shared memory), f32 on CUDA cores (TF32 would break the f32 parity).
 // Every warp of a row product owns 32 output columns over the whole K, so no
@@ -43,10 +64,10 @@
 // barrier, no float atomics, no device scratch: every sum runs in an order
 // fixed by F and S, so repeated launches give the same bits, and so does any
 // row tile R. A second cluster.sync() keeps each block's partial alive until
-// its peers have read it.
+// its peers have read it. Only slot `step` of each self cache is written.
 //
-// Fixed widths: C = 256, 8 heads of 32; F a multiple of 256. The wrappers in
-// ops/decoder_kernels.py check every shape.
+// Fixed widths: C = 256, 8 heads of 32; F a multiple of 256; beam groups of
+// 1..8 rows. The wrappers in ops/decoder_kernels.py check every shape.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -59,6 +80,7 @@ namespace cg = cooperative_groups;
 struct BlockArgs {
   int B, S, F;
   int rows;              // 0, or the row tile R to use instead of launch's choice
+  int T, K;              // self beam: cache length, rows of a beam group
   const void* x;
   void* y;
   const void* qpos;                                                 // cross
@@ -67,6 +89,10 @@ struct BlockArgs {
   const void* w1; const void* b1; const void* w2; const void* b2;   // ff
   const void* ck; const void* cv;                                   // cross: memory K/V [B, H, S, D]
   const float* key_bias;                                            // cross: [B, S]
+  const void* wk; const void* bk; const void* wv; const void* bv;   // self beam (and lns, lnb, qpos, wq, bq, wo, bo)
+  void* kc; void* vc;                                               // self beam: caches [B, H, T, D]
+  const int* step;                                                  // self beam: the position written
+  const int* anc;                                                   // self beam: [B, T] row within the group
 };
 
 namespace {
@@ -396,6 +422,312 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1) cross_kernel(const
   cluster.sync();                                 // the peers have read this block's partial
 }
 
+
+// ---------------------------------------------------------------------------------
+// self_attn_block_beam
+// ---------------------------------------------------------------------------------
+
+constexpr int BR = 32;   // the most rows of a beam tile
+
+// bf16's fused q/k/v product: the activation tile [BR][C + 8] and the three
+// 32-column weight slices [3][C][HD + 8].
+constexpr int kQkvLda = C + 8, kQkvLdw = HD + 8;
+constexpr size_t kQkvBytes = (size_t)BR * kQkvLda * 2 + (size_t)3 * C * kQkvLdw * 2;
+
+// Shared memory, byte offsets: q, the new k and v and the attention output
+// [BR][HD] in f32 at 0, the out-projection operand [BR][HD + PAD], the rows'
+// local source rows [BR][T] (bytes), then one region used in turn by the
+// products (bf16: qkv's tiles; f32: product_unit's activation tile, ring and
+// warp partials), by the warps' scores [NW][T] beside the head's Wo rows
+// [HD][C + PAD] (loaded after the products), and by the f32 partial [BR][C]
+// that the peers read.
+template <typename T> struct BeamLayout {
+  size_t kn, vn, att, at, src, u, ring, scores, wo, total;
+  __host__ __device__ explicit BeamLayout(int tmax) {
+    using Tl = Tile<T>;
+    kn = (size_t)BR * HD * sizeof(float);
+    vn = 2 * kn;
+    att = 3 * kn;
+    at = 4 * kn;
+    src = at + align16((size_t)BR * (HD + Tl::PAD) * sizeof(T));
+    u = src + align16((size_t)BR * tmax);
+    ring = (size_t)(C / Tl::KC < NS ? C / Tl::KC : NS) * Tl::KC * Tl::WLD * sizeof(T);
+    scores = align16((size_t)tmax * sizeof(float));
+    wo = NW * scores;
+    size_t r = sizeof(T) == 2 ? kQkvBytes : align16((size_t)MT * (C + Tl::PAD) * sizeof(T)) + ring + kRedBytes;
+    const size_t w = wo + (size_t)HD * Wide<T>::WLD * sizeof(T);
+    if (w > r) r = w;
+    if ((size_t)BR * C * sizeof(float) > r) r = (size_t)BR * C * sizeof(float);
+    total = u + r;
+  }
+};
+
+// The bf16 q/k/v product in two calls. qkv_issue: the three 32-column slices
+// of Wq, Wk and Wv of head h into shared memory (one cp.async group).
+__device__ void qkv_issue(char* u, const __nv_bfloat16* wq, const __nv_bfloat16* wk, const __nv_bfloat16* wv, int h) {
+  using T = __nv_bfloat16;
+  constexpr int SEG = HD / 8;
+  T* W = reinterpret_cast<T*>(u) + BR * kQkvLda;
+  for (int i = threadIdx.x; i < 3 * C * SEG; i += NT) {
+    const int p = i / (C * SEG), r = i / SEG % C, sg = i % SEG;
+    cp_async16(W + (p * C + r) * kQkvLdw + sg * 8, (p == 0 ? wq : p == 1 ? wk : wv) + (size_t)r * C + h * HD + sg * 8);
+  }
+  cp_async_commit();
+}
+
+// qkv_compute: fill(A, lda, with_qpos) writes the LayerNorm tile (+ qpos for
+// q and k); each warp takes one 16-row half and 16 of one product's 32
+// columns over the whole K (mma.sync), so no partials cross warps: q and k
+// with the + qpos tile (8 warps), then v with the tile refilled without it
+// (4 warps). epi(p, r, c, sum): product p (0 q, 1 k, 2 v), row r, column c.
+template <typename Fill, typename Epi>
+__device__ void qkv_compute(char* u, Fill fill, Epi epi) {
+  using T = __nv_bfloat16;
+  T* A = reinterpret_cast<T*>(u);
+  const T* W = A + BR * kQkvLda;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  auto product = [&](int p, int mt, int n0) {
+    float acc[2][4] = {};
+#pragma unroll 4
+    for (int ks = 0; ks < C / 16; ++ks) {
+      uint32_t af[4], bf[4];
+      ldsm_x4(af, A + (mt * 16 + (lane & 15)) * kQkvLda + ks * 16 + (lane >> 4) * 8);
+      ldsm_x4_trans(bf, W + (p * C + ks * 16 + (lane & 15)) * kQkvLdw + n0 + (lane >> 4) * 8);
+      mma_bf16(acc[0], af, bf[0], bf[1]);
+      mma_bf16(acc[1], af, bf[2], bf[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) epi(p, mt * 16 + g + (e >= 2 ? 8 : 0), n0 + j * 8 + 2 * t + (e & 1), acc[j][e]);
+  };
+  fill(A, kQkvLda, true);
+  cp_async_wait<0>();
+  __syncthreads();                                // the weights and the tile are in
+  product(warp >> 2, (warp >> 1) & 1, (warp & 1) * 16);
+  __syncthreads();
+  fill(A, kQkvLda, false);
+  __syncthreads();
+  if (warp < 4) product(2, warp >> 1, (warp & 1) * 16);
+  __syncthreads();                                // the outputs are in; the region is free
+}
+
+// One beam row's attention for head h over positions 0..step: position t from
+// the cache row row0 + src[t] (src: the tile's local source rows, clamped into
+// the row's group), position `step` from the f32 kn / vn rows [src[step]] of
+// the block's shared memory. Lane = (8-dim group g, position class ts), eight
+// positions per warp step, VU steps' loads issued before their sums (as
+// attend): 128 bytes a lane in flight in either type.
+template <typename T>
+__device__ void beam_attend(float* sc, const float* q, int step, const T* kc, const T* vc, int tmax, int h,
+                            const int8_t* src, int row0, const float* kn, const float* vn, float* out) {
+  constexpr int VU = sizeof(T) == 2 ? 8 : 4;
+  const int lane = threadIdx.x & 31, g = lane & 3, ts = lane >> 2, n = step + 1;
+  auto at_pos = [&](int t) { return (((size_t)(row0 + src[t]) * NH + h) * tmax + t) * HD + g * 8; };
+  float qv[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) qv[j] = q[g * 8 + j];
+  float m = -INFINITY;
+  for (int t0 = 0; t0 < n; t0 += 8 * VU) {        // the same trip count on every lane
+    Raw8<T> kr[VU];
+#pragma unroll
+    for (int u = 0; u < VU; ++u) {
+      const int t = t0 + 8 * u + ts;
+      if (t < n && t != step) kr[u].load(kc + at_pos(t));
+    }
+#pragma unroll
+    for (int u = 0; u < VU; ++u) {
+      const int t = t0 + 8 * u + ts;
+      float k8[8];
+      if (t < n && t != step) {
+        kr[u].get(k8);
+      } else {                                    // the fresh slot (past n: unused)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) k8[j] = kn[src[step] * HD + g * 8 + j];
+      }
+      float d = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) d = fmaf(qv[j], k8[j], d);
+      d = d + __shfl_xor_sync(0xffffffffu, d, 1);
+      d = d + __shfl_xor_sync(0xffffffffu, d, 2);   // the same sum on the four lanes
+      if (t < n) {
+        if (g == 0) sc[t] = d;
+        m = fmaxf(m, d);
+      }
+    }
+  }
+  m = warp_max(m);
+  __syncwarp();
+  float sum = 0.f;
+  for (int t = lane; t < n; t += 32) {
+    const float e = expf(sc[t] - m);
+    sc[t] = e;
+    sum += e;
+  }
+  sum = warp_sum(sum);
+  for (int t = lane; t < n; t += 32) sc[t] = sc[t] / sum;
+  __syncwarp();
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  for (int t0 = 0; t0 < n; t0 += 8 * VU) {
+    Raw8<T> vr[VU];
+#pragma unroll
+    for (int u = 0; u < VU; ++u) {
+      const int t = t0 + 8 * u + ts;
+      if (t < n && t != step) vr[u].load(vc + at_pos(t));
+    }
+#pragma unroll
+    for (int u = 0; u < VU; ++u) {
+      const int t = t0 + 8 * u + ts;
+      if (t < n) {
+        float v8[8];
+        if (t != step) {
+          vr[u].get(v8);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v8[j] = vn[src[step] * HD + g * 8 + j];
+        }
+        const float p = sc[t];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] = fmaf(p, v8[j], acc[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
+  if (ts == 0)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[g * 8 + j] = acc[j];
+  __syncwarp();                                   // the scores are reused by the warp's next row
+}
+
+// a.rows: the rows of a tile (whole beam groups, at most BR); two blocks an SM.
+template <typename T>
+__global__ void __launch_bounds__(NT, 2) self_beam_kernel(const BlockArgs a) {
+  using Wd = Wide<T>;
+  using Tl = Tile<T>;
+  extern __shared__ float4 smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int h = (int)cluster.block_rank(), R = a.rows, row0 = (int)(blockIdx.x / NH) * R;
+  const int nrows = min(R, a.B - row0), step = *a.step;
+  const BeamLayout<T> lay(a.T);
+  char* base = reinterpret_cast<char*>(smem_raw);
+  float* qs = reinterpret_cast<float*>(base);
+  float* kn = reinterpret_cast<float*>(base + lay.kn);
+  float* vn = reinterpret_cast<float*>(base + lay.vn);
+  float* att = reinterpret_cast<float*>(base + lay.att);
+  T* at = reinterpret_cast<T*>(base + lay.at);
+  int8_t* src = reinterpret_cast<int8_t*>(base + lay.src);
+  char* u = base + lay.u;
+  T* wo = reinterpret_cast<T*>(u + lay.wo);
+  float* part = reinterpret_cast<float*>(u);
+  const T* x = static_cast<const T*>(a.x);
+  T* kc = static_cast<T*>(a.kc);
+  T* vc = static_cast<T*>(a.vc);
+  const T* wq = static_cast<const T*>(a.wq);
+  const T* wk = static_cast<const T*>(a.wk);
+  const T* wv = static_cast<const T*>(a.wv);
+  if constexpr (sizeof(T) == 2) qkv_issue(u, wq, wk, wv, h);   // in flight while the ancestry is read
+
+  // the local source row of each (row, position <= step): the row's group base
+  // + its ancestor, clamped into the group so no value of anc reaches outside it
+  const int n = step + 1;
+  for (int i = threadIdx.x; i < nrows * n; i += NT) {
+    const int r = i / n, t = i % n;
+    src[r * a.T + t] = (int8_t)(r / a.K * a.K + min(max(__ldg(a.anc + (size_t)(row0 + r) * a.T + t), 0), a.K - 1));
+  }
+  __syncthreads();
+
+  // q_h = ((LN(x) + qpos) Wq + bq) * HD**-0.5, k_h = (LN(x) + qpos) Wk + bk,
+  // v_h = LN(x) Wv + bv: the 32 columns of head h (bf16: qkv_compute on tensor
+  // cores; f32: product units on CUDA cores, 16 rows each)
+  const T* lns = static_cast<const T*>(a.lns);
+  const T* lnb = static_cast<const T*>(a.lnb);
+  const T* qpos = static_cast<const T*>(a.qpos);
+  const T* bq = static_cast<const T*>(a.bq) + h * HD;
+  const T* bk = static_cast<const T*>(a.bk) + h * HD;
+  const T* bv = static_cast<const T*>(a.bv) + h * HD;
+  auto fill16 = [&](T* A, int lda, int m, bool with_qpos) {   // rows m .. m + 15 of the tile
+    fill_ln<T>(A, lda, row0 + nrows, row0 + m, [&](size_t i, int) { return to_f(x[i]); }, nullptr, lns, lnb,
+               with_qpos ? qpos : static_cast<const T*>(nullptr));
+  };
+  auto epi = [&](int p, int r, int c, float v) {
+    if (p == 0) qs[r * HD + c] = (v + to_f(bq[c])) * kScale;
+    else if (p == 1) kn[r * HD + c] = v + to_f(bk[c]);
+    else vn[r * HD + c] = v + to_f(bv[c]);
+  };
+  if constexpr (sizeof(T) == 2) {
+    qkv_compute(u, [&](T* A, int lda, bool with_qpos) {
+      for (int m = 0; m < BR; m += MT) fill16(A + m * lda, lda, m, with_qpos);
+    }, epi);
+  } else {
+    const size_t a_bytes = align16((size_t)MT * (C + Tl::PAD) * sizeof(T));
+    const Smem sm{u, u + a_bytes, reinterpret_cast<float*>(u + a_bytes + lay.ring)};
+    for (int m = 0; m < R; m += MT)
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        product_unit<T>(sm, p == 0 ? wq : p == 1 ? wk : wv, C, h * HD, C,
+                        [&](T* A, int lda) { fill16(A, lda, m, p < 2); },
+                        [&](int r, int c, float v) { epi(p, m + r, c, v); });
+  }
+
+  // the head's Wo rows [32h, 32h + 32), in flight through the attention
+  for (int k0 = 0; k0 < HD; k0 += Wd::KC)
+    load_wide<T>(wo + k0 * Wd::WLD, static_cast<const T*>(a.wo) + (size_t)h * HD * C, C, k0, 0);
+  cp_async_commit();
+
+  // slot `step` of head h in the rows' caches, rounded to the cache type
+  for (int i = threadIdx.x; i < nrows * HD; i += NT) {
+    const int r = i / HD, d = i % HD;
+    const size_t off = (((size_t)(row0 + r) * NH + h) * a.T + step) * HD + d;
+    kc[off] = from_f<T>(kn[i]);
+    vc[off] = from_f<T>(vn[i]);
+  }
+
+  // a warp per row: the ancestry-gathered attention
+  float* sc = reinterpret_cast<float*>(u + (threadIdx.x >> 5) * lay.scores);
+  for (int r = threadIdx.x >> 5; r < nrows; r += NW)
+    beam_attend<T>(sc, qs + r * HD, step, kc, vc, a.T, h, src + r * a.T, row0, kn, vn, att + r * HD);
+  __syncthreads();
+
+  // part_h = rnd(attn_h) Wo[32h:32h+32, :], f32 (rows past the tile zero)
+  constexpr int ldt = HD + Tl::PAD;
+  for (int i = threadIdx.x; i < BR * HD; i += NT) {
+    const int r = i / HD, d = i % HD;
+    at[r * ldt + d] = from_f<T>(r < nrows ? att[r * HD + d] : 0.f);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float acc[Acc<T, BR>::N][4];
+  zero_acc(acc);
+#pragma unroll
+  for (int k0 = 0; k0 < HD; k0 += Wd::KC) wide_stage<BR>(at, ldt, k0, wo + k0 * Wd::WLD, acc);
+  __syncthreads();                                // Wo is read; the partial overwrites it
+  for_each_acc<T, BR>(acc, [&](int r, int c, float v) { part[r * C + c] = v; });
+  cluster.sync();                                 // every head's partial is written
+
+  const float* parts[NH];
+#pragma unroll
+  for (int k = 0; k < NH; ++k) parts[k] = cluster.map_shared_rank(part, k);
+  const T* bo = static_cast<const T*>(a.bo);
+  T* y = static_cast<T*>(a.y);
+  for (int i = threadIdx.x; i < nrows * HD; i += NT) {
+    const int r = i / HD, c = h * HD + i % HD;
+    float p[NH];
+#pragma unroll
+    for (int k = 0; k < NH; ++k) p[k] = parts[k][r * C + c];
+    const size_t o = (size_t)(row0 + r) * C + c;
+    float v = rnd<T>(rnd<T>(to_f(x[o]) + to_f(bo[c])) + p[0]);
+#pragma unroll
+    for (int k = 1; k < NH; ++k) v = rnd<T>(v + rnd<T>(p[k]));   // head order
+    y[o] = from_f<T>(v);
+  }
+  cluster.sync();                                 // the peers have read this block's partial
+}
+
 // ---------------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------------
@@ -477,6 +809,40 @@ int cross_launch(const BlockArgs& a, cudaStream_t st, int* out) {
                          out);
 }
 
+// a.rows: the rows of a tile, whole beam groups
+template <typename T>
+int beam_launch(const BlockArgs& a, cudaStream_t st, int* out) {
+  static Plan plan;
+  const int tiles = (a.B + a.rows - 1) / a.rows;
+  if (out != nullptr) {
+    out[0] = a.rows;
+    out[1] = NH;
+    out[2] = tiles;
+  }
+  return launch_clusters((const void*)self_beam_kernel<T>, plan, a, NH, tiles, BeamLayout<T>(a.T).total, st, out);
+}
+
+// The row tile: a.rows where set (a whole number of groups, at most BR rows),
+// else as launch: the smallest of K, 2K, 4K, ... whose clusters all fit on the
+// card at once, else the most whole groups that fit BR rows.
+template <typename T>
+int launch_beam(const BlockArgs& a, cudaStream_t st, int* out) {
+  if (a.B < 1 || a.T < 1 || a.K < 1 || a.K > 8 || a.B % a.K != 0) return (int)cudaErrorInvalidValue;
+  BlockArgs b = a;
+  if (b.rows <= 0) {
+    const int rmax = BR / a.K * a.K;
+    for (b.rows = a.K; b.rows < rmax; b.rows = min(2 * b.rows, rmax)) {
+      int plan[5];
+      const int rc = beam_launch<T>(b, st, plan);
+      if (rc != 0) return rc;
+      if ((a.B + b.rows - 1) / b.rows <= plan[3]) break;
+    }
+  } else if (b.rows % a.K != 0 || b.rows > BR) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return beam_launch<T>(b, st, out);
+}
+
 template <typename T>
 int launch_rows(const BlockArgs& a, bool cross, int R, cudaStream_t st, int* out) {
   if (cross) {
@@ -526,12 +892,17 @@ int rt_cross_attn_block(const BlockArgs* a, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<__nv_bfloat16>(*a, true, st, nullptr) : launch<float>(*a, true, st, nullptr);
 }
+int rt_self_attn_block_beam(const BlockArgs* a, int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_beam<__nv_bfloat16>(*a, st, nullptr) : launch_beam<float>(*a, st, nullptr);
+}
 
-// The launch rt_cross_attn_block (cross != 0) or rt_ff_block would make: out =
-// {rows per tile, blocks per cluster, clusters, co-resident clusters, shared
-// bytes per block}.
-int rt_block_plan(const BlockArgs* a, int cross, int bf16, int* out) {
-  return bf16 ? launch<__nv_bfloat16>(*a, cross != 0, nullptr, out) : launch<float>(*a, cross != 0, nullptr, out);
+// The launch rt_ff_block (kind 0), rt_cross_attn_block (1) or
+// rt_self_attn_block_beam (2) would make: out = {rows per tile, blocks per
+// cluster, clusters, co-resident clusters, shared bytes per block}.
+int rt_block_plan(const BlockArgs* a, int kind, int bf16, int* out) {
+  if (kind == 2) return bf16 ? launch_beam<__nv_bfloat16>(*a, nullptr, out) : launch_beam<float>(*a, nullptr, out);
+  return bf16 ? launch<__nv_bfloat16>(*a, kind == 1, nullptr, out) : launch<float>(*a, kind == 1, nullptr, out);
 }
 
 const char* rt_block_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

@@ -1,14 +1,13 @@
-// Self-attention kernels for Hopper (sm_90a): one KV-cached decode position
+// Self-attention kernel for Hopper (sm_90a): one KV-cached decode position
 // through the self-attention block of a pre-norm decoder layer.
 //
-// Two entry points, each the counterpart of a Pallas kernel of
+// The entry point is the counterpart of a Pallas kernel of
 // retr_tpu/ops/decoder_kernels.py:
 //   rt_self_attn_block   <- self_attn_block   (LN -> +qpos -> Q/K/V -> write one cache slot
 //                                              -> attention over positions <= step -> out-proj -> +x)
-//   rt_self_attn_block_beam <- self_attn_block_beam (as rt_self_attn_block, but row i reads
-//                                              position t from its group's row anc[i, t])
 // The stacked step (fused_stack_step, fused_layer_step) is stack_kernels.cu; the
-// cross-attention and FF blocks (cross_attn_block, ff_block) are block_kernels.cu.
+// cross-attention, FF and beam self-attention blocks (cross_attn_block,
+// ff_block, self_attn_block_beam) are block_kernels.cu.
 //
 // Design. The work of one decode position is a chain of skinny products
 // ([rows, 256] x [256, N]) plus one-query attention over per-row caches. On the
@@ -26,18 +25,8 @@
 // them rounded; the kernels round the residual to the storage type after each
 // head's out-projection part (head order), as the TPU split kernels do.
 //
-// Beam search (rt_self_attn_block_beam). Each row writes only its own cache slot;
-// row i reads position t from row anc[i, t] of its beam group of K rows. A block
-// owns whole beam groups (5-row tiles for the served beam of 5), so the slot at
-// `step` of any ancestor is the block's own fresh f32 k/v in shared memory, as in
-// the TPU kernel, which updated the whole group's cache in VMEM before reading
-// it; positions before `step` are read from global memory, where no block writes
-// this step. Only the ancestor's K/V row is read at each position (the TPU
-// kernel formed q.K for all K rows and kept one through an exact one-hot
-// select, so the values are the same and K times fewer bytes are read).
-//
-// Fixed widths: C = 256, 8 heads of 32 (the served model); the beam group is
-// 1..8 rows. The wrappers in ops/decoder_kernels.py check every shape.
+// Fixed widths: C = 256, 8 heads of 32 (the served model). The wrappers in
+// ops/decoder_kernels.py check every shape.
 
 #include <stdint.h>
 
@@ -45,7 +34,7 @@
 
 // Launch arguments, mirrored field for field by _Args in ops/decoder_kernels.py.
 struct Args {
-  int B, T, K;           // K: rows of a beam group (rt_self_attn_block_beam only)
+  int B, T;
   const void* x;
   void* y;
   const void* qpos;
@@ -54,7 +43,6 @@ struct Args {
   const void* swv; const void* sbv; const void* swo; const void* sbo;
   void* kc; void* vc;
   const int* step;
-  const int* anc;        // [B, T] ancestry, row within the beam group (beam only)
 };
 
 namespace {
@@ -75,7 +63,7 @@ __host__ __device__ size_t red_floats(int smax) {
   return prod > sc ? prod : sc;
 }
 
-// Shared-memory working set of one row tile (all f32, then the beam's ancestry).
+// Shared-memory working set of one row tile (all f32).
 template <int R>
 struct RowSmem {
   float* x;    // [R][C] residual
@@ -86,8 +74,7 @@ struct RowSmem {
   float* vn;   // [R][C] new value (f32)
   float* att;  // [R][C] attention output (f32)
   float* red;  // union: [NW][R][256] product partials | [R][NH][smax] scores
-  int* anc;    // [R][T] local source row of each position (beam only)
-  __device__ RowSmem(float* base, size_t nred) {
+  __device__ RowSmem(float* base) {
     x = base;
     t = x + R * C;
     a = t + R * C;
@@ -96,7 +83,6 @@ struct RowSmem {
     vn = kn + R * C;
     att = vn + R * C;
     red = att + R * C;
-    anc = reinterpret_cast<int*>(red + nred);
   }
 };
 
@@ -216,11 +202,10 @@ __device__ void softmax_rows(float* sc, int smax, int n) {
 }
 
 // att[r][h*HD + d] = sum_{t<n} p[r,h,t] * V[b,h,t,d]; position `cur` (if >= 0) reads
-// the f32 value vn instead of the cache. BEAM: row r reads position t of the
-// block's local row anc[r][t] (anc has row stride tstride).
-template <int R, typename T, bool BEAM>
+// the f32 value vn instead of the cache.
+template <int R, typename T>
 __device__ void attend_values(const float* p, int smax, int n, int cur, const T* V, int tstride,
-                              const float* vn, float* att, int nrows, int row0, const int* anc) {
+                              const float* vn, float* att, int nrows, int row0) {
   for (int i = threadIdx.x; i < R * NH * (HD / 8); i += NT) {
     const int g = i & (HD / 8 - 1), rh = i / (HD / 8);
     const int r = rh / NH, h = rh % NH;
@@ -229,32 +214,20 @@ __device__ void attend_values(const float* p, int smax, int n, int cur, const T*
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[j] = 0.f;
     if (r < nrows) {
-      if constexpr (BEAM) {
-        for (int t = 0; t < n; ++t) {
-          if (t == cur) continue;
-          float v8[8];
-          load8(V + (((size_t)(row0 + anc[r * tstride + t]) * NH + h) * tstride + t) * HD + g * 8, v8);
-          const float pt = pr[t];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[j] = fmaf(pt, v8[j], acc[j]);
-        }
-      } else {
-        const T* vp = V + ((size_t)(row0 + r) * NH + h) * (size_t)tstride * HD + g * 8;
+      const T* vp = V + ((size_t)(row0 + r) * NH + h) * (size_t)tstride * HD + g * 8;
 #pragma unroll 4
-        for (int t = 0; t < n; ++t) {
-          if (t == cur) continue;
-          float v8[8];
-          load8(vp + (size_t)t * HD, v8);
-          const float pt = pr[t];
+      for (int t = 0; t < n; ++t) {
+        if (t == cur) continue;
+        float v8[8];
+        load8(vp + (size_t)t * HD, v8);
+        const float pt = pr[t];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[j] = fmaf(pt, v8[j], acc[j]);
-        }
+        for (int j = 0; j < 8; ++j) acc[j] = fmaf(pt, v8[j], acc[j]);
       }
     }
     if (cur >= 0 && r < nrows) {
       const float pt = pr[cur];
-      const int src = BEAM ? anc[r * tstride + cur] : r;
-      const float* v8 = vn + src * C + h * HD + g * 8;
+      const float* v8 = vn + r * C + h * HD + g * 8;
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[j] = fmaf(pt, v8[j], acc[j]);
     }
@@ -263,22 +236,12 @@ __device__ void attend_values(const float* p, int smax, int n, int cur, const T*
   }
 }
 
-// Self-attention residual block of layer `l` for the block's rows. BEAM: rows
-// read each position through the ancestry (the block holds whole beam groups).
-template <int R, typename T, bool BEAM>
+// Self-attention residual block of layer `l` for the block's rows.
+template <int R, typename T>
 __device__ void self_phase(RowSmem<R>& s, const Args& a, int l, int row0, int nrows, int step, int smax) {
   const size_t lc = (size_t)l * C, lcc = (size_t)l * C * C;
   const T* qpos = static_cast<const T*>(a.qpos);
   const int n = step + 1;
-  if constexpr (BEAM) {
-    // local source row of (row, position): the row's group base + its ancestor,
-    // clamped into the group so no value of anc can reach outside it
-    for (int i = threadIdx.x; i < nrows * n; i += NT) {
-      const int r = i / n, t = i % n;
-      const int j = a.anc[(size_t)(row0 + r) * a.T + t];
-      s.anc[r * a.T + t] = (r / a.K) * a.K + min(max(j, 0), a.K - 1);
-    }
-  }
   layer_norm_rows<R, T>(s.x, static_cast<const T*>(a.ln1s) + lc, static_cast<const T*>(a.ln1b) + lc, s.t);
   __syncthreads();
   for (int i = threadIdx.x; i < R * C; i += NT) {
@@ -313,22 +276,20 @@ __device__ void self_phase(RowSmem<R>& s, const Args& a, int l, int row0, int nr
     }
   }
 
-  // Scores over positions 0..step; the current one uses the f32 key (of the
-  // ancestor row, in the block's shared memory).
+  // Scores over positions 0..step; the current one uses the f32 key.
   float* sc = s.red;
   for (int i = threadIdx.x; i < R * NH * n; i += NT) {
     const int t = i % n, rh = i / n;
     const int r = rh / NH, h = rh % NH;
-    const int src = BEAM ? s.anc[r * a.T + t] : r;
     const float* qv = s.t + r * C + h * HD;
     float acc = 0.f;
     if (r >= nrows) {
     } else if (t == step) {
-      const float* kv = s.kn + src * C + h * HD;
+      const float* kv = s.kn + r * C + h * HD;
 #pragma unroll
       for (int d = 0; d < HD; ++d) acc = fmaf(qv[d], kv[d], acc);
     } else {
-      const T* kp = kc + (((size_t)(row0 + src) * NH + h) * a.T + t) * HD;
+      const T* kp = kc + (((size_t)(row0 + r) * NH + h) * a.T + t) * HD;
 #pragma unroll
       for (int g = 0; g < HD / 8; ++g) {
         float k8[8];
@@ -342,7 +303,7 @@ __device__ void self_phase(RowSmem<R>& s, const Args& a, int l, int row0, int nr
   __syncthreads();
   softmax_rows<R>(sc, smax, n);
   __syncthreads();
-  attend_values<R, T, BEAM>(sc, smax, n, step, vc, a.T, s.vn, s.att, nrows, row0, s.anc);
+  attend_values<R, T>(sc, smax, n, step, vc, a.T, s.vn, s.att, nrows, row0);
   __syncthreads();
   for (int i = threadIdx.x; i < R * C; i += NT) s.a[i] = rnd<T>(s.att[i]);
   __syncthreads();
@@ -367,42 +328,26 @@ __device__ void store_rows(RowSmem<R>& s, const Args& a, int row0, int nrows) {
     if ((i >> 8) < nrows) y[(size_t)row0 * C + i] = from_f<T>(s.x[i]);
 }
 
-enum Kind { kSelf = 1, kSelfBeam = 4 };
-
-// Rows a block owns: R, or for the beam block the whole beam groups that fit in R.
-template <int R, int K>
-__host__ __device__ int block_rows(const Args& a) {
-  return K == kSelfBeam ? (R / a.K) * a.K : R;
-}
-
-template <int R, typename T, int K>
+template <int R, typename T>
 __global__ void __launch_bounds__(NT) decode_kernel(const Args a) {
   extern __shared__ float4 smem_raw[];
-  const int smax = a.T;
-  RowSmem<R> s(reinterpret_cast<float*>(smem_raw), red_floats<R>(smax));
-  const int rows = block_rows<R, K>(a);
-  const int row0 = blockIdx.x * rows;
-  const int nrows = min(rows, a.B - row0);
+  RowSmem<R> s(reinterpret_cast<float*>(smem_raw));
+  const int row0 = blockIdx.x * R;
+  const int nrows = min(R, a.B - row0);
   load_rows<R, T>(s, a, row0, nrows);
-  if constexpr (K == kSelf) {
-    self_phase<R, T, false>(s, a, 0, row0, nrows, *a.step, smax);
-  } else {
-    self_phase<R, T, true>(s, a, 0, row0, nrows, *a.step, smax);
-  }
+  self_phase<R, T>(s, a, 0, row0, nrows, *a.step, a.T);
   store_rows<R, T>(s, a, row0, nrows);
 }
 
-template <int R, int K>
+template <int R>
 size_t smem_bytes(const Args& a) {
-  const int smax = a.T;
-  const size_t anc = K == kSelfBeam ? (size_t)R * a.T * sizeof(int) : 0;
-  return (7 * (size_t)R * C + red_floats<R>(smax)) * sizeof(float) + anc;
+  return (7 * (size_t)R * C + red_floats<R>(a.T)) * sizeof(float);
 }
 
-template <int R, typename T, int K>
+template <int R, typename T>
 int launch_t(const Args& a, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<R, K>(a);
-  auto kern = decode_kernel<R, T, K>;
+  const size_t bytes = smem_bytes<R>(a);
+  auto kern = decode_kernel<R, T>;
   static size_t granted = 0;  // dynamic shared memory already allowed for this kernel
   if (bytes > granted) {
     const cudaError_t e =
@@ -410,36 +355,20 @@ int launch_t(const Args& a, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     granted = bytes;
   }
-  const int rows = block_rows<R, K>(a);
-  const int grid = (a.B + rows - 1) / rows;
+  const int grid = (a.B + R - 1) / R;
   kern<<<grid, NT, bytes, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-template <int R, int K>
-int launch_r(const Args& a, int bf16, cudaStream_t st) {
-  return bf16 ? launch_t<R, __nv_bfloat16, K>(a, st) : launch_t<R, float, K>(a, st);
-}
-
-template <int K>
-int launch(const Args* a, int bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (K == kSelfBeam) {
-    // tiles of whole beam groups: the served beam of 5 gets 5-row tiles
-    if (a->K < 1 || a->K > 8) return (int)cudaErrorInvalidValue;
-    if (a->K == 5) return launch_r<5, K>(*a, bf16, st);
-    return a->K <= 4 ? launch_r<4, K>(*a, bf16, st) : launch_r<8, K>(*a, bf16, st);
-  }
-  return launch_r<kRows, K>(*a, bf16, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns cudaGetLastError() after the launch (0 = launched).
-int rt_self_attn_block(const Args* a, int bf16, void* stream) { return launch<kSelf>(a, bf16, stream); }
-int rt_self_attn_block_beam(const Args* a, int bf16, void* stream) { return launch<kSelfBeam>(a, bf16, stream); }
+// Returns cudaGetLastError() after the launch (0 = launched).
+int rt_self_attn_block(const Args* a, int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_t<kRows, __nv_bfloat16>(*a, st) : launch_t<kRows, float>(*a, st);
+}
 const char* rt_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
 }  // extern "C"

@@ -32,6 +32,8 @@ from retr_tpu_torch.ops import decoder_kernels as dk
 NEG_INF = -1e30  # finite sentinel: an all-masked row stays finite
 LAUNCHES = dk.LAUNCHES
 _SMEM_MAX = 232448  # a block's shared-memory limit on Hopper
+_MMA_DIMS = (16, 32, 64)  # head dims of the tensor-core kernel
+_QT, _KT, _NSTG = 32, 64, 3  # its query rows per block, keys per ring stage, ring stages
 
 
 def fused_attention_plain(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
@@ -59,9 +61,45 @@ def fused_attention_plain(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
 def attention_kernel_fits(d: int, sk: int) -> bool:
     """Whether rt_fused_attention takes head dim ``d`` and ``sk`` keys: any
     whose one-query row (q and the ``sk`` scores, f32) fits a block's shared
-    memory. The tiled kernel takes head dims 16, 32 and 64 up to the key count
-    whose 32-row score block fits (1717 at D = 32); the any-width kernel the rest."""
+    memory. The tensor-core kernel takes head dims 16, 32 and 64 up to the key
+    count whose 32-row score block fits beside its ring (1536 at D = 32 in f32);
+    the untiled kernel the rest (:func:`attention_plan`)."""
     return d >= 1 and sk >= 1 and (d + sk) * 4 <= _SMEM_MAX
+
+
+def _mma_smem(d: int, sk: int, bf16: bool) -> int:
+    """mma_kernel's shared bytes (``mma_smem`` in csrc/attention_kernels.cu): the
+    f32 score block with its padded row stride and the K/V ring (or, if
+    larger, the warps' partial outputs), the row maxima (of each strip
+    warp's key share and the whole), a flag."""
+    ld = -(-sk // 32) * 32 + 4
+    passes = _QT * ld * 4 + _NSTG * _KT * (d + 8) * (2 if bf16 else 4)
+    parts = _strip_warps(d) * _QT * d * 4      # the warps' partial outputs, over the same bytes
+    return max(passes, parts) + _QT * 4 * (_strip_warps(d) + 1) + 16
+
+
+def _strip_warps(d: int) -> int:
+    """mma_kernel's warps per 16-row strip of query rows (``strip_warps``)."""
+    return 4 if d >= 32 else 2
+
+
+def attention_plan(dtype: torch.dtype, d: int, sq: int, sk: int) -> dict:
+    """The launch rt_fused_attention makes for q [.., sq, d] against sk keys:
+    ``path`` "mma" (the tensor-core kernel, head dims 16, 32 and 64) or "any"
+    (the untiled kernel), ``rows`` (query rows per block), ``threads`` (per
+    block) and ``smem_bytes`` (shared bytes per block). The tensor-core
+    kernel takes 32-row tiles of 8 warps (4 at D = 16) wherever their score
+    block fits; the untiled kernel 256 threads and the largest power of two
+    up to 32 rows whose score rows fit. ``sq`` does not change the plan."""
+    bf16 = dtype == torch.bfloat16
+    if d in _MMA_DIMS:
+        n = _mma_smem(d, sk, bf16)
+        if n <= _SMEM_MAX:
+            return {"path": "mma", "rows": _QT, "threads": 2 * _strip_warps(d) * 32, "smem_bytes": n}
+    qt = 32
+    while qt > 1 and qt * (d + sk) * 4 > _SMEM_MAX:
+        qt //= 2
+    return {"path": "any", "rows": qt, "threads": 256, "smem_bytes": qt * (d + sk) * 4}
 
 
 def _needs_grad(*tensors) -> bool:
@@ -72,13 +110,16 @@ def fused_attention(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
                     causal: bool = False) -> torch.Tensor:
     """Fused scaled-dot-product attention; returns ``[B, H, Sq, D]`` in q's type.
 
-    Bound on the card: at the model's shapes (S <= 397, D = 32, f32) bytes and
-    CUDA-core operations take about the same time. Design (csrc/attention_kernels.cu):
-    one block per (b, h, 32 query rows) keeps its whole score block in shared
-    memory, streams K then V through it in 64-key tiles, and normalises exactly
-    once between the two passes. Other head dims, and key counts whose 32-row
-    score block does not fit, run the same passes untiled with fewer query
-    rows per block (down to 1).
+    Bound on the card: at the model's shapes (S <= 397, D = 32) bytes in bf16,
+    the operations of the 3xTF32 products in f32. Design
+    (csrc/attention_kernels.cu): one block of 8 warps (4 at D = 16) per (b, h,
+    32 query rows; :func:`attention_plan`) keeps its whole f32 score block in
+    shared memory, streams K then V through a cp.async ring in 64-key tiles in
+    their own type, multiplies on tensor cores (bf16 mma.sync; f32 as 3xTF32),
+    skips the key tiles a causal tile cannot see, and normalises exactly once
+    between the two passes. Other head dims, and key counts whose 32-row score
+    block does not fit, run the same passes untiled on CUDA cores with fewer
+    query rows per block (down to 1).
     """
     if _needs_grad(q, k, v, key_bias):
         raise NotImplementedError(
@@ -104,8 +145,10 @@ def fused_attention(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
         shapes["key_bias"] = (b, sk)
     dk._check("fused_attention", q.dtype, shapes, **t)
     out = torch.empty_like(q)
+    plan = attention_plan(q.dtype, d, sq, sk)
     dk._run("attention_kernels", "rt_fused_attention", q, B=b, H=h, Sq=sq, Sk=sk, D=d,
-            causal=int(causal), scale=float(d) ** -0.5, key_bias=0 if key_bias is None else key_bias,
+            causal=int(causal), tile=plan["rows"], mma=int(plan["path"] == "mma"), scale=float(d) ** -0.5,
+            key_bias=0 if key_bias is None else key_bias,
             q=q, k=k, v=v, out=out)
     LAUNCHES["fused_attention"] += 1
     return out

@@ -14,9 +14,9 @@ the greedy and beam serving paths run:
   stacked kernel with one layer)
 
 The stacked step (``fused_stack_step``, ``fused_layer_step``) is
-csrc/stack_kernels.cu, the self-attention blocks csrc/decoder_kernels.cu, the
-cross-attention and FF blocks csrc/block_kernels.cu, the head kernels
-csrc/head_kernels.cu. Those decoder-layer kernels are tuned for the served
+csrc/stack_kernels.cu, the self-attention block csrc/decoder_kernels.cu, the
+cross-attention, FF and beam self-attention blocks csrc/block_kernels.cu, the
+head kernels csrc/head_kernels.cu. Those decoder-layer kernels are tuned for the served
 width (:func:`decode_kernels_fit`: C = 256, 8 heads, F a multiple of 256, beam
 groups of 1..8); at any other width the same wrappers launch
 csrc/width_kernels.cu, which takes the widths, head count, FF width and
@@ -342,8 +342,8 @@ _SELF_PTRS = ("x", "y", "qpos", "ln1s", "ln1b", "swq", "sbq", "swk", "sbk", "swv
 class _Args(ctypes.Structure):
     """Mirror of ``struct Args`` in csrc/decoder_kernels.cu (same field order)."""
 
-    _fields_ = [(n, ctypes.c_int) for n in ("B", "T", "K")] + [
-        (n, ctypes.c_void_p) for n in _SELF_PTRS + ("kc", "vc", "step", "anc")
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "T")] + [
+        (n, ctypes.c_void_p) for n in _SELF_PTRS + ("kc", "vc", "step")
     ]
 
 
@@ -361,9 +361,10 @@ class _StackArgs(ctypes.Structure):
 class _BlockArgs(ctypes.Structure):
     """Mirror of ``struct BlockArgs`` in csrc/block_kernels.cu (same field order)."""
 
-    _fields_ = [(n, ctypes.c_int) for n in ("B", "S", "F", "rows")] + [
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "S", "F", "rows", "T", "K")] + [
         (n, ctypes.c_void_p) for n in ("x", "y", "qpos", "lns", "lnb", "wq", "bq", "wo", "bo",
-                                       "w1", "b1", "w2", "b2", "ck", "cv", "key_bias")
+                                       "w1", "b1", "w2", "b2", "ck", "cv", "key_bias",
+                                       "wk", "bk", "wv", "bv", "kc", "vc", "step", "anc")
     ]
 
 
@@ -380,7 +381,7 @@ class _AttnArgs(ctypes.Structure):
     """Mirror of ``struct AttnArgs`` in csrc/attention_kernels.cu (same field
     order); the wrapper is ops/attention.fused_attention."""
 
-    _fields_ = [(n, ctypes.c_int) for n in ("B", "H", "Sq", "Sk", "D", "causal")] + [
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "H", "Sq", "Sk", "D", "causal", "tile", "mma")] + [
         ("scale", ctypes.c_float)] + [(n, ctypes.c_void_p) for n in ("q", "k", "v", "key_bias", "out")]
 
 
@@ -398,8 +399,9 @@ class _WidthArgs(ctypes.Structure):
 
 # source -> (argument struct, entry points, error-string function)
 _LIBS = {
-    "decoder_kernels": (_Args, ("rt_self_attn_block", "rt_self_attn_block_beam"), "rt_error_string"),
-    "block_kernels": (_BlockArgs, ("rt_ff_block", "rt_cross_attn_block"), "rt_block_error_string"),
+    "decoder_kernels": (_Args, ("rt_self_attn_block",), "rt_error_string"),
+    "block_kernels": (_BlockArgs, ("rt_ff_block", "rt_cross_attn_block", "rt_self_attn_block_beam"),
+                      "rt_block_error_string"),
     "stack_kernels": (_StackArgs, ("rt_stack_step",), "rt_stack_error_string"),
     "head_kernels": (_HeadArgs, ("rt_head_trunk", "rt_head_blocks"), "rt_head_error_string"),
     "attention_kernels": (_AttnArgs, ("rt_fused_attention",), "rt_attn_error_string"),
@@ -412,7 +414,7 @@ _ENTRY = {"fused_stack_step": ("stack_kernels", "rt_stack_step"),
           "self_attn_block": ("decoder_kernels", "rt_self_attn_block"),
           "cross_attn_block": ("block_kernels", "rt_cross_attn_block"),
           "ff_block": ("block_kernels", "rt_ff_block"),
-          "self_attn_block_beam": ("decoder_kernels", "rt_self_attn_block_beam")}
+          "self_attn_block_beam": ("block_kernels", "rt_self_attn_block_beam")}
 _handles: Dict[str, ctypes.CDLL] = {}
 
 
@@ -448,9 +450,9 @@ def _param_shapes(f: int = WIDTH, nl=None, c: int = WIDTH) -> Dict[str, tuple]:
     vec, sq = lead + (c,), lead + (c, c)
     shapes = {"qpos": (c,), "w1": lead + (c, f), "b1": lead + (f,), "w2": lead + (f, c)}
     for n in ("ln1s", "ln1b", "sbq", "sbk", "sbv", "sbo", "ln2s", "ln2b", "cbq", "cbo", "ln3s", "ln3b",
-              "b2", "lns", "lnb", "bq", "bo"):
+              "b2", "lns", "lnb", "bq", "bo", "bk", "bv"):
         shapes[n] = vec
-    for n in ("swq", "swk", "swv", "swo", "cwq", "cwo", "wq", "wo"):
+    for n in ("swq", "swk", "swv", "swo", "cwq", "cwo", "wq", "wo", "wk", "wv"):
         shapes[n] = sq
     return shapes
 
@@ -518,6 +520,9 @@ def _launch(kernel: str, ref: torch.Tensor, /, **fields) -> None:
 # of their own choice for the batch; the card tests set it to show that a row's
 # result does not depend on the tile, chip_smoke.py to time each tile.
 _block_rows = 0
+# The same for self_attn_block_beam's cluster kernel: 0, or its rows per tile
+# (a whole number of beam groups, at most 32 rows).
+_beam_rows = 0
 
 
 def ff_block(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -591,17 +596,24 @@ def cross_attn_block(p: Params, x, qpos, k, v, key_bias, *, num_heads: int) -> t
     return y
 
 
-def block_plan(kernel: str, dtype: torch.dtype, b: int, s: int = 1, f: int = 256) -> Dict[str, int]:
-    """The launch ``kernel`` ("ff_block" or "cross_attn_block") makes on the
-    current CUDA device for these shapes: rows per tile, blocks per cluster,
-    clusters, clusters co-resident on the card, shared bytes per block."""
+_PLAN_KIND = {"ff_block": 0, "cross_attn_block": 1, "self_attn_block_beam": 2}
+
+
+def block_plan(kernel: str, dtype: torch.dtype, b: int, s: int = 1, f: int = 256, t: int = 1,
+               num_beams: int = 1) -> Dict[str, int]:
+    """The launch ``kernel`` ("ff_block", "cross_attn_block" or
+    "self_attn_block_beam", whose caches hold ``t`` positions and whose beam
+    groups have ``num_beams`` rows) makes on the current CUDA device for these
+    shapes: rows per tile, blocks per cluster, clusters, clusters co-resident
+    on the card, shared bytes per block."""
     lib = _lib("block_kernels")
     fn = lib.rt_block_plan
     fn.argtypes = [ctypes.POINTER(_BlockArgs), ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 5)()
-    args = _BlockArgs(B=b, S=s, F=f, rows=_block_rows)
-    rc = fn(ctypes.byref(args), int(kernel == "cross_attn_block"), int(dtype == torch.bfloat16), out)
+    beam = kernel == "self_attn_block_beam"
+    args = _BlockArgs(B=b, S=s, F=f, rows=_beam_rows if beam else _block_rows, T=t, K=num_beams)
+    rc = fn(ctypes.byref(args), _PLAN_KIND[kernel], int(dtype == torch.bfloat16), out)
     if rc != 0:
         raise RuntimeError(f"rt_block_plan: {lib.rt_block_error_string(rc).decode()}")
     return dict(zip(("rows", "cluster", "clusters", "resident_clusters", "smem_bytes"), out))
@@ -791,12 +803,19 @@ def self_attn_block_beam(p: Params, x, anc, qpos, k_cache, v_cache, step, *, num
     (x_out, k_cache, v_cache).
 
     Replaces retr_tpu/ops/decoder_kernels.py ``self_attn_block_beam``
-    (``_make_self_beam_kernel``). Bound on the card: bytes, as self_attn_block.
-    Design: one block owns whole beam groups (5-row tiles at K = 5), so the
-    fresh slot at ``step`` of any ancestor is in its shared memory; each row
-    reads only its ancestor's K/V at each earlier position (the TPU kernel
-    formed q.K against all K rows and selected one). At other widths, or beam
-    groups of 9..16: rt_width_self (csrc/width_kernels.cu).
+    (``_make_self_beam_kernel``). Bound on the card: bytes — the four [C, C]
+    weights at small batches, the ancestry-gathered cache rows at large ones.
+    Design (csrc/block_kernels.cu, as cross_attn_block): one launch of
+    thread-block clusters, one cluster of 8 blocks (one per head) per tile of
+    whole beam groups (up to 32 rows; :func:`block_plan`), so the fresh slot
+    at ``step`` of any ancestor is in the block's shared memory; block h forms
+    its head's q, k and v from 32-column weight slices (bf16 on tensor
+    cores), writes its head's cache slot, attends each row (a warp per row)
+    reading each earlier position from the ancestor's cache row only (the TPU
+    kernel formed q.K against all K rows and selected one), and hands its f32
+    out-projection part to its peers through distributed shared memory, which
+    add the heads in order with the TPU kernel's rounding. At other widths, or
+    beam groups of 9..16: rt_width_self (csrc/width_kernels.cu).
     """
     if x.device.type == "cpu":
         return self_attn_block_beam_plain(p, x, anc, qpos, k_cache, v_cache, step,
@@ -814,13 +833,13 @@ def self_attn_block_beam(p: Params, x, anc, qpos, k_cache, v_cache, step, *, num
     if not decode_kernels_fit(c, num_heads, 256, num_beams):
         return _width_self("self_attn_block_beam", p, x, qpos, k_cache, v_cache, step, num_heads, num_beams, anc)
     m = p["mha"]
-    t = dict(qpos=qpos, ln1s=p["norm"]["scale"], ln1b=p["norm"]["bias"],
-             swq=m["q"]["w"], sbq=m["q"]["b"], swk=m["k"]["w"], sbk=m["k"]["b"],
-             swv=m["v"]["w"], sbv=m["v"]["b"], swo=m["out"]["w"], sbo=m["out"]["b"],
+    t = dict(qpos=qpos, lns=p["norm"]["scale"], lnb=p["norm"]["bias"],
+             wq=m["q"]["w"], bq=m["q"]["b"], wk=m["k"]["w"], bk=m["k"]["b"],
+             wv=m["v"]["w"], bv=m["v"]["b"], wo=m["out"]["w"], bo=m["out"]["b"],
              kc=k_cache, vc=v_cache, step=step, anc=anc)
     _check("self_attn_block_beam", x.dtype, _param_shapes(), x=x, **t)
     y = torch.empty_like(x)
-    _launch("self_attn_block_beam", x, B=bk, T=tmax, K=num_beams, x=x, y=y, **t)
+    _launch("self_attn_block_beam", x, B=bk, T=tmax, K=num_beams, rows=_beam_rows, x=x, y=y, **t)
     return y, k_cache, v_cache
 
 

@@ -43,6 +43,12 @@ CASES = {  # name -> (b, h, sq, sk, d, pad_rate, tail, causal, bias)
     "not_128_multiples": (1, 2, 130, 197, 32, 0.2, 0, False, True),
     "d16": (2, 2, 20, 29, 16, 0.2, 0, False, True),
     "d16_causal": (1, 3, 17, 17, 16, 0.0, 3, True, True),
+    # shapes the tensor-core kernel's tiling makes risky
+    "one_query": (2, 2, 1, 40, 32, 0.2, 0, False, True),
+    "keys_below_one_mma_step": (2, 2, 9, 15, 32, 0.2, 0, False, True),
+    "causal_129": (1, 2, 129, 129, 32, 0.1, 3, True, True),          # the diagonal crosses 64-row tiles
+    "d64": (1, 2, 40, 70, 64, 0.2, 0, False, True),
+    "padding_to_a_tile_boundary": (1, 2, 30, 128, 32, 0.0, 64, False, True),   # keys 64.. masked
 }
 
 
@@ -137,6 +143,41 @@ def test_attention_kernel_fits_rule(d, sk, fits):
     """The kernel takes any head dim and the key counts whose one-query score
     row fits a block's shared memory (58080 keys at D = 32)."""
     assert tattn.attention_kernel_fits(d, sk) == fits
+
+
+# (d, sk) -> {dtype: (path, rows per block, threads, shared bytes)}: the
+# tensor-core kernel at head dims 16/32/64 (32-row tiles of 8 warps, 4 at
+# D = 16), the untiled kernel at 48 and past the limit
+PLANS = {
+    (16, 17): {"float32": ("mma", 32, 128, 23440), "bfloat16": ("mma", 32, 128, 14224)},
+    (16, 397): {"float32": ("mma", 32, 128, 72592), "bfloat16": ("mma", 32, 128, 63376)},
+    (16, 1718): {"float32": ("any", 32, 256, 221952), "bfloat16": ("mma", 32, 128, 231312)},
+    (32, 17): {"float32": ("mma", 32, 256, 35984), "bfloat16": ("mma", 32, 256, 20624)},
+    (32, 397): {"float32": ("mma", 32, 256, 85136), "bfloat16": ("mma", 32, 256, 69776)},
+    (32, 1718): {"float32": ("any", 32, 256, 224000), "bfloat16": ("any", 32, 256, 224000)},
+    (48, 17): {"float32": ("any", 32, 256, 8320), "bfloat16": ("any", 32, 256, 8320)},
+    (48, 397): {"float32": ("any", 32, 256, 56960), "bfloat16": ("any", 32, 256, 56960)},
+    (48, 1718): {"float32": ("any", 32, 256, 226048), "bfloat16": ("any", 32, 256, 226048)},
+    (64, 17): {"float32": ("mma", 32, 256, 60560), "bfloat16": ("mma", 32, 256, 33424)},
+    (64, 397): {"float32": ("mma", 32, 256, 109712), "bfloat16": ("mma", 32, 256, 82064)},
+    (64, 1718): {"float32": ("any", 32, 256, 228096), "bfloat16": ("any", 32, 256, 228096)},
+}
+
+
+@pytest.mark.parametrize("d,sk", sorted(PLANS))
+def test_attention_plan(d, sk):
+    """The launch the wrapper asks rt_fused_attention for: path, query rows
+    and threads per block and shared bytes (the CUDA source's formula),
+    within a block's limit; every shape here is one attention_kernel_fits
+    takes."""
+    assert tattn.attention_kernel_fits(d, sk)
+    for dname, (path, rows, threads, nbytes) in PLANS[(d, sk)].items():
+        dtype = getattr(torch, dname)
+        plan = tattn.attention_plan(dtype, d, 128, sk)
+        assert plan == {"path": path, "rows": rows, "threads": threads, "smem_bytes": nbytes}
+        assert nbytes <= tattn._SMEM_MAX
+        assert path == "any" or d in (16, 32, 64)
+        assert tattn.attention_plan(dtype, d, 1, sk) == plan         # the query count does not matter
 
 
 def test_dispatch_runs_the_plain_version_where_the_kernel_does_not_fit(monkeypatch):

@@ -632,6 +632,61 @@ def test_fused_attention_matches_plain_version(dev, dtype, tol, d, case):
         _close_to_plain(nobias, fa.fused_attention_plain(q, k, v, None, causal=causal), tol)
 
 
+@pytest.mark.parametrize("edge", list(chip_smoke.ATTN_EDGES))
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_edges_match_plain_version(dev, dtype, d, edge):
+    """chip_smoke.py's attention_edges cases: one query, 1/15/17/397 keys,
+    causal tiles the diagonal crosses, padding from a tile boundary,
+    all-masked rows (with and without the causal skip), 1718 keys (the
+    untiled kernel); within TOL of the plain version, repeats bit-equal."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    dk.reset_launches()
+    got = chip_smoke.attention_case(dev, gen, dtype, d, *chip_smoke.ATTN_EDGES[edge])
+    assert dk.LAUNCHES["fused_attention"] == 2
+    assert got["err"] <= got["tol"] and got["same"], got
+    untiled = "1718" in edge and not (d == 16 and dtype == torch.bfloat16)   # past the mma kernel's limit
+    assert got["plan"]["path"] == ("any" if untiled else "mma")
+
+
+@pytest.mark.parametrize("ancestry", chip_smoke.BEAM_EDGE_ANCESTRY)
+@pytest.mark.parametrize("step", [0, 63, 127])
+@pytest.mark.parametrize("groups", [1, 33])
+@pytest.mark.parametrize("beams", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_beam_block_edges_match_plain_version(dev, dtype, beams, groups, step, ancestry):
+    """chip_smoke.py's beam_edges cases at the served width and T = 128: the
+    cluster kernel within TOL of the plain version (output and the written
+    slot), repeats bit-equal, no other cache slot changed."""
+    gen = torch.Generator(device=dev).manual_seed(13 + beams)
+    lp = dk.layer_params(chip_smoke.random_decoder(gen, dev, dtype), 0)["self_attn"]
+    dk.reset_launches()
+    got = chip_smoke.beam_case(dev, gen, lp, beams, groups, step, ancestry)
+    assert dk.LAUNCHES["self_attn_block_beam"] == 2
+    assert got["err"] <= got["tol"] and got["same"] and got["untouched"], {k: v for k, v in got.items() if k != "out"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("beams", [1, 5, 8])
+def test_beam_block_rows_per_tile_do_not_change_the_bits(dev, dtype, beams):
+    """Every row tile the cluster kernel takes (whole groups up to 32 rows)
+    gives the bits of its own choice; a tile that is not whole groups, or
+    past 32 rows, is refused."""
+    outs = {}
+    for rows in [0] + [beams * g for g in range(1, 33) if beams * g <= 32]:
+        gen = torch.Generator(device=dev).manual_seed(21)
+        lp = dk.layer_params(chip_smoke.random_decoder(gen, dev, dtype), 0)["self_attn"]
+        got = chip_smoke.beam_case(dev, gen, lp, beams, 33, 63, "permutation", rows=rows)
+        assert got["err"] <= got["tol"] and got["same"]
+        outs[rows] = chip_smoke._bits(got["out"])
+    assert all(torch.equal(o, outs[0]) for o in outs.values())
+    gen = torch.Generator(device=dev).manual_seed(21)
+    lp = dk.layer_params(chip_smoke.random_decoder(gen, dev, dtype), 0)["self_attn"]
+    for rows in ([beams + 1] if beams > 1 else []) + [beams * (32 // beams + 1)]:
+        with pytest.raises(RuntimeError, match="rt_self_attn_block_beam"):
+            chip_smoke.beam_case(dev, gen, lp, beams, 33, 63, "permutation", rows=rows)
+
+
 def test_fused_attention_rejects_what_the_kernel_does_not_take(dev):
     q = torch.zeros(1, 2, 8, 48, device=dev)
     with pytest.raises(ValueError, match="do not match"):

@@ -265,6 +265,36 @@ def test_self_attn_block_beam_plain_matches_pallas(case):
     _close(vc.permute(1, 0, 3, 2), vc_ref, case["atol"])
 
 
+@pytest.mark.parametrize("beams,step,ancestry", [
+    (1, 0, "random"), (1, T - 1, "one ancestor"), (2, 0, "one ancestor"), (2, T - 1, "random"),
+    (5, 0, "one ancestor"), (5, T - 1, "random"), (8, 0, "random"), (8, T - 1, "one ancestor")])
+def test_self_attn_block_beam_plain_matches_pallas_at_edges(case, beams, step, ancestry):
+    """Two groups of 1, 2, 5 and 8 beams at the first and the last cache slot;
+    the ancestry random (crossing rows at ``step`` too) or every row of a
+    group reading one ancestor at every position."""
+    p, tdt = case["lps"][0]["self_attn"], case["tdt"]
+    bk = 2 * beams
+    rng = np.random.default_rng(30 + beams + step)
+    arr = lambda *shape: jnp.asarray(rng.standard_normal(shape), case["jdt"])  # noqa: E731
+    x, kc0, vc0 = arr(bk, C), arr(H, bk, D, T), arr(H, bk, D, T)
+    if ancestry == "random":
+        anc = rng.integers(0, beams, (bk, T)).astype(np.int32)
+    else:
+        anc = np.repeat(rng.integers(0, beams, (2, 1, 1)), beams, axis=1).repeat(T, axis=2)
+        anc = anc.reshape(bk, T).astype(np.int32)
+    ref, kc_ref, vc_ref = dk.self_attn_block_beam(
+        p, x, jnp.asarray(anc), case["qpos"], kc0, vc0, jnp.int32(step), num_heads=H, num_beams=beams,
+        interpret=True)
+    kc = _t(kc0, tdt).permute(1, 0, 3, 2).contiguous()
+    vc = _t(vc0, tdt).permute(1, 0, 3, 2).contiguous()
+    got, _, _ = tk.self_attn_block_beam(
+        _torch_tree(jax.tree.map(np.asarray, p), tdt), _t(x, tdt), torch.from_numpy(anc),
+        _t(case["qpos"], tdt), kc, vc, torch.tensor(step, dtype=torch.int32), num_heads=H, num_beams=beams)
+    _close(got, ref, case["atol"])
+    _close(kc.permute(1, 0, 3, 2), kc_ref, case["atol"])
+    _close(vc.permute(1, 0, 3, 2), vc_ref, case["atol"])
+
+
 @pytest.mark.parametrize("step", EDGE_STEPS)
 def test_fused_layer_step_plain_matches_pallas(case, step):
     tdt, lp = case["tdt"], case["lps"][1]
