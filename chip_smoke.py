@@ -12,7 +12,8 @@ Phases (any failure raises, exits non-zero and prints no result line):
      and bf16, and time kernel, plain version and a library yardstick (CUDA
      events): the stacked step, fused_layer_step and self_attn_block at batch
      32 and 512 (the stacked step's lines carry its grid: blocks, blocks per
-     SM, grid barriers), ff_block and cross_attn_block at 32, 160, 512 and
+     SM, grid barriers; self_attn_block's its cluster plan and profiled
+     device time), ff_block and cross_attn_block at 32, 160, 512 and
      2560 rows (their lines carry the cluster launch's plan and the
      profiled device time), the
      stacked step (L=6) and fused_layer_step (L=1) also unclocked at batch 1,
@@ -40,7 +41,11 @@ Phases (any failure raises, exits non-zero and prints no result line):
      3, 5 and 8, 1 and 33 groups, step 0, 63 and 127, ancestry on one row, a
      permutation, crossing at step (a second launch bit-equal, only the slot
      at step written); the beam block's records carry its cluster plan and
-     device time;
+     device time; self_edges: self_attn_block unclocked at rows 1, 5, 17,
+     32, 33 and 512, step 0, 63, 127 and T-1, T 128 and the longest the
+     kernel takes, every row tile of its rule and its own choice (a second
+     launch bit-equal, the same bits at every tile, only the slot at step
+     written, x unwritten);
   4. serve requests through Predictor at the served width (ResNet-50 dilated,
      6+6 layers, d=256, vocab 30522, bf16, random weights from a seed): greedy
      with the one-launch stacked kernel, with the per-layer trio, with
@@ -78,9 +83,9 @@ the repository beside it and a CUDA device.
     python3 chip_smoke.py --compare PARENT_TREE CHANGE_TREE
 
 compares two checkouts on one card: in turns (parent, change, change, parent,
-parent, change), a process per turn profiles fused_attention and
-self_attn_block_beam (`--kernel-times TREE`: device time per launch,
-fused_attention beside SDPA's) and another times the decode loops of the
+parent, change), a process per turn profiles fused_attention,
+self_attn_block_beam and self_attn_block (`--kernel-times TREE`: device time
+per launch, fused_attention beside SDPA's) and another times the decode loops of the
 retr_tpu_torch package under that tree (`--loop-times TREE`: greedy stacked
 and trio at batch 32 and 512, beam 5 at batch 32 and 512 (top-k head kernel
 off and on) where the tree has it, 127 steps, EOS out of range, encode outside the
@@ -91,7 +96,9 @@ and prints a digest of the tree's stacked step on seeded inputs
     python3 chip_smoke.py --block-rows
 
 times ff_block and cross_attn_block (bf16, device time) at every row tile
-they are built for, and at their own choice, at 32, 160, 512 and 2560 rows.
+they are built for, and at their own choice, at 32, 160, 512 and 2560 rows,
+and self_attn_block (f32 and bf16) at every row tile of its rule and its own
+choice at 32 and 512 rows.
 """
 
 from __future__ import annotations
@@ -110,12 +117,11 @@ BEAM = 5                                          # Config.beam_size
 HBM_BYTES_PER_S = 3.35e12                         # H100 SXM data sheet
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 CHECK_STEP = 63                                   # mid-decode position for the kernel checks
-DEC_SRC, HEAD_SRC = "retr_tpu_torch/csrc/decoder_kernels.cu", "retr_tpu_torch/csrc/head_kernels.cu"
-ATT_SRC, STACK_SRC = "retr_tpu_torch/csrc/attention_kernels.cu", "retr_tpu_torch/csrc/stack_kernels.cu"
-BLOCK_SRC = "retr_tpu_torch/csrc/block_kernels.cu"
+HEAD_SRC, ATT_SRC = "retr_tpu_torch/csrc/head_kernels.cu", "retr_tpu_torch/csrc/attention_kernels.cu"
+STACK_SRC, BLOCK_SRC = "retr_tpu_torch/csrc/stack_kernels.cu", "retr_tpu_torch/csrc/block_kernels.cu"
 KERNELS = {  # wrapper -> (the Pallas kernel it replaces, CUDA source, the main path's case (dtype, rows or shape))
     "fused_stack_step": ("retr_tpu/ops/decoder_kernels.py:1026", STACK_SRC, ("bfloat16", 32)),
-    "self_attn_block": ("retr_tpu/ops/decoder_kernels.py:228", DEC_SRC, ("bfloat16", 32)),
+    "self_attn_block": ("retr_tpu/ops/decoder_kernels.py:228", BLOCK_SRC, ("bfloat16", 32)),
     # the default beam path's shape: batch 32 x beam 5
     "cross_attn_block": ("retr_tpu/ops/decoder_kernels.py:450", BLOCK_SRC, ("bfloat16", 32 * BEAM)),
     "ff_block": ("retr_tpu/ops/decoder_kernels.py:96", BLOCK_SRC, ("bfloat16", 32 * BEAM)),
@@ -267,9 +273,14 @@ def measure(name, dname, rows, kern, plain, lib, nl, err_fn=None, extra=None):
     return rec
 
 
+SELF_KERNEL = "self_beam_kernel"   # the CUDA function behind self_attn_block and self_attn_block_beam
+
+
 def check_kernels(dev):
     """The stacked step, fused_layer_step and self_attn_block at batch 32 and
-    512. Returns {(name, dtype, rows): record}."""
+    512 (self_attn_block with its cluster plan and profiled device time; the
+    six layers' caches it cycles, 25 MB at 32 rows in bf16, stay in the 50 MB
+    L2, 403 MB at 512 rows come from HBM). Returns {(name, dtype, rows): record}."""
     import torch
     import torch.nn.functional as Fn
 
@@ -318,6 +329,10 @@ def check_kernels(dev):
                     layers = L if name == "fused_stack_step" else 1
                     grid = dk.stack_grid(dtype, b, T, S, F, layers)
                     extra = {"grid": grid, **stack_detail(lambda: kern(0), grid)}
+                elif name == "self_attn_block":
+                    extra = {"plan": dk.block_plan(name, dtype, b, t=T),
+                             "device_ms": device_ms(lambda: [kern(li) for li in range(L)], SELF_KERNEL),
+                             "library": "SDPA over the cache prefix: the attention core alone, not the same function"}
                 out[(name, dname, b)] = measure(name, dname, b, kern, plain, lib, nl, extra=extra)
     return out
 
@@ -437,8 +452,10 @@ BLOCK_TILES = {"ff_block": (16, 32, 64), "cross_attn_block": (4, 8, 16, 32)}   #
 def block_rows(dev, card):
     """--block-rows: ff_block and cross_attn_block device time (bf16,
     torch.profiler) at every row tile they are built for and at their own
-    choice, at BLOCK_ROWS rows, the six layers' weights and K/V cycled as the
-    decode loop cycles them. One line per (kernel, rows, tile)."""
+    choice, at BLOCK_ROWS rows, and self_attn_block's (f32 and bf16, step 63)
+    at every tile of SELF_TILES and its own choice at 32 and 512 rows, the six
+    layers' weights and K/V or caches cycled as the decode loop cycles them.
+    One line per (kernel, dtype, rows, tile)."""
     import torch
 
     from retr_tpu_torch.ops import decoder_kernels as dk
@@ -467,6 +484,26 @@ def block_rows(dev, card):
                                               "plan": plan, "card": card}))
         del ck, cv
         torch.cuda.empty_cache()
+    step = torch.tensor(CHECK_STEP, dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        layers_ = [dk.layer_params(random_decoder(gen, dev, dtype), li)["self_attn"] for li in range(L)]
+        for b in (32, 512):
+            rn = lambda *shape, s=1.0: (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)  # noqa: E731
+            x, qpos, kc, vc = rn(b, C), rn(C, s=0.5), rn(L, b, H, T, D), rn(L, b, H, T, D)
+            call = lambda: [dk.self_attn_block(layers_[li], x, qpos, kc[li], vc[li], step,  # noqa: E731
+                                               num_heads=H) for li in range(L)]
+            for tile in SELF_TILES + (0,):
+                dk._beam_rows = tile
+                try:
+                    ms = device_ms(call, SELF_KERNEL)
+                    plan = dk.block_plan("self_attn_block", dtype, b, t=T)
+                finally:
+                    dk._beam_rows = 0
+                log("block_rows", json.dumps({"kernel": "self_attn_block", "dtype": str(dtype)[6:], "rows": b,
+                                              "tile": tile or f"own choice ({plan['rows']})", "device_ms": ms,
+                                              "plan": plan, "card": card}))
+            del kc, vc
+            torch.cuda.empty_cache()
 
 
 def check_block_edges(dev):
@@ -709,7 +746,7 @@ def check_beam_and_heads(dev):
             beam_kern = lambda li: dk.self_attn_block_beam(  # noqa: E731
                 layers_[li]["self_attn"], x, anc, qpos, kc_k[li], vc_k[li], step, num_heads=H, num_beams=BEAM)
             extra = {"plan": dk.block_plan("self_attn_block_beam", dtype, bk, t=T, num_beams=BEAM),
-                     "device_ms": device_ms(lambda: [beam_kern(li) for li in range(L)], "self_beam_kernel")}
+                     "device_ms": device_ms(lambda: [beam_kern(li) for li in range(L)], SELF_KERNEL)}
             out[("self_attn_block_beam", dname, bk)] = measure(
                 "self_attn_block_beam", dname, bk, beam_kern,
                 lambda li: dk.self_attn_block_beam_plain(layers_[li]["self_attn"], x, anc, qpos, kc_p[li], vc_p[li],
@@ -814,6 +851,111 @@ def check_beam_edges(dev):
                             raise AssertionError(f"self_attn_block_beam {key} groups {groups} step {step} "
                                                  f"{ancestry}: {({k: v for k, v in got.items() if k != 'out'})}")
     log("beam_edges", json.dumps({"cases": cases, "row_tiles": sorted(tiles), "worst_err_over_tol": worst}))
+
+
+SELF_EDGE_ROWS = (1, 5, 17, 32, 33, 512)
+SELF_TILES = (1, 2, 4, 8, 16, 32)     # the row tiles self_attn_block's rule picks from
+
+
+def self_max_t(dtype):
+    """The longest cache self_attn_block's cluster kernel takes on this card:
+    the largest T for which block_plan is not refused and a cluster fits
+    (binary search; the shared scores grow with T)."""
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    def fits(t):
+        try:
+            return dk.block_plan("self_attn_block", dtype, 32, t=t)["resident_clusters"] >= 1
+        except RuntimeError:
+            return False
+
+    lo, hi = T, 1 << 16
+    if not fits(lo) or fits(hi):
+        raise AssertionError(f"self_attn_block {dtype}: takes T = {T}: {fits(lo)}, T = {hi}: {fits(hi)}")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def self_case(dev, seed, lp, rows, step, t, tile=0):
+    """self_attn_block twice (``tile``: dk._beam_rows for the launch) and
+    self_attn_block_plain on inputs made from ``seed``, caches of ``t``
+    positions: ``err`` and ``tol`` over the output and the written slot,
+    ``same`` (the two launches bit-equal, output and caches), ``untouched``
+    (no other cache slot changed, x unwritten), ``out`` and ``plan``.
+    Launches the kernel twice."""
+    import torch
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+    from retr_tpu_torch.precision import matmul_precision
+
+    dtype = lp["mha"]["q"]["w"].dtype
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, C, generator=gen, device=dev).to(dtype)
+    qpos = (torch.randn(C, generator=gen, device=dev) * 0.5).to(dtype)
+    kc, vc = (torch.randn(rows, H, t, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+    x0, stept = x.clone(), torch.tensor(step, dtype=torch.int32, device=dev)
+    runs = [(kc.clone(), vc.clone()) for _ in range(3)]
+    old = dk._beam_rows
+    dk._beam_rows = tile
+    try:
+        got, again = (dk.self_attn_block(lp, x, qpos, *runs[i], stept, num_heads=H)[0] for i in (0, 1))
+        plan = dk.block_plan("self_attn_block", dtype, rows, t=t)
+    finally:
+        dk._beam_rows = old
+    with matmul_precision(torch.float32):
+        want = dk.self_attn_block_plain(lp, x, qpos, *runs[2], stept, num_heads=H)[0]
+    torch.cuda.synchronize()
+    err, tol = _tensor_err((got, runs[0][0][:, :, step], runs[0][1][:, :, step]),
+                           (want, runs[2][0][:, :, step], runs[2][1][:, :, step]), str(dtype)[6:])
+    keep = torch.arange(t, device=dev) != step
+    same = torch.equal(_bits(got), _bits(again)) and all(torch.equal(_bits(runs[0][i]), _bits(runs[1][i]))
+                                                         for i in (0, 1))
+    untouched = torch.equal(_bits(x), _bits(x0)) and all(
+        torch.equal(_bits(runs[0][i][:, :, keep]), _bits(orig[:, :, keep])) for i, orig in enumerate((kc, vc)))
+    return {"err": err, "tol": tol, "same": same, "untouched": untouched, "out": got, "plan": plan}
+
+
+def check_self_edges(dev):
+    """self_attn_block, untimed, against its plain version (self_case) at
+    SELF_EDGE_ROWS rows, steps 0, 63, 127 and T-1, T = 128 and the longest T
+    the kernel takes (self_max_t), f32 and bf16, at every tile of SELF_TILES
+    and the kernel's own choice on the same inputs: each within TOL, a second
+    launch bit-equal, only slot ``step`` written, x unwritten, and the same
+    output bits at every tile. Prints one line; raises on a miss."""
+    import torch
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    worst, cases, longest, own = {}, 0, {}, set()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        lp = dk.layer_params(random_decoder(gen, dev, dtype), 0)["self_attn"]
+        longest[dname] = self_max_t(dtype)
+        for t in (T, longest[dname]):
+            for rows in SELF_EDGE_ROWS:
+                for step in sorted({0, CHECK_STEP, T - 1, t - 1}):
+                    first = None
+                    for tile in (0,) + SELF_TILES:
+                        got = self_case(dev, 100 + rows + step, lp, rows, step, t, tile)
+                        first = got["out"] if first is None else first
+                        bits = torch.equal(_bits(got["out"]), _bits(first))
+                        key = f"{dname} T={'longest' if t > T else t}"
+                        worst[key] = max(worst.get(key, 0.0), got["err"] / got["tol"])
+                        cases += 1
+                        if tile == 0:
+                            own.add(got["plan"]["rows"])
+                        if not (got["err"] <= got["tol"] and got["same"] and got["untouched"] and bits):
+                            raise AssertionError(f"self_attn_block {key} rows {rows} step {step} tile {tile}: "
+                                                 f"{({k: v for k, v in got.items() if k != 'out'})}, "
+                                                 f"bits of the own-choice tile {bits}")
+                        del got
+                    del first
+                torch.cuda.empty_cache()
+    log("self_edges", json.dumps({"cases": cases, "longest_t": longest, "own_row_tiles": sorted(own),
+                                  "worst_err_over_tol": worst}))
 
 
 def check_head_edges(dev):
@@ -1565,10 +1707,11 @@ def stack_digest(dev) -> dict:
 
 def kernel_times(tree) -> int:
     """Device time per launch (torch.profiler) and CUDA-event time per call of
-    fused_attention at batch 32 (ATTN_SHAPES, f32 and bf16, beside SDPA's)
-    and of self_attn_block_beam at 160 and 2560 rows (step 63, the six
-    layers' weights and caches cycled) in the retr_tpu_torch package under
-    ``tree``: the same seeded inputs for every tree."""
+    fused_attention at batch 32 (ATTN_SHAPES, f32 and bf16, beside SDPA's),
+    of self_attn_block_beam at 160 and 2560 rows and of self_attn_block at
+    32 and 512 rows (step 63, the six layers' weights and caches cycled) in
+    the retr_tpu_torch package under ``tree``: the same seeded inputs for
+    every tree."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import torch.nn.functional as Fn
@@ -1611,6 +1754,20 @@ def kernel_times(tree) -> int:
                    "device_ms": device_ms(call, ""), "ms_events": time_ms(call) / L, "card": card}
             if "self_attn_block_beam" in getattr(dk, "_PLAN_KIND", {}):
                 rec["plan"] = dk.block_plan("self_attn_block_beam", dtype, bk, t=T, num_beams=BEAM)
+            log("kernel_times", json.dumps(rec))
+            del kc, vc
+            torch.cuda.empty_cache()
+        for b in (32, 512):
+            x, qpos = torch.randn(b, C, generator=gen, device=dev).to(dtype), torch.zeros(C, device=dev).to(dtype)
+            kc, vc = (torch.randn(L, b, H, T, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+            step = torch.tensor(CHECK_STEP, dtype=torch.int32, device=dev)
+            call = lambda: [dk.self_attn_block(layers_[li], x, qpos, kc[li], vc[li], step,  # noqa: E731
+                                               num_heads=H) for li in range(L)]
+            rec = {"tree": tree, "kernel": "self_attn_block", "dtype": dname, "rows": b,
+                   "device_ms": device_ms(call, ""), "ms_events": time_ms(call) / L,
+                   "cycled_cache_mb": 2 * kc.numel() * kc.element_size() / 1e6, "card": card}
+            if "self_attn_block" in getattr(dk, "_PLAN_KIND", {}):
+                rec["plan"] = dk.block_plan("self_attn_block", dtype, b, t=T)
             log("kernel_times", json.dumps(rec))
             del kc, vc
             torch.cuda.empty_cache()
@@ -1658,6 +1815,7 @@ def main(mode=None) -> int:
     check_head_edges(dev)
     check_attention_edges(dev)
     check_beam_edges(dev)
+    check_self_edges(dev)
     torch.cuda.empty_cache()
 
     state = random_state(served_config("bfloat16"))                        # phase 4

@@ -3,7 +3,8 @@
 Serves referring expressions (greedy and beam): host preprocessing, a ResNet
 backbone, the 6-layer encoder run once, and a KV-cached loop whose decoder
 layers run in hand-written CUDA kernels (``ops/decoder_kernels.py``,
-``csrc/decoder_kernels.cu``, ``csrc/head_kernels.cu``). Trains and evaluates
+``csrc/stack_kernels.cu``, ``csrc/block_kernels.cu``, ``csrc/head_kernels.cu``,
+and ``csrc/width_kernels.cu`` at other widths). Trains and evaluates
 the teacher-forced model (``train/state.py``); with
 ``Config.use_pallas_attention`` every attention core without attention dropout
 runs in the fused attention kernel (``ops/attention.py``,

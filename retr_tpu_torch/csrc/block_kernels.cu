@@ -1,8 +1,9 @@
-// The cross-attention, FF and beam self-attention residual blocks of one
-// decode position for Hopper (sm_90a), each one launch of thread-block clusters.
+// The cross-attention, FF and self-attention residual blocks of one decode
+// position for Hopper (sm_90a), each one launch of thread-block clusters.
 //
 //   rt_ff_block         <- retr_tpu/ops/decoder_kernels.py ff_block (_ff_kernel)
 //   rt_cross_attn_block <- retr_tpu/ops/decoder_kernels.py cross_attn_block (_cross_kernel)
+//   rt_self_attn_block  <- retr_tpu/ops/decoder_kernels.py self_attn_block (_self_kernel)
 //   rt_self_attn_block_beam <- retr_tpu/ops/decoder_kernels.py self_attn_block_beam
 //                          (_make_self_beam_kernel)
 //
@@ -10,9 +11,9 @@
 // bf16 at F = 2048, against 4*B*C*F operations), operations above (0.0054 ms
 // at 2560 rows in bf16). cross_attn_block: bytes, the memory K/V (2*B*H*S*D
 // elements: 32.7 MB at 160 rows and S = 196 in bf16, 0.0098 ms at 3.35 TB/s).
-// self_attn_block_beam: bytes, the four [256, 256] weights below ~100 rows,
-// the ancestry-gathered cache rows above (2*B*H*step*D elements: 168 MB at
-// 2560 rows, step 63, bf16; 0.050 ms).
+// self_attn_block(_beam): bytes, the four [256, 256] weights below ~100 rows,
+// the cache rows above (2*B*H*step*D elements: 33.5 MB at 512 rows, step 63,
+// bf16, 0.0103 ms; gathered by ancestry, 168 MB at 2560 rows, 0.050 ms).
 //
 // Design. The TPU kernels hold the whole FF width in VMEM (ff_block) or walk
 // the heads as a sequential grid axis, accumulating the out-projection into
@@ -40,8 +41,8 @@
 //     start. Rank r then finishes columns [32r, 32r+32):
 //     rnd(rnd(x + bo) + part_0), then rnd(acc + rnd(part_h)) for h = 1..7,
 //     the TPU split kernels' rounding in head order.
-//   self_beam_kernel: one cluster of 8 blocks, one per head, per tile of R
-//     rows, R a whole number of beam groups (up to 32 rows). Block h:
+//   self_beam_kernel<T, Anc>: one cluster of 8 blocks, one per head, per tile
+//     of R rows, R a whole number of beam groups (up to 32 rows). Block h:
 //     LayerNorm + qpos (rounded) into q_h (times 32**-0.5) and k_h, LayerNorm
 //     alone into v_h, from the 32-column slices of Wq, Wk, Wv, in f32 (bf16:
 //     the three slices in flight at once, then one pass on tensor cores with
@@ -56,18 +57,27 @@
 //     part_h (Wo's rows loaded during the attention) and the reduction as
 //     cross_kernel. The row tile is up to 32 rows: the products' and the
 //     reduction's fixed costs are the block's, the attention the rows'.
+//     self_attn_block is the same kernel without the ancestry (Anc false:
+//     beam groups of one row, the Pallas _self_kernel): each row reads
+//     positions 0..step-1 from its own cache row, a contiguous 64 bytes a
+//     position and head in bf16, and no ancestry table is read or kept.
 // Products: bf16 on tensor cores (mma.sync.m16n8k16, ldmatrix / ldmatrix.trans
 // from shared memory), f32 on CUDA cores (TF32 would break the f32 parity).
 // Every warp of a row product owns 32 output columns over the whole K, so no
 // partials cross warps. The row tile R is the smallest whose clusters all fit
-// on the card at once (launch): 16-64 rows (ff), 4-32 (cross). No grid
+// on the card at once (launch, launch_beam): 16-64 rows (ff), 4-32 (cross),
+// whole beam groups up to 32 (self beam); for self_attn_block the smallest
+// whose clusters fit at one block an SM (4 rows at batch 32). No grid
 // barrier, no float atomics, no device scratch: every sum runs in an order
 // fixed by F and S, so repeated launches give the same bits, and so does any
 // row tile R. A second cluster.sync() keeps each block's partial alive until
 // its peers have read it. Only slot `step` of each self cache is written.
 //
 // Fixed widths: C = 256, 8 heads of 32; F a multiple of 256; beam groups of
-// 1..8 rows. The wrappers in ops/decoder_kernels.py check every shape.
+// 1..8 rows; T up to the self kernels' shared-memory limit (BeamLayout:
+// scores [8][T] f32 and, with the ancestry, src [32][T] bytes). The wrappers
+// in ops/decoder_kernels.py check every shape; a launch past the limit is
+// refused.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -435,22 +445,22 @@ constexpr int kQkvLda = C + 8, kQkvLdw = HD + 8;
 constexpr size_t kQkvBytes = (size_t)BR * kQkvLda * 2 + (size_t)3 * C * kQkvLdw * 2;
 
 // Shared memory, byte offsets: q, the new k and v and the attention output
-// [BR][HD] in f32 at 0, the out-projection operand [BR][HD + PAD], the rows'
-// local source rows [BR][T] (bytes), then one region used in turn by the
-// products (bf16: qkv's tiles; f32: product_unit's activation tile, ring and
+// [BR][HD] in f32 at 0, the out-projection operand [BR][HD + PAD], with the
+// ancestry the rows' local source rows [BR][T] (bytes), then one region used
+// in turn by the products (bf16: qkv's tiles; f32: product_unit's activation tile, ring and
 // warp partials), by the warps' scores [NW][T] beside the head's Wo rows
 // [HD][C + PAD] (loaded after the products), and by the f32 partial [BR][C]
 // that the peers read.
 template <typename T> struct BeamLayout {
   size_t kn, vn, att, at, src, u, ring, scores, wo, total;
-  __host__ __device__ explicit BeamLayout(int tmax) {
+  __host__ __device__ BeamLayout(int tmax, bool anc) {
     using Tl = Tile<T>;
     kn = (size_t)BR * HD * sizeof(float);
     vn = 2 * kn;
     att = 3 * kn;
     at = 4 * kn;
     src = at + align16((size_t)BR * (HD + Tl::PAD) * sizeof(T));
-    u = src + align16((size_t)BR * tmax);
+    u = src + (anc ? align16((size_t)BR * tmax) : 0);
     ring = (size_t)(C / Tl::KC < NS ? C / Tl::KC : NS) * Tl::KC * Tl::WLD * sizeof(T);
     scores = align16((size_t)tmax * sizeof(float));
     wo = NW * scores;
@@ -512,18 +522,25 @@ __device__ void qkv_compute(char* u, Fill fill, Epi epi) {
   __syncthreads();                                // the outputs are in; the region is free
 }
 
-// One beam row's attention for head h over positions 0..step: position t from
-// the cache row row0 + src[t] (src: the tile's local source rows, clamped into
-// the row's group), position `step` from the f32 kn / vn rows [src[step]] of
-// the block's shared memory. Lane = (8-dim group g, position class ts), eight
-// positions per warp step, VU steps' loads issued before their sums (as
-// attend): 128 bytes a lane in flight in either type.
-template <typename T>
+// Local row r's attention for head h over positions 0..step. With Anc (the
+// beam block) position t comes from the cache row row0 + src[t] (src: the
+// tile's local source rows, clamped into the row's group) and position `step`
+// from the f32 kn / vn rows [src[step]] of the block's shared memory; without
+// it (self_attn_block) every position from the row's own cache row row0 + r
+// and position `step` from kn / vn row r. Lane = (8-dim group g, position
+// class ts), eight positions per warp step, VU steps' loads issued before
+// their sums (as attend): 128 bytes a lane in flight in either type.
+template <typename T, bool Anc>
 __device__ void beam_attend(float* sc, const float* q, int step, const T* kc, const T* vc, int tmax, int h,
-                            const int8_t* src, int row0, const float* kn, const float* vn, float* out) {
+                            const int8_t* src, int r, int row0, const float* kn, const float* vn, float* out) {
   constexpr int VU = sizeof(T) == 2 ? 8 : 4;
   const int lane = threadIdx.x & 31, g = lane & 3, ts = lane >> 2, n = step + 1;
-  auto at_pos = [&](int t) { return (((size_t)(row0 + src[t]) * NH + h) * tmax + t) * HD + g * 8; };
+  auto row_of = [&](int t) -> int {
+    if constexpr (Anc) return src[t];
+    else return r;
+  };
+  auto at_pos = [&](int t) { return (((size_t)(row0 + row_of(t)) * NH + h) * tmax + t) * HD + g * 8; };
+  const int cur = row_of(step);                   // the fresh k/v row in shared memory
   float qv[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) qv[j] = q[g * 8 + j];
@@ -543,7 +560,7 @@ __device__ void beam_attend(float* sc, const float* q, int step, const T* kc, co
         kr[u].get(k8);
       } else {                                    // the fresh slot (past n: unused)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) k8[j] = kn[src[step] * HD + g * 8 + j];
+        for (int j = 0; j < 8; ++j) k8[j] = kn[cur * HD + g * 8 + j];
       }
       float d = 0.f;
 #pragma unroll
@@ -586,7 +603,7 @@ __device__ void beam_attend(float* sc, const float* q, int step, const T* kc, co
           vr[u].get(v8);
         } else {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) v8[j] = vn[src[step] * HD + g * 8 + j];
+          for (int j = 0; j < 8; ++j) v8[j] = vn[cur * HD + g * 8 + j];
         }
         const float p = sc[t];
 #pragma unroll
@@ -605,7 +622,8 @@ __device__ void beam_attend(float* sc, const float* q, int step, const T* kc, co
 }
 
 // a.rows: the rows of a tile (whole beam groups, at most BR); two blocks an SM.
-template <typename T>
+// Anc: the beam block (a.anc read); else self_attn_block (groups of one row).
+template <typename T, bool Anc>
 __global__ void __launch_bounds__(NT, 2) self_beam_kernel(const BlockArgs a) {
   using Wd = Wide<T>;
   using Tl = Tile<T>;
@@ -613,7 +631,7 @@ __global__ void __launch_bounds__(NT, 2) self_beam_kernel(const BlockArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
   const int h = (int)cluster.block_rank(), R = a.rows, row0 = (int)(blockIdx.x / NH) * R;
   const int nrows = min(R, a.B - row0), step = *a.step;
-  const BeamLayout<T> lay(a.T);
+  const BeamLayout<T> lay(a.T, Anc);
   char* base = reinterpret_cast<char*>(smem_raw);
   float* qs = reinterpret_cast<float*>(base);
   float* kn = reinterpret_cast<float*>(base + lay.kn);
@@ -634,12 +652,14 @@ __global__ void __launch_bounds__(NT, 2) self_beam_kernel(const BlockArgs a) {
 
   // the local source row of each (row, position <= step): the row's group base
   // + its ancestor, clamped into the group so no value of anc reaches outside it
-  const int n = step + 1;
-  for (int i = threadIdx.x; i < nrows * n; i += NT) {
-    const int r = i / n, t = i % n;
-    src[r * a.T + t] = (int8_t)(r / a.K * a.K + min(max(__ldg(a.anc + (size_t)(row0 + r) * a.T + t), 0), a.K - 1));
+  if constexpr (Anc) {
+    const int n = step + 1;
+    for (int i = threadIdx.x; i < nrows * n; i += NT) {
+      const int r = i / n, t = i % n;
+      src[r * a.T + t] = (int8_t)(r / a.K * a.K + min(max(__ldg(a.anc + (size_t)(row0 + r) * a.T + t), 0), a.K - 1));
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // q_h = ((LN(x) + qpos) Wq + bq) * HD**-0.5, k_h = (LN(x) + qpos) Wk + bk,
   // v_h = LN(x) Wv + bv: the 32 columns of head h (bf16: qkv_compute on tensor
@@ -687,10 +707,10 @@ __global__ void __launch_bounds__(NT, 2) self_beam_kernel(const BlockArgs a) {
     vc[off] = from_f<T>(vn[i]);
   }
 
-  // a warp per row: the ancestry-gathered attention
+  // a warp per row: the attention (gathered by ancestry with Anc)
   float* sc = reinterpret_cast<float*>(u + (threadIdx.x >> 5) * lay.scores);
   for (int r = threadIdx.x >> 5; r < nrows; r += NW)
-    beam_attend<T>(sc, qs + r * HD, step, kc, vc, a.T, h, src + r * a.T, row0, kn, vn, att + r * HD);
+    beam_attend<T, Anc>(sc, qs + r * HD, step, kc, vc, a.T, h, src + r * a.T, r, row0, kn, vn, att + r * HD);
   __syncthreads();
 
   // part_h = rnd(attn_h) Wo[32h:32h+32, :], f32 (rows past the tile zero)
@@ -740,14 +760,22 @@ struct Plan {
   int dev = -1, cluster = 0, fit = 0;
 };
 
+// A refused call's code, with the runtime's last error cleared, so that the
+// next launch's cudaGetLastError() reports that launch alone.
+int refused(cudaError_t e) {
+  cudaGetLastError();
+  return (int)e;
+}
+
 // One launch of `clusters` clusters of `cluster` blocks, or with `out` set
 // only the plan: out[3] = co-resident clusters, out[4] = shared bytes per block.
-// A shape where no cluster fits on the card is refused.
+// A shape where no cluster fits on the card (more shared bytes than a block
+// may have) is refused.
 int launch_clusters(const void* kern, Plan& p, const BlockArgs& a, int cluster, int clusters, size_t bytes,
                     cudaStream_t st, int* out) {
   if (bytes > p.granted) {
     const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess) return refused(e);
     p.granted = bytes;
   }
   cudaLaunchAttribute attr[1];
@@ -770,7 +798,7 @@ int launch_clusters(const void* kern, Plan& p, const BlockArgs& a, int cluster, 
     p.bytes = bytes;
     p.cluster = cluster;
   }
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return refused(e);
   if (out != nullptr) {
     out[3] = p.fit;
     out[4] = (int)bytes;
@@ -810,7 +838,7 @@ int cross_launch(const BlockArgs& a, cudaStream_t st, int* out) {
 }
 
 // a.rows: the rows of a tile, whole beam groups
-template <typename T>
+template <typename T, bool Anc>
 int beam_launch(const BlockArgs& a, cudaStream_t st, int* out) {
   static Plan plan;
   const int tiles = (a.B + a.rows - 1) / a.rows;
@@ -819,28 +847,40 @@ int beam_launch(const BlockArgs& a, cudaStream_t st, int* out) {
     out[1] = NH;
     out[2] = tiles;
   }
-  return launch_clusters((const void*)self_beam_kernel<T>, plan, a, NH, tiles, BeamLayout<T>(a.T).total, st, out);
+  return launch_clusters((const void*)self_beam_kernel<T, Anc>, plan, a, NH, tiles, BeamLayout<T>(a.T, Anc).total,
+                         st, out);
 }
 
 // The row tile: a.rows where set (a whole number of groups, at most BR rows),
 // else as launch: the smallest of K, 2K, 4K, ... whose clusters all fit on the
-// card at once, else the most whole groups that fit BR rows.
-template <typename T>
+// card at once, else the most whole groups that fit BR rows. Without the
+// ancestry (self_attn_block, groups of one row) the smallest of 1, 2, 4, ...
+// whose clusters take at most half the co-resident ones, as if one block an
+// SM: on the H100 at 32 rows 2-row tiles (16 of 30 clusters) took 0.0148 ms
+// in bf16, 4-row tiles 0.0120 and 8-row ones 0.0122; at 512 rows the 32-row
+// tile was the fastest of all (chip_smoke.py --block-rows).
+template <typename T, bool Anc>
 int launch_beam(const BlockArgs& a, cudaStream_t st, int* out) {
-  if (a.B < 1 || a.T < 1 || a.K < 1 || a.K > 8 || a.B % a.K != 0) return (int)cudaErrorInvalidValue;
+  if (a.B < 1 || a.T < 1 || a.K < 1 || a.K > 8 || a.B % a.K != 0 || (!Anc && a.K != 1))
+    return (int)cudaErrorInvalidValue;
   BlockArgs b = a;
   if (b.rows <= 0) {
     const int rmax = BR / a.K * a.K;
     for (b.rows = a.K; b.rows < rmax; b.rows = min(2 * b.rows, rmax)) {
       int plan[5];
-      const int rc = beam_launch<T>(b, st, plan);
+      const int rc = beam_launch<T, Anc>(b, st, plan);
       if (rc != 0) return rc;
-      if ((a.B + b.rows - 1) / b.rows <= plan[3]) break;
+      if ((a.B + b.rows - 1) / b.rows <= (Anc ? plan[3] : plan[3] / 2)) break;
     }
   } else if (b.rows % a.K != 0 || b.rows > BR) {
     return (int)cudaErrorInvalidValue;
   }
-  return beam_launch<T>(b, st, out);
+  return beam_launch<T, Anc>(b, st, out);
+}
+
+template <bool Anc>
+int launch_self(const BlockArgs& a, int bf16, cudaStream_t st, int* out) {
+  return bf16 ? launch_beam<__nv_bfloat16, Anc>(a, st, out) : launch_beam<float, Anc>(a, st, out);
 }
 
 template <typename T>
@@ -893,15 +933,21 @@ int rt_cross_attn_block(const BlockArgs* a, int bf16, void* stream) {
   return bf16 ? launch<__nv_bfloat16>(*a, true, st, nullptr) : launch<float>(*a, true, st, nullptr);
 }
 int rt_self_attn_block_beam(const BlockArgs* a, int bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_beam<__nv_bfloat16>(*a, st, nullptr) : launch_beam<float>(*a, st, nullptr);
+  if (a->anc == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_self<true>(*a, bf16, static_cast<cudaStream_t>(stream), nullptr);
+}
+// a->K = 1; a->anc is not read
+int rt_self_attn_block(const BlockArgs* a, int bf16, void* stream) {
+  return launch_self<false>(*a, bf16, static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// The launch rt_ff_block (kind 0), rt_cross_attn_block (1) or
-// rt_self_attn_block_beam (2) would make: out = {rows per tile, blocks per
-// cluster, clusters, co-resident clusters, shared bytes per block}.
+// The launch rt_ff_block (kind 0), rt_cross_attn_block (1),
+// rt_self_attn_block_beam (2) or rt_self_attn_block (3) would make: out =
+// {rows per tile, blocks per cluster, clusters, co-resident clusters, shared
+// bytes per block}.
 int rt_block_plan(const BlockArgs* a, int kind, int bf16, int* out) {
-  if (kind == 2) return bf16 ? launch_beam<__nv_bfloat16>(*a, nullptr, out) : launch_beam<float>(*a, nullptr, out);
+  if (kind == 2) return launch_self<true>(*a, bf16, nullptr, out);
+  if (kind == 3) return launch_self<false>(*a, bf16, nullptr, out);
   return bf16 ? launch<__nv_bfloat16>(*a, kind == 1, nullptr, out) : launch<float>(*a, kind == 1, nullptr, out);
 }
 

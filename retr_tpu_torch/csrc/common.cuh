@@ -1,6 +1,5 @@
-// Device helpers shared by the CUDA sources: storage conversions, 16-byte
-// loads of eight elements and warp reductions (decoder_kernels.cu,
-// stack_kernels.cu, block_kernels.cu); the model's fixed widths, the
+// Device helpers shared by the CUDA sources: storage conversions and warp
+// reductions (every source); the model's fixed widths, the
 // tensor-core product unit, the LayerNorm fill and the one-query attention
 // loop (stack_kernels.cu and block_kernels.cu). ops/cuda_build.py hashes this
 // header into every library's name, so an edit here rebuilds them all.
@@ -24,24 +23,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 // Round to the storage type and back: the identity in f32.
 template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
-
-// Eight consecutive elements starting at a 16-byte aligned address.
-__device__ __forceinline__ void load8(const float* p, float* o) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
-  const uint4 u = reinterpret_cast<const uint4*>(p)[0];
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

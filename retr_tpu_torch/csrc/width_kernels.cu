@@ -1,7 +1,7 @@
 // The decoder-layer kernels at any model width, for Hopper (sm_90a): the
 // widths, head count, FF width, cache length and memory length are run-time
 // values. The wrappers of ops/decoder_kernels.py launch these where the tuned
-// kernels (stack_kernels.cu, decoder_kernels.cu, block_kernels.cu: C = 256, 8
+// kernels (stack_kernels.cu, block_kernels.cu: C = 256, 8
 // heads of 32, F a multiple of 256) do not take the model, as the Pallas
 // kernels of retr_tpu/ops/decoder_kernels.py take any width.
 //

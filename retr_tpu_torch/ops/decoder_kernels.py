@@ -14,9 +14,9 @@ the greedy and beam serving paths run:
   stacked kernel with one layer)
 
 The stacked step (``fused_stack_step``, ``fused_layer_step``) is
-csrc/stack_kernels.cu, the self-attention block csrc/decoder_kernels.cu, the
-cross-attention, FF and beam self-attention blocks csrc/block_kernels.cu, the
-head kernels csrc/head_kernels.cu. Those decoder-layer kernels are tuned for the served
+csrc/stack_kernels.cu, the cross-attention, FF and self-attention blocks
+(greedy and beam) csrc/block_kernels.cu, the head kernels
+csrc/head_kernels.cu. Those decoder-layer kernels are tuned for the served
 width (:func:`decode_kernels_fit`: C = 256, 8 heads, F a multiple of 256, beam
 groups of 1..8); at any other width the same wrappers launch
 csrc/width_kernels.cu, which takes the widths, head count, FF width and
@@ -339,14 +339,6 @@ def fused_stack_step_plain(slp: Params, x, qpos, k_cache, v_cache, cross_k, cros
 _SELF_PTRS = ("x", "y", "qpos", "ln1s", "ln1b", "swq", "sbq", "swk", "sbk", "swv", "sbv", "swo", "sbo")
 
 
-class _Args(ctypes.Structure):
-    """Mirror of ``struct Args`` in csrc/decoder_kernels.cu (same field order)."""
-
-    _fields_ = [(n, ctypes.c_int) for n in ("B", "T")] + [
-        (n, ctypes.c_void_p) for n in _SELF_PTRS + ("kc", "vc", "step")
-    ]
-
-
 class _StackArgs(ctypes.Structure):
     """Mirror of ``struct StackArgs`` in csrc/stack_kernels.cu (same field
     order): every layer parameter, the caches, then the kernel's f32 scratch."""
@@ -399,9 +391,8 @@ class _WidthArgs(ctypes.Structure):
 
 # source -> (argument struct, entry points, error-string function)
 _LIBS = {
-    "decoder_kernels": (_Args, ("rt_self_attn_block",), "rt_error_string"),
-    "block_kernels": (_BlockArgs, ("rt_ff_block", "rt_cross_attn_block", "rt_self_attn_block_beam"),
-                      "rt_block_error_string"),
+    "block_kernels": (_BlockArgs, ("rt_ff_block", "rt_cross_attn_block", "rt_self_attn_block",
+                                   "rt_self_attn_block_beam"), "rt_block_error_string"),
     "stack_kernels": (_StackArgs, ("rt_stack_step",), "rt_stack_error_string"),
     "head_kernels": (_HeadArgs, ("rt_head_trunk", "rt_head_blocks"), "rt_head_error_string"),
     "attention_kernels": (_AttnArgs, ("rt_fused_attention",), "rt_attn_error_string"),
@@ -411,7 +402,7 @@ _LIBS = {
 # wrapper -> (source, entry point)
 _ENTRY = {"fused_stack_step": ("stack_kernels", "rt_stack_step"),
           "fused_layer_step": ("stack_kernels", "rt_stack_step"),
-          "self_attn_block": ("decoder_kernels", "rt_self_attn_block"),
+          "self_attn_block": ("block_kernels", "rt_self_attn_block"),
           "cross_attn_block": ("block_kernels", "rt_cross_attn_block"),
           "ff_block": ("block_kernels", "rt_ff_block"),
           "self_attn_block_beam": ("block_kernels", "rt_self_attn_block_beam")}
@@ -520,8 +511,9 @@ def _launch(kernel: str, ref: torch.Tensor, /, **fields) -> None:
 # of their own choice for the batch; the card tests set it to show that a row's
 # result does not depend on the tile, chip_smoke.py to time each tile.
 _block_rows = 0
-# The same for self_attn_block_beam's cluster kernel: 0, or its rows per tile
-# (a whole number of beam groups, at most 32 rows).
+# The same for the self-attention cluster kernel (self_attn_block_beam, and
+# self_attn_block with groups of one row): 0, or its rows per tile (a whole
+# number of beam groups, at most 32 rows).
 _beam_rows = 0
 
 
@@ -596,23 +588,25 @@ def cross_attn_block(p: Params, x, qpos, k, v, key_bias, *, num_heads: int) -> t
     return y
 
 
-_PLAN_KIND = {"ff_block": 0, "cross_attn_block": 1, "self_attn_block_beam": 2}
+_PLAN_KIND = {"ff_block": 0, "cross_attn_block": 1, "self_attn_block_beam": 2, "self_attn_block": 3}
 
 
 def block_plan(kernel: str, dtype: torch.dtype, b: int, s: int = 1, f: int = 256, t: int = 1,
                num_beams: int = 1) -> Dict[str, int]:
-    """The launch ``kernel`` ("ff_block", "cross_attn_block" or
-    "self_attn_block_beam", whose caches hold ``t`` positions and whose beam
-    groups have ``num_beams`` rows) makes on the current CUDA device for these
-    shapes: rows per tile, blocks per cluster, clusters, clusters co-resident
-    on the card, shared bytes per block."""
+    """The launch ``kernel`` ("ff_block", "cross_attn_block",
+    "self_attn_block_beam" or "self_attn_block", whose caches hold ``t``
+    positions and whose beam groups have ``num_beams`` rows, one for
+    self_attn_block) makes on the current CUDA device for these shapes: rows
+    per tile, blocks per cluster, clusters, clusters co-resident on the card,
+    shared bytes per block. Raises where the kernel does not take the shapes
+    (past the self kernels' longest ``t``)."""
     lib = _lib("block_kernels")
     fn = lib.rt_block_plan
     fn.argtypes = [ctypes.POINTER(_BlockArgs), ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 5)()
-    beam = kernel == "self_attn_block_beam"
-    args = _BlockArgs(B=b, S=s, F=f, rows=_beam_rows if beam else _block_rows, T=t, K=num_beams)
+    self_kind = kernel in ("self_attn_block", "self_attn_block_beam")
+    args = _BlockArgs(B=b, S=s, F=f, rows=_beam_rows if self_kind else _block_rows, T=t, K=num_beams)
     rc = fn(ctypes.byref(args), _PLAN_KIND[kernel], int(dtype == torch.bfloat16), out)
     if rc != 0:
         raise RuntimeError(f"rt_block_plan: {lib.rt_block_error_string(rc).decode()}")
@@ -625,11 +619,14 @@ def self_attn_block(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: in
 
     Replaces retr_tpu/ops/decoder_kernels.py ``self_attn_block``
     (``_self_kernel``). Bound on the card: bytes — the four [C, C] weights and
-    the cache rows up to ``step``. Design: one block per row tile computes
-    q/k/v, writes only the new cache slot (the TPU kernel rewrote whole cache
-    blocks), attends over positions <= step from shared-memory scores, and sums
-    the out-projection head by head. At other widths: rt_width_self
-    (csrc/width_kernels.cu).
+    the cache rows up to ``step``. Design: the cluster kernel of
+    :func:`self_attn_block_beam` (csrc/block_kernels.cu) with beam groups of
+    one row and no ancestry: one cluster of 8 blocks (one per head) per tile
+    of up to 32 rows (:func:`block_plan`), each row reading its own cache row,
+    only the new cache slot written (the TPU kernel rewrote whole cache
+    blocks). Caches longer than the block's shared memory takes for the
+    scores (on the H100 T past 6144 in bf16, 5568 in f32) are refused. At
+    other widths: rt_width_self (csrc/width_kernels.cu).
     """
     if x.device.type == "cpu":
         return self_attn_block_plain(p, x, qpos, k_cache, v_cache, step, num_heads=num_heads)
@@ -638,16 +635,22 @@ def self_attn_block(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: in
     tmax = k_cache.shape[2]
     if k_cache.shape != (b, num_heads, tmax, c // num_heads) or v_cache.shape != k_cache.shape:
         raise ValueError(f"self_attn_block: caches {tuple(k_cache.shape)} do not match x {tuple(x.shape)}")
-    m = p["mha"]
     if not decode_kernels_fit(c, num_heads):
         return _width_self("self_attn_block", p, x, qpos, k_cache, v_cache, step, num_heads, 0, None)
-    t = dict(qpos=qpos, ln1s=p["norm"]["scale"], ln1b=p["norm"]["bias"],
-             swq=m["q"]["w"], sbq=m["q"]["b"], swk=m["k"]["w"], sbk=m["k"]["b"],
-             swv=m["v"]["w"], sbv=m["v"]["b"], swo=m["out"]["w"], sbo=m["out"]["b"],
-             kc=k_cache, vc=v_cache, step=step)
-    _check("self_attn_block", x.dtype, _param_shapes(), x=x, **t)
+    return _self_cluster("self_attn_block", p, x, qpos, k_cache, v_cache, step, 1, None)
+
+
+def _self_cluster(kernel, p, x, qpos, k_cache, v_cache, step, num_beams, anc):
+    """Check and launch the self-attention cluster kernel behind ``kernel``:
+    rt_self_attn_block (``anc`` None), or rt_self_attn_block_beam."""
+    m = p["mha"]
+    t = dict(qpos=qpos, lns=p["norm"]["scale"], lnb=p["norm"]["bias"],
+             wq=m["q"]["w"], bq=m["q"]["b"], wk=m["k"]["w"], bk=m["k"]["b"],
+             wv=m["v"]["w"], bv=m["v"]["b"], wo=m["out"]["w"], bo=m["out"]["b"],
+             kc=k_cache, vc=v_cache, step=step, **({} if anc is None else {"anc": anc}))
+    _check(kernel, x.dtype, _param_shapes(), x=x, **t)
     y = torch.empty_like(x)
-    _launch("self_attn_block", x, B=b, T=tmax, x=x, y=y, **t)
+    _launch(kernel, x, B=x.shape[0], T=k_cache.shape[2], K=num_beams, rows=_beam_rows, x=x, y=y, **t)
     return y, k_cache, v_cache
 
 
@@ -832,15 +835,7 @@ def self_attn_block_beam(p: Params, x, anc, qpos, k_cache, v_cache, step, *, num
                          f"{tuple(anc.shape)} do not match x {tuple(x.shape)}")
     if not decode_kernels_fit(c, num_heads, 256, num_beams):
         return _width_self("self_attn_block_beam", p, x, qpos, k_cache, v_cache, step, num_heads, num_beams, anc)
-    m = p["mha"]
-    t = dict(qpos=qpos, lns=p["norm"]["scale"], lnb=p["norm"]["bias"],
-             wq=m["q"]["w"], bq=m["q"]["b"], wk=m["k"]["w"], bk=m["k"]["b"],
-             wv=m["v"]["w"], bv=m["v"]["b"], wo=m["out"]["w"], bo=m["out"]["b"],
-             kc=k_cache, vc=v_cache, step=step, anc=anc)
-    _check("self_attn_block_beam", x.dtype, _param_shapes(), x=x, **t)
-    y = torch.empty_like(x)
-    _launch("self_attn_block_beam", x, B=bk, T=tmax, K=num_beams, rows=_beam_rows, x=x, y=y, **t)
-    return y, k_cache, v_cache
+    return _self_cluster("self_attn_block_beam", p, x, qpos, k_cache, v_cache, step, num_beams, anc)
 
 
 _SLAB = 128  # vocab columns per block of csrc/head_kernels.cu

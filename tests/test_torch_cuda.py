@@ -26,7 +26,7 @@ from retr_tpu_torch.train import state as tstate
 pytestmark = pytest.mark.cuda
 
 C, H, D, F, T, S, L = 256, 8, 32, 512, 24, 37, 2
-B = 13  # not a multiple of the 4-row tile: the ragged last tile runs too
+B = 13  # not a multiple of the kernels' row tiles: the ragged last tile runs too
 S_MEMORY, S_MEMORY_TT = 196, 2 * 196 + 5  # the served memory lengths: 14x14 features, the (T,T) variant
 
 
@@ -685,6 +685,61 @@ def test_beam_block_rows_per_tile_do_not_change_the_bits(dev, dtype, beams):
     for rows in ([beams + 1] if beams > 1 else []) + [beams * (32 // beams + 1)]:
         with pytest.raises(RuntimeError, match="rt_self_attn_block_beam"):
             chip_smoke.beam_case(dev, gen, lp, beams, 33, 63, "permutation", rows=rows)
+
+
+@pytest.mark.parametrize("step", [0, 63, 127, "T-1"])
+@pytest.mark.parametrize("t", ["128", "longest"])
+@pytest.mark.parametrize("rows", chip_smoke.SELF_EDGE_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_self_block_edges_match_plain_version(dev, dtype, rows, t, step):
+    """chip_smoke.py's self_edges cases at the served width: the cluster
+    kernel at T = 128 and at the longest T it takes, at its own row tile and
+    every tile of its rule on the same inputs, within TOL of the plain
+    version (output and the written slot), repeats bit-equal, the same bits
+    at every tile, no other cache slot and not x written."""
+    tmax = chip_smoke.T if t == "128" else chip_smoke.self_max_t(dtype)
+    step = tmax - 1 if step == "T-1" else step
+    gen = torch.Generator(device=dev).manual_seed(14)
+    lp = dk.layer_params(chip_smoke.random_decoder(gen, dev, dtype), 0)["self_attn"]
+    first = None
+    for tile in (0,) + chip_smoke.SELF_TILES:
+        dk.reset_launches()
+        got = chip_smoke.self_case(dev, 100 + rows + step, lp, rows, step, tmax, tile)
+        assert dk.LAUNCHES["self_attn_block"] == 2 and dk.LAUNCHES["self_attn_block_beam"] == 0
+        assert got["err"] <= got["tol"] and got["same"] and got["untouched"], \
+            {k: v for k, v in got.items() if k != "out"}
+        assert got["plan"]["rows"] == (tile or got["plan"]["rows"]) and got["plan"]["cluster"] == 8
+        first = got["out"] if first is None else first
+        assert torch.equal(chip_smoke._bits(got["out"]), chip_smoke._bits(first)), tile
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_self_block_is_the_beam_block_with_groups_of_one(dev, dtype):
+    """rt_self_attn_block gives rt_self_attn_block_beam's bits at beam groups
+    of one with an all-zero ancestry (33 rows, step 63); a cache one position
+    past the longest T is refused, and the next launch runs."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    lp = dk.layer_params(chip_smoke.random_decoder(gen, dev, dtype), 0)["self_attn"]
+    x = torch.randn(33, C, generator=gen, device=dev).to(dtype)
+    qpos = torch.randn(C, generator=gen, device=dev).to(dtype)
+    caches = [torch.randn(33, H, 128, D, generator=gen, device=dev).to(dtype) for _ in range(2)]
+    kc, vc, kc_b, vc_b = (c.clone() for c in caches + caches)
+    step = torch.tensor(63, dtype=torch.int32, device=dev)
+    anc = torch.zeros(33, 128, dtype=torch.int32, device=dev)
+    dk.reset_launches()
+    got = dk.self_attn_block(lp, x, qpos, kc, vc, step, num_heads=H)[0]
+    beam = dk.self_attn_block_beam(lp, x, anc, qpos, kc_b, vc_b, step, num_heads=H, num_beams=1)[0]
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["self_attn_block"] == 1 and dk.LAUNCHES["self_attn_block_beam"] == 1
+    for a, b in ((got, beam), (kc, kc_b), (vc, vc_b)):
+        assert torch.equal(chip_smoke._bits(a), chip_smoke._bits(b))
+    longest = chip_smoke.self_max_t(dtype)
+    over = torch.zeros(2, H, longest + 1, D, device=dev, dtype=dtype)
+    with pytest.raises(RuntimeError, match="rt_self_attn_block"):
+        dk.self_attn_block(lp, x[:2], qpos, over, over.clone(), step, num_heads=H)
+    again = dk.self_attn_block(lp, x, qpos, kc.clone(), vc.clone(), step, num_heads=H)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(chip_smoke._bits(again), chip_smoke._bits(got))
 
 
 def test_fused_attention_rejects_what_the_kernel_does_not_take(dev):

@@ -138,6 +138,31 @@ def test_self_attn_block_plain_matches_pallas(case):
 EDGE_STEPS = [0, STEP, T - 1]
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("step", EDGE_STEPS)
+def test_self_attn_block_is_the_beam_block_with_groups_of_one(case, step):
+    """self_attn_block_beam_plain with beam groups of one row and an all-zero
+    ancestry (every row reads its own cache) gives self_attn_block_plain's
+    bits, output and caches, so one CUDA kernel serves both wrappers; both
+    match the Pallas self_attn_block in interpret mode."""
+    p, tdt = case["lps"][0]["self_attn"], case["tdt"]
+    ref, kc_ref, vc_ref = dk.self_attn_block(p, case["x"], case["qpos"], case["kc"][0], case["vc"][0],
+                                             jnp.int32(step), num_heads=H, interpret=True)
+    tp = _torch_tree(jax.tree.map(np.asarray, p), tdt)
+    x, qpos, at = _t(case["x"], tdt), _t(case["qpos"], tdt), torch.tensor(step, dtype=torch.int32)
+    kc, vc, kc_b, vc_b = (_t(case[n][0], tdt).permute(1, 0, 3, 2).contiguous() for n in ("kc", "vc", "kc", "vc"))
+    got, _, _ = tk.self_attn_block(tp, x, qpos, kc, vc, at, num_heads=H)
+    beam, _, _ = tk.self_attn_block_beam(tp, x, torch.zeros(B, T, dtype=torch.int32), qpos, kc_b, vc_b, at,
+                                         num_heads=H, num_beams=1)
+    for a, b in ((got, beam), (kc, kc_b), (vc, vc_b)):
+        assert torch.equal(_bits(a), _bits(b))
+    for a, b in ((got, ref), (kc.permute(1, 0, 3, 2), kc_ref), (vc.permute(1, 0, 3, 2), vc_ref)):
+        _close(a, b, case["atol"])
+
+
 @pytest.mark.parametrize("step", EDGE_STEPS)
 def test_fused_stack_step_plain_matches_pallas(case, step):
     tdt = case["tdt"]
@@ -172,11 +197,11 @@ def test_build_needs_nvcc_and_keys_the_library_by_source(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_build.nvcc_path()
-    path = cuda_build.library_path("decoder_kernels")
+    path = cuda_build.library_path("block_kernels")
     assert os.path.dirname(path) == cuda_build.BUILD_DIR
-    assert os.path.basename(path).startswith("libdecoder_kernels-")
+    assert os.path.basename(path).startswith("libblock_kernels-")
     monkeypatch.setattr(cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS + ["-lineinfo"])
-    assert cuda_build.library_path("decoder_kernels") != path
+    assert cuda_build.library_path("block_kernels") != path
 
 
 def _struct_fields(source: str, name: str):
@@ -202,7 +227,7 @@ def test_ctypes_structs_mirror_the_cuda_argument_structs():
 
     from retr_tpu_torch.ops import cuda_build
 
-    mirrors = {"Args": tk._Args, "StackArgs": tk._StackArgs, "HeadArgs": tk._HeadArgs,
+    mirrors = {"StackArgs": tk._StackArgs, "HeadArgs": tk._HeadArgs,
                "AttnArgs": tk._AttnArgs, "BlockArgs": tk._BlockArgs, "WidthArgs": tk._WidthArgs}
     seen = set()
     for path in sorted(glob.glob(os.path.join(cuda_build.CSRC_DIR, "*.cu"))):
@@ -212,6 +237,22 @@ def test_ctypes_structs_mirror_the_cuda_argument_structs():
             assert [f[0] for f in mirrors[name]._fields_] == _struct_fields(source, name), name
             seen.add(name)
     assert seen == set(mirrors)
+
+
+def test_block_plan_kinds_match_the_cuda_source():
+    """``_PLAN_KIND`` gives each wrapper of csrc/block_kernels.cu the kind
+    ``rt_block_plan`` takes for its entry point (the numbers the source's
+    comment on rt_block_plan lists), and every such wrapper has one."""
+    import re
+
+    from retr_tpu_torch.ops import cuda_build
+
+    source = open(os.path.join(cuda_build.CSRC_DIR, "block_kernels.cu")).read()
+    doc = source[:source.index("int rt_block_plan(")].rsplit("\n\n", 1)[-1]
+    kinds = {entry: int(k) for entry, k in re.findall(r"(rt_\w+) \((?:kind )?(\d+)\)", doc)}
+    assert kinds == {tk._ENTRY[w][1]: k for w, k in tk._PLAN_KIND.items()}
+    assert set(kinds) == set(tk._LIBS["block_kernels"][1])
+    assert {w for w, (src, _) in tk._ENTRY.items() if src == "block_kernels"} == set(tk._PLAN_KIND)
 
 
 def test_library_name_covers_the_shared_headers(monkeypatch, tmp_path):
@@ -224,7 +265,7 @@ def test_library_name_covers_the_shared_headers(monkeypatch, tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_build.CSRC_DIR, csrc, ignore=shutil.ignore_patterns("__pycache__"))
     monkeypatch.setattr(cuda_build, "CSRC_DIR", str(csrc))
-    names = ("stack_kernels", "decoder_kernels", "block_kernels")
+    names = ("stack_kernels", "width_kernels", "block_kernels")
     before = {n: cuda_build.library_path(n) for n in names}
     assert before == {n: cuda_build.library_path(n) for n in names}      # stable
     header = csrc / "common.cuh"
