@@ -58,6 +58,23 @@ Phases (any failure raises, exits non-zero and prints no result line):
      with torch.profiler (device time by kernel, idle share); then greedy with
      use_pallas_attention on, whose encoder launches fused_attention (6
      launches per batch);
+  4b. serve_apis, the rest of the serving surface at the served width in bf16:
+     the native host core must load, and its host seconds per request are
+     logged beside the numpy spec's (outputs bit-equal); sampling at batch 32
+     for all 127 steps (EOS out of range) with cfg's defaults (the
+     full-vocabulary draw) and with top_k=50, top_p=0.9, beside greedy on the
+     same images (captions/s, fused_stack_step launches), the sampling step's
+     parts by CUDA events (topk_first, the top-p sort, the draw) and 32 steps
+     of each under torch.profiler; Predictor.complete on 8 requests (the
+     prefix words come first); Predictor.score on 8 requests with
+     use_pallas_attention (finite, 18 fused_attention launches) and
+     predict_with_attention (rows sum to 1 within 1e-3, no fused_attention
+     launch); 256 requests from 8 threads through a ServingQueue (captions
+     equal to predict_batch's; requests/s beside sequential predict_batch,
+     p50/p99 latency); the HTTP server on an ephemeral port (/predict,
+     /healthz naming the card, 503 with Retry-After under a forced
+     overload); `python -m retr_tpu_torch.serve --checkpoint X.pth` on a
+     reference .pth of Config()'s model, one request, then SIGTERM (exit 0);
   5. decoding at a width the tuned kernels do not take (hidden 64, 4 heads,
      2 layers, f32, head kernels on): greedy and beam 3 on the GPU, through
      csrc/width_kernels.cu, equal to the CPU's tokens;
@@ -1263,6 +1280,323 @@ def serve(dev, state, tok):
     return pred.params, launches, by_run
 
 
+# ---------------------------------------------------------------------------------
+# Phase 4b: the rest of the serving surface
+# ---------------------------------------------------------------------------------
+
+SAMPLE_RUNS = {"cfg defaults (full-vocabulary draw)": {}, "top_k=50, top_p=0.9": {"top_k": 50, "top_p": 0.9}}
+
+
+def counted(label, by_run, fn, expect):
+    """Run ``fn`` with the launch counts set to 0 just before and read just
+    after; each kernel in ``expect`` (name -> count, or None for "at least
+    one") must have launched so. Returns (fn's result, seconds, counts)."""
+    import torch
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    torch.cuda.synchronize()
+    dk.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(dk.LAUNCHES)
+    for k, want in expect.items():
+        if (counts[k] <= 0) if want is None else (counts[k] != want):
+            raise AssertionError(f"{label}: {k} launched {counts[k]} times, expected {want or '> 0'}: {counts}")
+        by_run.setdefault(k, {})[label] = counts[k]
+    return out, dt, counts
+
+
+def host_preprocess(pred, imgs, boxes):
+    """Host seconds per request, the native core against the numpy spec, on
+    the same requests; the outputs must be bit-equal."""
+    import numpy as np
+
+    from retr_tpu_torch import native
+
+    if not (native.available() and native.available("tokenizer")):
+        raise AssertionError("the native host core did not load: " + str(native._failed))
+    spec_n = 16
+    t0 = time.perf_counter()
+    nat = [pred._preprocess_one(im, bb) for im, bb in zip(imgs, boxes)]
+    native_s = (time.perf_counter() - t0) / len(imgs)
+    avail = native.available
+    native.available = lambda name="preprocess": False
+    try:
+        t0 = time.perf_counter()
+        spec = [pred._preprocess_one(im, bb) for im, bb in zip(imgs[:spec_n], boxes[:spec_n])]
+        spec_s = (time.perf_counter() - t0) / spec_n
+    finally:
+        native.available = avail
+    equal = all(np.array_equal(a.target_image, b.target_image) and np.array_equal(a.target_mask, b.target_mask)
+                for a, b in zip(nat, spec))
+    log("preprocess_native", json.dumps({"requests_native": len(imgs), "requests_spec": spec_n,
+                                         "native_s_per_request": native_s, "spec_s_per_request": spec_s,
+                                         "spec_over_native": spec_s / native_s, "bit_equal": equal}))
+    if not equal:
+        raise AssertionError("the native core and the numpy spec disagree")
+
+
+def sample_throughput(dev, params, card, by_run):
+    """Sampling at batch 32 for all 127 steps (EOS out of range) in both
+    configurations beside greedy on the same images, encode included (median
+    of 3 runs after a warm-up); the sampling step's parts by CUDA events; 32
+    steps of each under torch.profiler."""
+    import torch
+
+    from retr_tpu_torch import decode
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    cfg = served_config("bfloat16")
+    samples = random_samples(32, torch.Generator(device=dev).manual_seed(4), dev)
+    kw = dict(max_len=128, bos_token=101, eos_token=V, compute_dtype=torch.bfloat16)
+    runs = {"greedy": lambda n: decode.greedy(params, cfg, samples, **kw)}
+    for label, fl in SAMPLE_RUNS.items():
+        runs[f"sample, {label}"] = (lambda fl: lambda n: decode.sample(
+            params, cfg, samples, torch.Generator(device=dev).manual_seed(n), **fl, **kw))(fl)
+    for label, run in runs.items():
+        times = []
+        for n in range(4):
+            ids, dt, counts = counted(f"{label}, batch 32", by_run, lambda: run(n), {"fused_stack_step": 127})
+            times.append(dt)
+        if tuple(ids.shape) != (32, 128) or int(ids.min()) < 0 or int(ids.max()) >= V:
+            raise AssertionError(f"{label} returned a malformed buffer {tuple(ids.shape)}")
+        total = sorted(times[1:])[1]
+        log("sample_throughput", json.dumps({"decoder": label, "batch": 32, "steps": 127, "seconds": total,
+                                             "captions_per_s": 32 / total, "ms_per_step": total / 127 * 1e3,
+                                             "distinct_tokens": int(ids[:, 1:].unique().numel()),
+                                             "launches": {k: v for k, v in counts.items() if v}, "card": card}))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    logits = torch.randn(32, V, generator=gen, device=dev) * 3
+    parts = {"topk_first k=50": lambda: dk.topk_first(logits, 50),
+             "sort descending (top-p without top-k)": lambda: logits.sort(dim=-1, descending=True),
+             "gumbel_argmax": lambda: decode.gumbel_argmax(logits, gen)}
+    for label, fl in SAMPLE_RUNS.items():
+        parts[f"sample_tokens, {label}"] = (lambda fl: lambda: decode.sample_tokens(logits, gen, **fl))(fl)
+    log("sample_step_parts", json.dumps({"rows": 32, "vocab": V, "ms": {k: time_ms(f) for k, f in parts.items()},
+                                         "card": card}))
+    p, memory, mask, pos = encode_for_decode(params, cfg, samples)
+    for label, fl in SAMPLE_RUNS.items():
+        def loop(fl=fl):
+            return decode._token_loop(p, cfg, memory, mask, pos, lambda i, hs, c: decode.sample_tokens(
+                decode.caption.mlp_head(p["mlp"], hs).float(), gen, **fl), max_len=33, bos_token=101, eos_token=V)
+
+        loop()
+        torch.cuda.synchronize()
+        log("profile", json.dumps({"decoder": f"sample, {label}", "batch": 32, "steps": 32,
+                                   **device_profile(loop, 32)}))
+
+
+def serving_queue(pred, imgs, boxes, card, by_run):
+    """256 requests from 8 client threads through a ServingQueue (max_batch 32,
+    admission sized for the burst): the captions must equal predict_batch's.
+    Requests/s and latency percentiles beside sequential predict_batch."""
+    import threading
+
+    import torch
+
+    from retr_tpu_torch.predictor import ServingQueue
+
+    want, seq_s, _ = counted("predict_batch, 256 requests", by_run, lambda: pred.predict_batch(imgs, boxes),
+                             {"fused_stack_step": None})
+    got, lat = [None] * len(imgs), [0.0] * len(imgs)
+
+    def client(c):
+        futs = []
+        for i in range(c, len(imgs), 8):
+            futs.append((i, time.perf_counter(), q.submit(imgs[i], boxes[i])))
+        for i, t0, f in futs:
+            got[i] = f.result(timeout=600)
+            lat[i] = time.perf_counter() - t0
+
+    q = ServingQueue(pred, max_wait_s=0.05, max_queued=len(imgs))
+
+    def burst():
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a ServingQueue client did not finish")
+
+    try:
+        _, q_s, _ = counted("ServingQueue, 256 requests, 8 threads", by_run, burst, {"fused_stack_step": None})
+    finally:
+        q.close()
+    torch.cuda.synchronize()
+    lat_sorted = sorted(lat)
+    rec = {"requests": len(imgs), "threads": 8, "max_batch": pred.max_batch,
+           "queue_requests_per_s": len(imgs) / q_s, "sequential_predict_batch_requests_per_s": len(imgs) / seq_s,
+           "queue_over_sequential": seq_s / q_s, "p50_s": lat_sorted[len(lat) // 2],
+           "p99_s": lat_sorted[int(0.99 * (len(lat) - 1))], "stats": q.stats(),
+           "captions_equal": sum(a == b for a, b in zip(got, want)), "card": card}
+    log("serving_queue", json.dumps(rec))
+    if rec["captions_equal"] != len(imgs) or q.stats()["rejected"]:
+        raise AssertionError(f"ServingQueue captions differ from predict_batch's: {rec}")
+
+
+def http_server(pred, imgs, boxes):
+    """The HTTP front end on an ephemeral port: /predict equals predict,
+    /healthz names the card, and a queue that admits nothing answers 503 with
+    Retry-After."""
+    import base64
+    import io
+    import urllib.error
+    import urllib.request
+
+    import torch
+    from PIL import Image
+
+    from retr_tpu_torch.predictor import ServingQueue
+    from retr_tpu_torch.serve import run_in_thread
+
+    buf = io.BytesIO()
+    Image.fromarray(imgs[0]).save(buf, format="PNG")
+    body = json.dumps({"image": base64.b64encode(buf.getvalue()).decode(), "bbox": boxes[0]}).encode()
+
+    def post(base):
+        req = urllib.request.Request(base + "/predict", data=body, headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read()), dict(r.headers)
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read()), dict(e.headers)
+
+    want = pred.predict(imgs[0], boxes[0])
+    out = {}
+    for label, max_queued in (("serving", None), ("forced overload", 0)):
+        q = ServingQueue(pred, max_wait_s=0.02, max_queued=max_queued)
+        server, base = run_in_thread(q)
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+                health = json.loads(r.read())
+            code, reply, headers = post(base)
+        finally:
+            server.shutdown()
+            server.server_close()
+            q.close()
+        out[label] = {"code": code, "reply": reply, "retry_after": headers.get("Retry-After"),
+                      "healthz_device": health["device"]}
+    log("http", json.dumps({k: {**v, "reply": {a: str(b)[:60] for a, b in v["reply"].items()}}
+                            for k, v in out.items()}))
+    name = torch.cuda.get_device_name(0)
+    ok = (out["serving"]["code"] == 200 and out["serving"]["reply"] == {"expression": want}
+          and name in out["serving"]["healthz_device"] and out["forced overload"]["code"] == 503
+          and int(out["forced overload"]["retry_after"]) >= 1)
+    if not ok:
+        raise AssertionError(f"HTTP server: {out}")
+
+
+def serve_main_drains(imgs, boxes):
+    """``python -m retr_tpu_torch.serve --checkpoint X.pth`` on the card: a
+    reference .pth of ``Config()``'s model (random weights from a seed), one
+    request answered, then SIGTERM: the process must drain and exit 0."""
+    import base64
+    import io
+    import select
+    import signal
+    import tempfile
+    import urllib.request
+
+    import torch
+    from PIL import Image
+
+    from retr_tpu_torch.config import Config
+    from retr_tpu_torch.models import weights
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "Concat_refcoco_checkpoint_0.pth")
+        torch.manual_seed(7)
+        torch.save({"model_state_dict": weights.reference_module(Config()).state_dict(), "epoch": 0}, path)
+        proc = subprocess.Popen([sys.executable, "-m", "retr_tpu_torch.serve", "--checkpoint", path, "--port", "0",
+                                 "--max-batch", "8"], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        try:
+            line = proc.stdout.readline() if select.select([proc.stdout], [], [], 300)[0] else ""
+            if not line.startswith("serving on "):
+                proc.kill()
+                raise AssertionError(f"serve did not start: {line!r} {proc.communicate()[1][-2000:]}")
+            base = line.split()[2]
+            buf = io.BytesIO()
+            Image.fromarray(imgs[1]).save(buf, format="PNG")
+            req = urllib.request.Request(base + "/predict", headers={"Content-Type": "application/json"}, data=json.dumps(
+                {"image": base64.b64encode(buf.getvalue()).decode(), "bbox": boxes[1]}).encode())
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                reply = json.loads(r.read())
+            first_s = time.perf_counter() - t0
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log("serve_main", json.dumps({"started": line.strip(), "reply": reply, "first_request_s": first_s,
+                                  "exit_code_after_sigterm": rc}))
+    if rc != 0 or not isinstance(reply.get("expression"), str):
+        raise AssertionError(f"python -m retr_tpu_torch.serve: rc {rc}, reply {reply}")
+
+
+def serve_apis(dev, state, tok, card, by_run):
+    """Phase 4b at the served width in bf16: the native core; sampling at batch
+    32; complete, score (use_pallas_attention on: 18 fused_attention launches a
+    call) and predict_with_attention (none); a ServingQueue against sequential
+    predict_batch; the HTTP server; ``python -m retr_tpu_torch.serve`` and
+    its SIGTERM drain."""
+    import numpy as np
+    import torch
+
+    from retr_tpu_torch.predictor import Predictor
+
+    cfg = served_config("bfloat16")
+    pred = Predictor(state, cfg, tok, max_batch=32, device=dev)
+    imgs, boxes = requests(256, seed=3)
+    host_preprocess(pred, imgs[:64], boxes[:64])
+    sample_throughput(dev, pred.params, card, by_run)
+
+    prefix = "the man on the left"
+    done, dt, _ = counted("complete, 8 requests", by_run,
+                          lambda: [pred.complete(im, bb, prefix) for im, bb in zip(imgs[:8], boxes[:8])],
+                          {"fused_stack_step": None})
+    log("complete", json.dumps({"requests": 8, "s_per_request": dt / 8, "prefix": prefix,
+                                "first": [t[:80] for t in done[:3]]}))
+    if not all(t.startswith(prefix) for t in done):
+        raise AssertionError(f"complete did not keep the prefix: {done}")
+
+    texts = ["the man on the left", "red car", "a small dog next to the table", "white shirt"] * 2
+    pred.cfg = cfg.replace(use_pallas_attention=True)
+    try:
+        scores, dt, _ = counted("score, 8 requests, use_pallas_attention", by_run,
+                                lambda: pred.score(imgs[:8], boxes[:8], texts), {"fused_attention": 18})
+        (text, atts), att_s, _ = counted("predict_with_attention, use_pallas_attention", by_run,
+                                         lambda: pred.predict_with_attention(imgs[0], boxes[0]),
+                                         {"fused_attention": 0})
+    finally:
+        pred.cfg = cfg
+    plain = pred.score(imgs[:8], boxes[:8], texts)
+    lp_diff = max(abs(a["logprob"] - b["logprob"]) for a, b in zip(scores, plain))
+    row_err = max(float(np.abs(a.sum(-1) - 1.0).max()) for a in atts.values())
+    log("score", json.dumps({"requests": 8, "seconds": dt, "logprobs": [r["logprob"] for r in scores],
+                             "n_tokens": [r["n_tokens"] for r in scores],
+                             "max_logprob_diff_to_plain_attention": lp_diff}))
+    log("predict_with_attention", json.dumps({"seconds": att_s, "text": text[:80],
+                                              "shapes": {k: list(v.shape) for k, v in atts.items()},
+                                              "max_row_sum_err": row_err}))
+    if not all(np.isfinite(r["logprob"]) and r["n_tokens"] > 0 for r in scores) or row_err > 1e-3:
+        raise AssertionError(f"score or attention maps malformed: {scores}, row error {row_err}")
+    if set(atts) != {"enc_tc_self_att", "dec_exp_self_att", "dec_exp_tc_cross_att"}:
+        raise AssertionError(f"attention map keys {sorted(atts)}")
+
+    serving_queue(pred, imgs, boxes, card, by_run)
+    http_server(pred, imgs, boxes)
+    del pred
+    torch.cuda.empty_cache()
+    serve_main_drains(imgs, boxes)
+
+
 def random_samples(b, gen, dev):
     import torch
 
@@ -1823,6 +2157,8 @@ def main(mode=None) -> int:
     throughput(dev, params, card)
     step_profile(dev, params)
     del params
+    torch.cuda.empty_cache()
+    serve_apis(dev, state, synthetic_tokenizer(), card, by_run)         # phase 4b
     torch.cuda.empty_cache()
 
     other_width(dev)                                                       # phase 5

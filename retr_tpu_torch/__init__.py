@@ -1,8 +1,11 @@
 """retr_tpu_torch — the PyTorch/CUDA port of retr_tpu for NVIDIA Hopper.
 
-Serves referring expressions (greedy and beam): host preprocessing, a ResNet
-backbone, the 6-layer encoder run once, and a KV-cached loop whose decoder
-layers run in hand-written CUDA kernels (``ops/decoder_kernels.py``,
+Serves referring expressions (greedy, beam, sampling, prefix completion,
+scores and attention maps; ``predictor.Predictor``, the batching
+``predictor.ServingQueue`` and the HTTP server ``serve``): host preprocessing
+in a C++ core (``native/``, built with g++ on first use), a ResNet backbone,
+the 6-layer encoder run once, and a KV-cached loop whose decoder layers run in
+hand-written CUDA kernels (``ops/decoder_kernels.py``,
 ``csrc/stack_kernels.cu``, ``csrc/block_kernels.cu``, ``csrc/head_kernels.cu``,
 and ``csrc/width_kernels.cu`` at other widths). Trains and evaluates
 the teacher-forced model (``train/state.py``); with

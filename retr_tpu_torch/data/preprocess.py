@@ -1,5 +1,5 @@
 """Per-sample host-side preprocessing: decode -> crop -> pad -> PIL-exact resize
-(retr_tpu/data/preprocess.py on its numpy path).
+(retr_tpu/data/preprocess.py).
 
 Replicates data_utils/refcoco.py:105-188 + data_utils/utils.py:161-256 semantics on
 numpy arrays (the variable-size stage runs on the host; everything downstream runs
@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from retr_tpu_torch import native
 from retr_tpu_torch.ops import image as imops
 
 
@@ -77,7 +78,11 @@ def compute_position_features(image_shape, bb) -> np.ndarray:
 
 def _resize_stream(img_u8: np.ndarray, mask: np.ndarray, out_size: int):
     """pad-to-square + PIL-exact resize for the image; reference mask path for the
-    mask (the numpy spec; the C++ fast path is not ported yet)."""
+    mask. Runs in the C++ core (retr_tpu_torch.native) where it loads; the numpy
+    code below is the spec it bit-matches (tests/test_torch_native.py)."""
+    if native.available():
+        return native.pad_resize_image(img_u8, out_size), native.pad_resize_mask(mask, out_size)
+
     img_sq = imops.pad_uint8_to_square(img_u8)
     img_rs = imops.pil_resize_uint8(img_sq, out_size, out_size)
 

@@ -1,5 +1,4 @@
-"""BERT-compatible WordPiece tokenizer (a copy of retr_tpu/data/tokenizer.py
-without its C++ fast path, which the port does not have yet).
+"""BERT-compatible WordPiece tokenizer (a copy of retr_tpu/data/tokenizer.py).
 
 The reference loads HuggingFace's pretrained ``bert-base-uncased`` BertTokenizer over
 the network (data_utils/refcoco.py:93-94, eval_utils/decode.py:6-10). This
@@ -14,12 +13,20 @@ API mirrors what the reference uses: ``encode_plus`` (max_length padding/truncat
 inverted-mask output handled by the dataset), ``encode``, ``decode``/``batch_decode``
 with HF-style wordpiece merging and punctuation cleanup, ``convert_tokens_to_ids``,
 and the special-token attributes consumed by engine.py:146-148.
+
+``encode_plus`` of ASCII text runs in the C++ WordPiece core
+(retr_tpu_torch.native, ``tokenizer.cc``) where it loads; the Python code is
+the spec it matches and the path for any other text.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
 import unicodedata
 from typing import Dict, Iterable, List, Optional, Sequence
+
+from retr_tpu_torch import native
 
 
 def _is_whitespace(ch: str) -> bool:
@@ -53,7 +60,7 @@ class WordPieceTokenizer:
     PAD, UNK, CLS, SEP, MASK = "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"
 
     def __init__(self, vocab: Dict[str, int], do_lower_case: bool = True,
-                 max_input_chars_per_word: int = 100):
+                 max_input_chars_per_word: int = 100, vocab_path: str = ""):
         self.vocab = dict(vocab)
         self.ids_to_tokens = {i: t for t, i in self.vocab.items()}
         self.do_lower_case = do_lower_case
@@ -62,6 +69,9 @@ class WordPieceTokenizer:
         self.unk_token, self.mask_token = self.UNK, self.MASK
         # HF-compatible private aliases used by the reference (decode.py:8-9)
         self._cls_token, self._sep_token, self._pad_token = self.CLS, self.SEP, self.PAD
+        # the C++ core, attached on first use: None = untried, False = unavailable
+        self._vocab_path = vocab_path
+        self._native = None
 
     # -- construction ---------------------------------------------------------------
     @classmethod
@@ -72,7 +82,7 @@ class WordPieceTokenizer:
                 tok = line.rstrip("\n")
                 if tok:
                     vocab[tok] = i
-        return cls(vocab, do_lower_case)
+        return cls(vocab, do_lower_case, vocab_path=path)
 
     @classmethod
     def synthetic(cls, words: Iterable[str], vocab_size: Optional[int] = None) -> "WordPieceTokenizer":
@@ -184,10 +194,39 @@ class WordPieceTokenizer:
             ids = ids[: max_length - 1] + [self.vocab[self.SEP]]
         return ids
 
+    def _native_encoder(self) -> Optional["native.NativeWordPiece"]:
+        """The C++ WordPiece core on this vocabulary, attached on first use; a
+        vocabulary built in memory goes to it through a temporary file that is
+        removed once read. None where the library is unavailable; any other
+        failure raises."""
+        if self._native is None:
+            if not native.available("tokenizer"):
+                self._native = False
+            elif self._vocab_path:
+                self._native = native.NativeWordPiece(self._vocab_path)
+            else:
+                fd, path = tempfile.mkstemp(suffix=".vocab.txt")
+                try:
+                    with os.fdopen(fd, "w", encoding="utf-8") as f:
+                        for i in range(self.vocab_size):
+                            f.write(self.ids_to_tokens.get(i, f"[unused_slot_{i}]") + "\n")
+                    self._native = native.NativeWordPiece(path)
+                finally:
+                    os.unlink(path)
+        return self._native or None
+
     def encode_plus(self, text: str, max_length: int, padding: str = "max_length",
                     return_attention_mask: bool = True, truncation: bool = True,
                     **_ignored) -> Dict[str, List[int]]:
         """HF-compatible subset used by the reference (refcoco.py:114-120)."""
+        if padding == "max_length" and truncation and self.do_lower_case and text.isascii():
+            nat = self._native_encoder()
+            if nat is not None:
+                ids_arr, n = nat.encode(text, max_length)
+                out = {"input_ids": ids_arr.tolist()}
+                if return_attention_mask:
+                    out["attention_mask"] = [1] * min(n, max_length) + [0] * max(0, max_length - n)
+                return out
         ids = self.encode(text, max_length=max_length, truncation=truncation)
         attn = [1] * len(ids)
         if padding == "max_length" and len(ids) < max_length:

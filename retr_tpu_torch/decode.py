@@ -1,10 +1,13 @@
-"""Greedy and beam decoding: encode once, then the KV-cached loop (retr_tpu/decode.py).
+"""Greedy, prefix-forced, sampled and beam decoding, sequence scores and
+attention maps: encode once, then the KV-cached loop (retr_tpu/decode.py).
 
 Greedy token semantics are the reference's, exactly: BOS in slot 0; the logits
 of position i are argmaxed into slot i+1; rows that produced EOS keep receiving
 (ignored) tokens; when every row has finished the pending write is skipped and
 the loop stops; at most ``max_len - 1`` steps. The buffer, post-EOS junk
-included, equals retr_tpu.decode.greedy's.
+included, equals retr_tpu.decode.greedy's. ``greedy_with_prefix`` and ``sample``
+run the same loop (``_token_loop``) and differ only in how a step's token is
+chosen.
 
 Beam search is retr_tpu.decode.beam_search's: memory tiled across the beams,
 caches never reordered (ancestry addressing), the two-stage top-k on raw
@@ -61,33 +64,59 @@ def _cast_for_decode(params: Params, memory, pos, compute_dtype):
     return params, memory.to(dt), pos.to(dt)
 
 
-def greedy_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, *,
-                       max_len: int, bos_token: int, eos_token: int) -> torch.Tensor:
-    """Greedy decode given the encoder output; returns the [B, max_len] int32
-    token buffer (on memory's device)."""
+def _token_loop(params: Params, cfg: Config, memory, mem_mask, pos, choose, *, max_len: int,
+                bos_token: int, eos_token: int, captions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The KV-cached loop of greedy, prefix completion and sampling: each step
+    decodes position i, ``choose(i, hs, captions)`` gives the [B] int32 tokens
+    of slot i+1, and the reference's write and stop rules apply to them.
+    ``captions``: a preset [B, max_len] buffer (forced tokens); slot 0 is set to
+    BOS here."""
     b = memory.shape[0]
     dev = memory.device
     tparams = transformer.prepare_decoder(params["transformer"])
     cache, cross = transformer.init_decode_state(tparams, memory, mem_mask, pos, cfg, max_len)
-    captions = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
+    if captions is None:
+        captions = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
     captions[:, 0] = bos_token
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     step = torch.zeros((), dtype=torch.int32, device=dev)
-    head_p = dk.pack_head(params["mlp"]) if dk.HEAD_KERNEL else None
     with matmul_precision(memory.dtype):
         for i in range(max_len - 1):
             if i and i % CHECK_EVERY == 0 and bool(finished.all()):
                 break
             hs, cache = transformer.decode_step(tparams, cache, cross, captions[:, i], step, cfg)
-            if dk.HEAD_KERNEL:
-                pred = dk.mlp_head_argmax(head_p, hs)
-            else:
-                pred = caption.mlp_head(params["mlp"], hs).argmax(dim=-1).to(torch.int32)
-            finished |= pred == eos_token
+            tok = choose(i, hs, captions)
+            finished |= tok == eos_token
             write = ~finished.all()  # all just finished: the reference skips this write
-            captions[:, i + 1] = torch.where(write, pred, captions[:, i + 1])
+            captions[:, i + 1] = torch.where(write, tok, captions[:, i + 1])
             step += 1
     return captions
+
+
+def _argmax_head(mlp: Params, hs) -> torch.Tensor:
+    return caption.mlp_head(mlp, hs).argmax(dim=-1).to(torch.int32)
+
+
+def greedy_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, *,
+                       max_len: int, bos_token: int, eos_token: int) -> torch.Tensor:
+    """Greedy decode given the encoder output; returns the [B, max_len] int32
+    token buffer (on memory's device)."""
+    head_p = dk.pack_head(params["mlp"]) if dk.HEAD_KERNEL else None
+
+    def choose(i, hs, captions):
+        return dk.mlp_head_argmax(head_p, hs) if head_p is not None else _argmax_head(params["mlp"], hs)
+
+    return _token_loop(params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
+                       eos_token=eos_token)
+
+
+def _encode_for_decode(params, cfg, samples, global_samples, loc_feats, compute_dtype, filler_idx):
+    memory, mem_mask, pos = caption.encode(
+        params, cfg, samples, global_samples=global_samples, loc_feats=loc_feats,
+        compute_dtype=compute_dtype, filler_idx=filler_idx,
+    )
+    params, memory, pos = _cast_for_decode(params, memory, pos, compute_dtype)
+    return params, memory, mem_mask, pos
 
 
 def greedy(params: Params, cfg: Config, samples: Masked, *,
@@ -96,13 +125,143 @@ def greedy(params: Params, cfg: Config, samples: Masked, *,
            compute_dtype=torch.float32, filler_idx=None) -> torch.Tensor:
     """Batched greedy decoding: encode once, then the KV-cached loop. Runs on the
     device the samples are on."""
-    memory, mem_mask, pos = caption.encode(
-        params, cfg, samples, global_samples=global_samples, loc_feats=loc_feats,
-        compute_dtype=compute_dtype, filler_idx=filler_idx,
-    )
-    params, memory, pos = _cast_for_decode(params, memory, pos, compute_dtype)
+    params, memory, mem_mask, pos = _encode_for_decode(params, cfg, samples, global_samples, loc_feats,
+                                                       compute_dtype, filler_idx)
     return greedy_from_memory(params, cfg, memory, mem_mask, pos, max_len=max_len,
                               bos_token=bos_token, eos_token=eos_token)
+
+
+def greedy_with_prefix(params: Params, cfg: Config, samples: Masked, prefix: torch.Tensor,
+                       prefix_lens: torch.Tensor, *, global_samples: Optional[Masked] = None,
+                       loc_feats: Optional[torch.Tensor] = None, max_len: int = 128, bos_token: int = 101,
+                       eos_token: int = 102, compute_dtype=torch.float32, filler_idx=None) -> torch.Tensor:
+    """Greedy completion of per-row forced prefixes (retr_tpu.decode.greedy_with_prefix).
+
+    prefix [B, P] int32 (0-padded) and prefix_lens [B] int32, on the samples'
+    device: positions 1..prefix_lens[b] hold the forced tokens, the rest decodes
+    greedily. The forced tokens still go through the decode step (they fill the
+    caches); only the argmax is overridden. A forced EOS finishes its row;
+    ``prefix_lens`` of zero is exactly ``greedy``. The head is ``mlp_head`` and
+    argmax, as in the JAX package (no head kernel)."""
+    params, memory, mem_mask, pos = _encode_for_decode(params, cfg, samples, global_samples, loc_feats,
+                                                       compute_dtype, filler_idx)
+    b, p = prefix.shape
+    captions = torch.zeros((b, max_len), dtype=torch.int32, device=memory.device)
+    cols = torch.arange(p, device=memory.device)[None, :]
+    captions[:, 1:p + 1] = torch.where(cols < prefix_lens[:, None], prefix.to(torch.int32), 0)
+
+    def choose(i, hs, captions):
+        forced = i + 1 <= prefix_lens                 # position i+1 is in the prefix
+        return torch.where(forced, captions[:, i + 1], _argmax_head(params["mlp"], hs))
+
+    return _token_loop(params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
+                       eos_token=eos_token, captions=captions)
+
+
+def gumbel_argmax(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One categorical draw per row of ``logits`` [B, N] (f32) by the Gumbel-max
+    trick, as ``jax.random.categorical`` draws: argmax(logits - log(-log(u))),
+    u uniform on (tiny, 1) from ``generator`` (on the logits' device)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=torch.float32)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return (logits - torch.log(-torch.log(u))).argmax(dim=-1)
+
+
+def _nucleus_keep(sorted_vals: torch.Tensor, top_p: float) -> torch.Tensor:
+    """On values sorted largest first: the smallest prefix whose softmax mass
+    reaches ``top_p``, and always at least one entry."""
+    cum = torch.cumsum(torch.softmax(sorted_vals, dim=-1), dim=-1)
+    first = torch.ones_like(cum[:, :1], dtype=torch.bool)
+    return torch.cat([first, cum[:, :-1] < top_p], dim=-1)
+
+
+def sample_tokens(logits: torch.Tensor, generator: torch.Generator, *, temperature: float = 1.0,
+                  top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+    """One token per row of f32 logits [B, V] under temperature, top-k and
+    top-p, composed as retr_tpu.decode.sample composes them: argmax exactly when
+    ``temperature <= 0`` or ``top_k == 1``; with ``0 < top_k < V`` the draw runs
+    on the top-k shortlist (``topk_first``, ``lax.top_k``'s order), cut to its
+    nucleus when ``top_p < 1``; otherwise on the full vocabulary, where a
+    ``top_p < 1`` cut removes every logit below the nucleus's smallest."""
+    if temperature <= 0.0 or top_k == 1:
+        return logits.argmax(dim=-1).to(torch.int32)
+    neg_inf = -1e30
+    z = logits / temperature
+    if 0 < top_k < logits.shape[-1]:
+        vals, idx = dk.topk_first(z, top_k)
+        if top_p < 1.0:
+            vals = torch.where(_nucleus_keep(vals, top_p), vals, neg_inf)
+        choice = gumbel_argmax(vals, generator)
+        return idx.gather(1, choice[:, None])[:, 0].to(torch.int32)
+    if top_p < 1.0:
+        sorted_z = z.sort(dim=-1, descending=True).values
+        cutoff = torch.where(_nucleus_keep(sorted_z, top_p), sorted_z, float("inf")).amin(dim=-1, keepdim=True)
+        z = torch.where(z < cutoff, neg_inf, z)
+    return gumbel_argmax(z, generator).to(torch.int32)
+
+
+def sample(params: Params, cfg: Config, samples: Masked, generator: torch.Generator, *,
+           global_samples: Optional[Masked] = None, loc_feats: Optional[torch.Tensor] = None,
+           max_len: int = 128, bos_token: int = 101, eos_token: int = 102, temperature: float = 1.0,
+           top_k: int = 0, top_p: float = 1.0, compute_dtype=torch.float32, filler_idx=None) -> torch.Tensor:
+    """Ancestral sampling with temperature, top-k and nucleus (top-p) filtering
+    (retr_tpu.decode.sample; :func:`sample_tokens` composes the filters).
+
+    The greedy loop's write and stop rules; ``generator`` is a ``torch.Generator``
+    on the samples' device (the counterpart of the JAX key), and the draws
+    stay on the device, so a step does not wait for the host. torch cannot
+    reproduce ``jax.random``: the draws match the JAX package's in
+    distribution, and exactly where sampling reduces to argmax."""
+    params, memory, mem_mask, pos = _encode_for_decode(params, cfg, samples, global_samples, loc_feats,
+                                                       compute_dtype, filler_idx)
+
+    def choose(i, hs, captions):
+        logits = caption.mlp_head(params["mlp"], hs).float()
+        return sample_tokens(logits, generator, temperature=temperature, top_k=top_k, top_p=top_p)
+
+    return _token_loop(params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
+                       eos_token=eos_token)
+
+
+def sequence_scores(params: Params, cfg: Config, samples: Masked, caps: torch.Tensor, cap_masks: torch.Tensor,
+                    *, global_samples: Optional[Masked] = None, loc_feats: Optional[torch.Tensor] = None,
+                    compute_dtype=torch.float32, filler_idx=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token log-probabilities of given captions (retr_tpu.decode.sequence_scores).
+
+    caps [B, T] int32 (BOS first, 0-padded), cap_masks [B, T] bool (True = pad).
+    One teacher-forced forward (input caps[:, :-1], targets caps[:, 1:]),
+    log_softmax in f32, gathered at the targets. Returns (logprobs [B, T-1],
+    valid [B, T-1]), valid marking real target positions. Under
+    ``cfg.use_pallas_attention`` the forward's attention cores run in the
+    fused attention kernel."""
+    logits = caption.forward(params, cfg, samples, caps[:, :-1], cap_masks[:, :-1],
+                             global_samples=global_samples, loc_feats=loc_feats, train=False,
+                             compute_dtype=compute_dtype, filler_idx=filler_idx)
+    logits = torch.log_softmax(logits.float(), dim=-1)   # [B, T-1, V]; the logits are dropped
+    tok_lp = logits.gather(-1, caps[:, 1:, None].long())[..., 0]
+    return tok_lp, ~cap_masks[:, 1:]
+
+
+def greedy_with_attention(params: Params, cfg: Config, samples: Masked, *,
+                          global_samples: Optional[Masked] = None, loc_feats: Optional[torch.Tensor] = None,
+                          max_len: int = 128, bos_token: int = 101, eos_token: int = 102,
+                          compute_dtype=torch.float32, filler_idx=None):
+    """Greedy decode and its attention maps (retr_tpu.decode.greedy_with_attention):
+    one teacher-forced forward over the decoded buffer gives every step's
+    maps. Returns (ids [B, max_len], atts) with atts keyed ``enc_tc_self_att``,
+    ``dec_exp_self_att`` and ``dec_exp_tc_cross_att``, [layers, B, T, S] each.
+    The whole call runs with ``use_pallas_attention`` off: the maps come from
+    the plain attention core, and the encoder of the greedy half uses it too,
+    so the ids and the maps come from one computation and the fused attention
+    kernel is never launched."""
+    cfg = cfg.replace(use_pallas_attention=False)
+    ids = greedy(params, cfg, samples, global_samples=global_samples, loc_feats=loc_feats,
+                 max_len=max_len, bos_token=bos_token, eos_token=eos_token, compute_dtype=compute_dtype,
+                 filler_idx=filler_idx)
+    _, atts = caption.forward(params, cfg, samples, ids, ids == 0, global_samples=global_samples,
+                              loc_feats=loc_feats, return_attention=True, compute_dtype=compute_dtype,
+                              filler_idx=filler_idx)
+    return ids, atts
 
 
 def _beam_active(scores, finished, fin_len, step: int, *, length_penalty: float,
@@ -227,11 +386,8 @@ def beam_search(params: Params, cfg: Config, samples: Masked, *,
                 filler_idx=None):
     """Batched beam search: encode once, then the KV-cached beam loop. Runs on
     the device the samples are on."""
-    memory, mem_mask, pos = caption.encode(
-        params, cfg, samples, global_samples=global_samples, loc_feats=loc_feats,
-        compute_dtype=compute_dtype, filler_idx=filler_idx,
-    )
-    params, memory, pos = _cast_for_decode(params, memory, pos, compute_dtype)
+    params, memory, mem_mask, pos = _encode_for_decode(params, cfg, samples, global_samples, loc_feats,
+                                                       compute_dtype, filler_idx)
     return beam_search_from_memory(params, cfg, memory, mem_mask, pos, max_len=max_len,
                                    bos_token=bos_token, eos_token=eos_token, beam_size=beam_size,
                                    length_penalty=length_penalty, early_stop=early_stop)
@@ -251,3 +407,21 @@ def prune_token_ids(idx_seqs: Sequence[Sequence[int]], clean: bool = True, pad_t
             pruned = [i for i in pruned if i not in (pad_token, bos_token, eos_token)]
         results.append(pruned)
     return results
+
+
+def greedy_decoding(samples: Masked, params: Params, cfg: Config, tokenizer, *,
+                    global_samples: Optional[Masked] = None, loc_feats: Optional[torch.Tensor] = None,
+                    max_len: int = 128, clean: bool = True, pad_token: int = 0, bos_token: int = 101,
+                    eos_token: int = 102, compute_dtype=torch.float32) -> List[str]:
+    """Decode, prune and detokenize (retr_tpu.decode.greedy_decoding)."""
+    ids = greedy(params, cfg, samples, global_samples=global_samples, loc_feats=loc_feats,
+                 max_len=max_len, bos_token=bos_token, eos_token=eos_token, compute_dtype=compute_dtype)
+    pruned = prune_token_ids(ids.cpu().tolist(), clean=clean, pad_token=pad_token,
+                             bos_token=bos_token, eos_token=eos_token)
+    return [tokenizer.decode(seq, skip_special_tokens=True) for seq in pruned]
+
+
+def greedy_single(params: Params, cfg: Config, samples: Masked, tokenizer, **kwargs) -> str:
+    """One image's greedy expression (retr_tpu.decode.greedy_single): the
+    batched path at batch 1."""
+    return greedy_decoding(samples, params, cfg, tokenizer, **kwargs)[0]

@@ -102,19 +102,23 @@ def build_encoder_input(params: Params, cfg: Config, samples: Masked,
 
 def forward(params: Params, cfg: Config, samples: Masked, target_exp: torch.Tensor,
             target_exp_mask: torch.Tensor, *, global_samples: Optional[Masked] = None,
-            loc_feats: Optional[torch.Tensor] = None, train: bool = False,
-            seed: Optional[int] = None, compute_dtype=torch.float32,
-            filler_idx=None) -> torch.Tensor:
+            loc_feats: Optional[torch.Tensor] = None, return_attention: bool = False,
+            train: bool = False, seed: Optional[int] = None, compute_dtype=torch.float32,
+            filler_idx=None):
     """Teacher-forced forward: token ids [B, T] (True = pad in the mask) ->
-    logits [B, T, vocab] in f32. ``train`` turns on dropout (generators from
-    ``seed``) and detaches the frozen backbone prefix."""
+    logits [B, T, vocab] in f32, or (logits, attention maps) with
+    ``return_attention`` (keys ``enc_tc_self_att``, ``dec_exp_self_att``,
+    ``dec_exp_tc_cross_att``, each [layers, B, T, S]). ``train`` turns on
+    dropout (generators from ``seed``) and detaches the frozen backbone prefix."""
     enc = build_encoder_input(params, cfg, samples, global_samples, loc_feats,
                               compute_dtype=compute_dtype, filler_idx=filler_idx,
                               stop_prefix_gradient=train)
-    hs = transformer.forward(params["transformer"], enc.src_t, enc.mask_t, enc.src_c, enc.mask_c,
-                             target_exp, target_exp_mask, cfg, train=train, seed=seed)
+    hs, atts = transformer.forward(params["transformer"], enc.src_t, enc.mask_t, enc.src_c, enc.mask_c,
+                                   target_exp, target_exp_mask, cfg, return_attention=return_attention,
+                                   train=train, seed=seed)
     with matmul_precision(compute_dtype):
-        return mlp_head(params["mlp"], hs)
+        out = mlp_head(params["mlp"], hs)
+    return (out, atts) if return_attention else out
 
 
 def encode(params: Params, cfg: Config, samples: Masked, *,
@@ -129,5 +133,5 @@ def encode(params: Params, cfg: Config, samples: Masked, *,
     else:
         src, mask = enc.src_t, enc.mask_t
     with matmul_precision(compute_dtype):
-        memory, pos = transformer.encode(params["transformer"], src.transpose(1, 2), mask, cfg)
+        memory, pos, _ = transformer.encode(params["transformer"], src.transpose(1, 2), mask, cfg)
     return memory, mask, pos

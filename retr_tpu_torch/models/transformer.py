@@ -6,7 +6,8 @@ only; the decoder's query position is the learned position table; residual
 LayerNorms use eps 1e-5 and the embedding LayerNorm ``cfg.layer_norm_eps``.
 
 The full-sequence half (``encode``, ``decode_full``, ``forward``) serves
-training and evaluation: dropout when ``train`` is on, drawn from generators
+training, evaluation and the attention maps (``need_weights`` /
+``return_attention``): dropout when ``train`` is on, drawn from generators
 made per layer from an integer ``seed`` (``layers.fold_in``) as the JAX package
 folds its keys; ``cfg.remat`` checkpoints each layer; ``cfg.use_pallas_attention``
 sends every attention core without attention dropout to the fused kernel
@@ -44,27 +45,28 @@ def _seed(seed: Optional[int], data: int) -> Optional[int]:
 
 
 def _self_att_block(p, x, pos, bias, cfg, *, gen=None, train=False, causal=False,
-                    key_pad_bias=None):
-    """SelfAttResidual: LN, positions on Q/K only, value = normed input."""
+                    key_pad_bias=None, need_weights=False):
+    """SelfAttResidual: LN, positions on Q/K only, value = normed input.
+    Returns (x, head-averaged weights or None)."""
     nx = layers.layer_norm(p["norm"], x)
     qk = _with_pos(nx, pos)
-    out, _ = layers.multi_head_attention(
-        p["mha"], qk, qk, nx, num_heads=cfg.nheads, bias=bias, dropout_rate=cfg.dropout,
-        generator=gen, train=train, use_pallas=cfg.use_pallas_attention, causal=causal,
-        key_pad_bias=key_pad_bias)
-    return x + layers.dropout(out, cfg.dropout, gen, train)
+    out, w = layers.multi_head_attention(
+        p["mha"], qk, qk, nx, num_heads=cfg.nheads, bias=bias, need_weights=need_weights,
+        dropout_rate=cfg.dropout, generator=gen, train=train, use_pallas=cfg.use_pallas_attention,
+        causal=causal, key_pad_bias=key_pad_bias)
+    return x + layers.dropout(out, cfg.dropout, gen, train), w
 
 
 def _cross_att_block(p, q, kv, q_pos, k_pos, bias, cfg, *, gen=None, train=False,
-                     key_pad_bias=None):
+                     key_pad_bias=None, need_weights=False):
     """CrossAttResidual: only the query is normed; keys get positions, keys and
-    values are the unnormed memory."""
+    values are the unnormed memory. Returns (x, weights or None)."""
     nq = layers.layer_norm(p["norm"], q)
-    out, _ = layers.multi_head_attention(
+    out, w = layers.multi_head_attention(
         p["mha"], _with_pos(nq, q_pos), _with_pos(kv, k_pos), kv, num_heads=cfg.nheads, bias=bias,
-        dropout_rate=cfg.dropout, generator=gen, train=train, use_pallas=cfg.use_pallas_attention,
-        key_pad_bias=key_pad_bias)
-    return q + layers.dropout(out, cfg.dropout, gen, train)
+        need_weights=need_weights, dropout_rate=cfg.dropout, generator=gen, train=train,
+        use_pallas=cfg.use_pallas_attention, key_pad_bias=key_pad_bias)
+    return q + layers.dropout(out, cfg.dropout, gen, train), w
 
 
 def _ff_block(p, x, cfg, *, gen=None, train=False):
@@ -92,8 +94,11 @@ def decoder_embed(p, ids: torch.Tensor, cfg: Config, position: Optional[torch.Te
 
 
 def encode(params: Params, src: torch.Tensor, src_pad_mask: torch.Tensor, cfg: Config, *,
-           train: bool = False, seed: Optional[int] = None):
-    """Run the encoder; returns (memory [B, S, C], pos [S, C])."""
+           need_weights: bool = False, train: bool = False, seed: Optional[int] = None):
+    """Run the encoder; returns (memory [B, S, C], pos [S, C], atts or None).
+    With ``need_weights`` atts is ``{"enc_tc_self_att": [L, B, S, S]}``, the
+    head-averaged maps of the plain attention core (the fused kernel is not
+    used for that call), and no layer is rematerialised."""
     pos = positional_encoding(cfg.position_embedding, src.shape[1], cfg.hidden_dim,
                               device=src.device)
     bias = key_padding_bias(src_pad_mask)
@@ -101,25 +106,29 @@ def encode(params: Params, src: torch.Tensor, src_pad_mask: torch.Tensor, cfg: C
 
     def enc_layer(lp, x, layer_seed):
         gen = layers.make_generator(layer_seed, x.device)
-        x = _self_att_block(lp["self_attn"], x, pos[None, :, :], bias, cfg, gen=gen, train=train,
-                            key_pad_bias=kp_bias)
-        return _ff_block(lp["ff"], x, cfg, gen=gen, train=train)
+        x, w = _self_att_block(lp["self_attn"], x, pos[None, :, :], bias, cfg, gen=gen, train=train,
+                               key_pad_bias=kp_bias, need_weights=need_weights)
+        return _ff_block(lp["ff"], x, cfg, gen=gen, train=train), w
 
     x = src
+    enc_ws = []
     for li, lp in enumerate(params["encoder"]["layers"]):
-        x = layers.maybe_checkpoint(enc_layer, cfg.remat, lp, x, _seed(seed, li))
+        x, w = layers.maybe_checkpoint(enc_layer, cfg.remat and not need_weights, lp, x, _seed(seed, li))
+        enc_ws.append(w)
     if "norm" in params["encoder"]:
         x = layers.layer_norm(params["encoder"]["norm"], x)
-    return x, pos
+    return x, pos, ({"enc_tc_self_att": torch.stack(enc_ws)} if need_weights else None)
 
 
 def decode_full(params: Params, memory: torch.Tensor, mem_pad_mask: torch.Tensor, pos: torch.Tensor,
                 tgt_ids: torch.Tensor, tgt_pad_mask: torch.Tensor, cfg: Config, *,
-                train: bool = False, seed: Optional[int] = None) -> torch.Tensor:
-    """Teacher-forced decoder over the full target buffer; returns the
-    final-normed hidden states [B, T, C]. The plain path masks self-attention
-    with the causal mask plus the target key-padding bias; the fused kernel
-    takes ``causal=True`` and the [B, T] key-padding bias."""
+                need_weights: bool = False, train: bool = False, seed: Optional[int] = None):
+    """Teacher-forced decoder over the full target buffer; returns (the
+    final-normed hidden states [B, T, C], atts or None). The plain path masks
+    self-attention with the causal mask plus the target key-padding bias; the
+    fused kernel takes ``causal=True`` and the [B, T] key-padding bias. With
+    ``need_weights`` atts holds ``dec_exp_self_att`` [L, B, T, T] and
+    ``dec_exp_tc_cross_att`` [L, B, T, S]."""
     t = tgt_ids.shape[1]
     emb = params["embeddings"]
     x = decoder_embed(emb, tgt_ids, cfg, gen=layers.make_generator(_seed(seed, 777), memory.device),
@@ -132,32 +141,42 @@ def decode_full(params: Params, memory: torch.Tensor, mem_pad_mask: torch.Tensor
 
     def dec_layer(lp, x, layer_seed):
         gen = layers.make_generator(layer_seed, x.device)
-        x = _self_att_block(lp["self_attn"], x, query_pos, self_bias, cfg, gen=gen, train=train,
-                            causal=True, key_pad_bias=tgt_kp)
-        x = _cross_att_block(lp["cross_attn"], x, memory, query_pos, pos[None, :, :], mem_bias, cfg,
-                             gen=gen, train=train, key_pad_bias=mem_kp)
-        return _ff_block(lp["ff"], x, cfg, gen=gen, train=train)
+        x, sw = _self_att_block(lp["self_attn"], x, query_pos, self_bias, cfg, gen=gen, train=train,
+                                causal=True, key_pad_bias=tgt_kp, need_weights=need_weights)
+        x, cw = _cross_att_block(lp["cross_attn"], x, memory, query_pos, pos[None, :, :], mem_bias, cfg,
+                                 gen=gen, train=train, key_pad_bias=mem_kp, need_weights=need_weights)
+        return _ff_block(lp["ff"], x, cfg, gen=gen, train=train), sw, cw
 
+    sws, cws = [], []
     for li, lp in enumerate(params["decoder"]["layers"]):
-        x = layers.maybe_checkpoint(dec_layer, cfg.remat, lp, x, _seed(seed, 100 + li))
-    return layers.layer_norm(params["decoder"]["norm"], x)
+        x, sw, cw = layers.maybe_checkpoint(dec_layer, cfg.remat and not need_weights, lp, x,
+                                            _seed(seed, 100 + li))
+        sws.append(sw)
+        cws.append(cw)
+    atts = ({"dec_exp_self_att": torch.stack(sws), "dec_exp_tc_cross_att": torch.stack(cws)}
+            if need_weights else None)
+    return layers.layer_norm(params["decoder"]["norm"], x), atts
 
 
 def forward(params: Params, src_t: torch.Tensor, mask_t: torch.Tensor, src_c: Optional[torch.Tensor],
             mask_c: Optional[torch.Tensor], tgt_ids: torch.Tensor, tgt_pad_mask: torch.Tensor,
-            cfg: Config, *, train: bool = False, seed: Optional[int] = None) -> torch.Tensor:
+            cfg: Config, *, return_attention: bool = False, train: bool = False,
+            seed: Optional[int] = None):
     """ConcatTransformer.forward: concatenate the context stream (channel-first
     [B, C, S]) after the target stream, encode, and decode the teacher-forced
-    buffer; returns [B, T, C]."""
+    buffer; returns ([B, T, C], the encoder's and decoder's maps merged into
+    one dict when ``return_attention``, else None)."""
     if src_c is not None:
         src, mask = torch.cat([src_t, src_c], dim=2), torch.cat([mask_t, mask_c], dim=1)
     else:
         src, mask = src_t, mask_t
     src = src.transpose(1, 2)
     with matmul_precision(src.dtype):
-        memory, pos = encode(params, src, mask, cfg, train=train, seed=_seed(seed, 0))
-        return decode_full(params, memory, mask, pos, tgt_ids, tgt_pad_mask, cfg, train=train,
-                           seed=_seed(seed, 1))
+        memory, pos, enc_atts = encode(params, src, mask, cfg, need_weights=return_attention, train=train,
+                                       seed=_seed(seed, 0))
+        out, dec_atts = decode_full(params, memory, mask, pos, tgt_ids, tgt_pad_mask, cfg,
+                                    need_weights=return_attention, train=train, seed=_seed(seed, 1))
+    return out, ({**enc_atts, **dec_atts} if return_attention else None)
 
 
 # ---------------------------------------------------------------------------------

@@ -181,5 +181,6 @@ def test_beam_predictor_strings_equal_reference(use_global, use_location):
                      max_batch=2, device="cpu")
     assert pred.predict_batch(imgs, boxes, decoder="beam") == want
     assert pred.predict(imgs[2], boxes[2], beam=True) == want[2]
-    with pytest.raises(NotImplementedError, match="A7"):
-        pred.predict(imgs[0], boxes[0], decoder="sample")
+    assert isinstance(pred.predict(imgs[0], boxes[0], decoder="sample"), str)   # ported: no longer raises
+    with pytest.raises(ValueError, match="unknown decoder"):
+        pred.predict(imgs[0], boxes[0], decoder="nope")

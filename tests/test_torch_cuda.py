@@ -3,8 +3,12 @@
 The kernels have no CPU mode: on the CPU their plain versions run and are held
 against retr_tpu in the other test_torch_* files. Here each kernel is held
 against its plain version on the card, greedy and beam decoding through the
-kernels against the plain path on the CPU, and the full-width eval step
-through the attention kernel against the plain attention path. Run on the card with
+kernels against the plain path on the CPU, the full-width eval step
+through the attention kernel against the plain attention path, and the
+serving surface (sampling at temperature 0 equal to greedy, a seed's
+determinism, f32 prefix and sample-greedy buffers against the CPU's under
+the f32_parity rule, ``score`` through the attention kernel and
+``predict_with_attention`` without it). Run on the card with
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
@@ -776,3 +780,106 @@ def test_full_width_eval_step_kernel_matches_plain(dev):
     torch.cuda.synchronize()
     assert dk.LAUNCHES["fused_attention"] == 18
     assert torch.isfinite(fused) and abs(float(fused) - float(plain)) <= 1e-4 * abs(float(plain))
+
+
+# ---------------------------------------------------------------------------------
+# The serving surface on the card: sampling, prefix completion, scores, maps
+# ---------------------------------------------------------------------------------
+
+SERVE_CFG = dict(backbone="ResNet18", dilation=False, hidden_dim=C, nheads=H, enc_layers=1, dec_layers=L,
+                 dim_feedforward=F, vocab_size=96, max_position_embeddings=20, dropout=0.0, image_size=64)
+
+
+def _serve_model(dev, **cfg_kw):
+    """(cfg, state, cpu params, card params, cpu samples, card samples): 5 images."""
+    cfg = Config(**{**SERVE_CFG, **cfg_kw})
+    torch.manual_seed(0)
+    state = weights.reference_module(cfg).state_dict()
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn(5, 3, 64, 64, generator=gen)
+    mask = torch.zeros(5, 64, 64, dtype=torch.bool)
+    mask[2, :, 40:] = True
+    return (cfg, state, weights.to_params(state, cfg, device="cpu"), weights.to_params(state, cfg, device=dev),
+            Masked(img, mask), Masked(img.to(dev), mask.to(dev)))
+
+
+def _equal_but_near_ties(gpu, cpu, params, cfg, samples):
+    """The f32_parity rule: the buffers are equal, or a row first differs at a
+    slot whose CPU logits (teacher-forced on the CPU buffer) have a top-2 margin
+    below 1e-4."""
+    from retr_tpu_torch.models import caption
+
+    logits = caption.forward(params, cfg, samples, cpu, cpu == 0)
+    top2 = logits.topk(2, dim=-1).values
+    for r in range(cpu.shape[0]):
+        bad = (gpu[r] != cpu[r]).nonzero().flatten().tolist()
+        if bad:
+            j = bad[0]
+            margin = float(top2[r, j - 1, 0] - top2[r, j - 1, 1])
+            assert margin < 1e-4, f"row {r} differs at slot {j} with a CPU top-2 margin of {margin}"
+
+
+def test_sample_at_temperature_zero_equals_greedy(dev):
+    cfg, _, _, params, _, samples = _serve_model(dev)
+    kw = dict(max_len=20, bos_token=1, eos_token=3)
+    want = decode.greedy(params, cfg, samples, **kw)
+    dk.reset_launches()
+    got = decode.sample(params, cfg, samples, torch.Generator(device=dev).manual_seed(0), temperature=0.0, **kw)
+    assert dk.LAUNCHES["fused_stack_step"] > 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("top_k,top_p", [(0, 1.0), (50, 0.9), (0, 0.9)])
+def test_sample_is_deterministic_per_seed_on_the_card(dev, top_k, top_p):
+    cfg, _, _, params, _, samples = _serve_model(dev, compute_dtype="bfloat16")
+    kw = dict(max_len=20, bos_token=1, eos_token=-1, temperature=1.0, top_k=top_k, top_p=top_p,
+              compute_dtype=torch.bfloat16)
+    runs = [decode.sample(params, cfg, samples, torch.Generator(device=dev).manual_seed(s), **kw)
+            for s in (4, 4, 5)]
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
+    assert int(runs[0].min()) >= 0 and int(runs[0].max()) < cfg.vocab_size
+
+
+def test_prefix_and_sample_greedy_match_cpu_in_f32(dev):
+    cfg, _, cpu_params, params, cpu_samples, samples = _serve_model(dev)
+    kw = dict(max_len=20, bos_token=1, eos_token=3)
+    prefix = torch.randint(4, 96, (5, 6), generator=torch.Generator().manual_seed(2), dtype=torch.int32)
+    prefix[3, 1] = 3
+    lens = torch.tensor([0, 2, 6, 3, 1], dtype=torch.int32)
+    cpu = decode.greedy_with_prefix(cpu_params, cfg, cpu_samples, prefix, lens, **kw)
+    gpu = decode.greedy_with_prefix(params, cfg, samples, prefix.to(dev), lens.to(dev), **kw).cpu()
+    _equal_but_near_ties(gpu, cpu, cpu_params, cfg, cpu_samples)
+    for sampler in (dict(temperature=0.0), dict(top_k=1)):
+        cpu = decode.sample(cpu_params, cfg, cpu_samples, torch.Generator().manual_seed(0), **sampler, **kw)
+        gpu = decode.sample(params, cfg, samples, torch.Generator(device=dev).manual_seed(0), **sampler, **kw)
+        _equal_but_near_ties(gpu.cpu(), cpu, cpu_params, cfg, cpu_samples)
+
+
+def test_score_launches_fused_attention_and_attention_maps_do_not(dev):
+    """Under use_pallas_attention: ``score`` runs every attention core of its
+    forward in the kernel (enc_layers + 2 * dec_layers launches a chunk) and
+    agrees with the plain path; ``predict_with_attention`` launches none."""
+    import numpy as np
+
+    from retr_tpu_torch.data.tokenizer import prepare_tokenizer
+    from retr_tpu_torch.predictor import Predictor
+
+    tok, _, _ = prepare_tokenizer()
+    cfg = Config(**{**SERVE_CFG, "vocab_size": tok.vocab_size, "use_pallas_attention": True})
+    torch.manual_seed(0)
+    state = weights.reference_module(cfg).state_dict()
+    pred = Predictor(state, cfg, tok, max_batch=4, device=dev)
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (80, 90, 3), dtype=np.uint8) for _ in range(3)]
+    boxes = [[5, 5, 40, 30]] * 3
+    texts = ["red dog", "the man on the left", "chair"]
+    dk.reset_launches()
+    got = pred.score(imgs, boxes, texts)
+    assert dk.LAUNCHES["fused_attention"] == cfg.enc_layers + 2 * cfg.dec_layers
+    plain = Predictor(state, cfg.replace(use_pallas_attention=False), tok, max_batch=4, device=dev)
+    for g, w in zip(got, plain.score(imgs, boxes, texts)):
+        assert g["n_tokens"] == w["n_tokens"] and abs(g["logprob"] - w["logprob"]) <= 1e-3 * max(1, abs(w["logprob"]))
+    dk.reset_launches()
+    text, atts = pred.predict_with_attention(imgs[0], boxes[0])
+    assert dk.LAUNCHES["fused_attention"] == 0 and isinstance(text, str)
+    np.testing.assert_allclose(atts["dec_exp_tc_cross_att"].sum(-1), 1.0, atol=1e-3)

@@ -6,6 +6,11 @@
   kernel path (Pallas in interpret mode) and of its default XLA path: argmax
   near-ties of random weights flip under bf16, so tokens are not compared there;
 - the decode steps call the kernel wrappers only at the widths the kernels take;
+- ``sample`` where it reduces to argmax equals retr_tpu's greedy and sample
+  buffers, its draws on fixed logits match retr_tpu.decode.sample's in
+  distribution, and a seed gives the same buffer twice;
+- ``greedy_with_prefix`` buffers equal retr_tpu's, mixed prefix lengths and a
+  forced EOS included;
 - Predictor strings equal retr_tpu.predictor.Predictor's;
 - the package imports without jax and without any retr_tpu module;
 - an entry point asked for CUDA where there is none raises.
@@ -213,6 +218,110 @@ def test_decode_calls_the_kernels_only_where_the_rule_allows(monkeypatch, width,
     assert called == layers | {"mlp_head_argmax", "mlp_head_topk"}
 
 
+def _samples(model):
+    return (Masked(torch.from_numpy(model["img"]), torch.from_numpy(model["mask"])),
+            JMasked(jnp.asarray(model["img"]), jnp.asarray(model["mask"])))
+
+
+@pytest.mark.parametrize("temperature,top_k,top_p", [(0.0, 0, 1.0), (1.0, 1, 1.0), (1.0, 0, 1e-9),
+                                                     (0.7, 8, 1e-9)])
+def test_sample_reducing_to_argmax_equals_reference(model, temperature, top_k, top_p):
+    """Temperature 0 and top_k 1 are argmax by rule; top_p 1e-9 keeps only the
+    largest logit, alone or after a top-8 shortlist. The buffers must equal
+    retr_tpu.decode.greedy's and retr_tpu.decode.sample's exactly."""
+    samples, jsamples = _samples(model)
+    kw = dict(max_len=16, bos_token=BOS, eos_token=model["eos"], temperature=temperature, top_k=top_k,
+              top_p=top_p)
+    want = np.asarray(jdecode.sample(model["params"], model["jcfg"], jsamples, jax.random.key(3), **kw))
+    np.testing.assert_array_equal(want, model["ref"])
+    got = decode.sample(model["tp"], model["cfg"], samples, torch.Generator().manual_seed(3), **kw)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sample_is_deterministic_per_seed(model):
+    samples, _ = _samples(model)
+    kw = dict(max_len=16, bos_token=BOS, eos_token=-1, temperature=1.0, top_k=8, top_p=0.9)
+    runs = [decode.sample(model["tp"], model["cfg"], samples, torch.Generator().manual_seed(s), **kw)
+            for s in (11, 11, 12)]
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], runs[2])
+
+
+# fixed logits for the distribution test: no cumulative mass near the cuts
+FIXED_LOGITS = np.array([0.3, 2.0, -1.0, 1.2, 0.8, -2.0, 1.5, 0.0, -0.5, 1.0, -1.5, 0.5], np.float32)
+
+
+def _kept_probs(logits, temperature, top_k, top_p):
+    """The renormalized distribution the filters leave, in float64 from the rules
+    of retr_tpu.decode.sample: the top-k shortlist, then the smallest prefix
+    whose mass reaches top_p (at least one token)."""
+    z = logits.astype(np.float64) / temperature
+    order = np.argsort(-z, kind="stable")
+    if 0 < top_k < len(z):
+        order = order[:top_k]
+    p = np.exp(z[order] - z[order].max())
+    p /= p.sum()
+    keep = np.concatenate([[True], np.cumsum(p)[:-1] < top_p])
+    out = np.zeros(len(z))
+    out[order[keep]] = p[keep] / p[keep].sum()
+    return out
+
+
+@pytest.mark.parametrize("temperature,top_k,top_p", [(1.0, 0, 1.0), (0.8, 4, 1.0), (1.0, 0, 0.7),
+                                                     (0.8, 4, 0.7)])
+def test_sample_draws_match_reference_in_distribution(temperature, top_k, top_p):
+    """20000 draws on fixed logits (vocab 12). retr_tpu's draws come from its
+    sample loop on a model whose head gives these logits at every step (zero
+    last-layer weights, the logits as its bias: 400 rows x 50 steps); the port's
+    from ``sample_tokens``, the port's step, on 20000 rows. Every draw of each
+    package lies in the set retr_tpu drew from, and each token's frequency is
+    within 0.015 of its renormalized probability."""
+    want = _kept_probs(FIXED_LOGITS, temperature, top_k, top_p)
+    jcfg = JaxConfig(**{**TINY, "vocab_size": 12, "max_position_embeddings": 51})
+    params, _ = jcaption.build_model(jcfg, jax.random.key(0))
+    last = params["mlp"]["layers"][-1]
+    params["mlp"]["layers"][-1] = {"w": jnp.zeros_like(last["w"]), "b": jnp.asarray(FIXED_LOGITS)}
+    rng = np.random.default_rng(4)
+    jsamples = JMasked(jnp.asarray(rng.standard_normal((400, 3, 32, 32)).astype(np.float32)),
+                       jnp.zeros((400, 32, 32), bool))
+    jdraws = np.asarray(jdecode.sample(params, jcfg, jsamples, jax.random.key(5), max_len=51, bos_token=BOS,
+                                       eos_token=-1, temperature=temperature, top_k=top_k, top_p=top_p))[:, 1:]
+    logits = torch.from_numpy(np.tile(FIXED_LOGITS, (20000, 1)))
+    got = decode.sample_tokens(logits, torch.Generator().manual_seed(5), temperature=temperature, top_k=top_k,
+                               top_p=top_p).numpy()
+    jax_set = set(np.unique(jdraws).tolist())
+    assert jax_set == set(np.nonzero(want)[0].tolist())
+    assert set(np.unique(got).tolist()) <= jax_set
+    for draws in (got, jdraws.reshape(-1)):
+        assert draws.size == 20000
+        freq = np.bincount(draws, minlength=12) / draws.size
+        np.testing.assert_allclose(freq, want, atol=0.015, rtol=0)
+
+
+def test_greedy_with_prefix_equals_reference(model):
+    """Prefix lengths 0 to 5 over six rows, one prefix holding the EOS (it
+    finishes that row); all-zero lengths are exactly greedy."""
+    samples, jsamples = _samples(model)
+    eos = model["eos"]
+    rng = np.random.default_rng(6)
+    prefix = rng.integers(7, 96, (6, 5)).astype(np.int32)
+    prefix[3, 2] = eos
+    lens = np.array([0, 2, 5, 3, 1, 4], np.int32)
+    kw = dict(max_len=16, bos_token=BOS, eos_token=eos)
+    got = {}
+    for name, pl in (("mixed", lens), ("none", np.zeros(6, np.int32))):
+        want = np.asarray(jdecode.greedy_with_prefix(model["params"], model["jcfg"], jsamples, jnp.asarray(prefix),
+                                                     jnp.asarray(pl), **kw))
+        got[name] = decode.greedy_with_prefix(model["tp"], model["cfg"], samples, torch.from_numpy(prefix),
+                                              torch.from_numpy(pl), **kw).numpy()
+        np.testing.assert_array_equal(got[name], want)
+    np.testing.assert_array_equal(got["none"], model["ref"])
+    for r in range(6):
+        np.testing.assert_array_equal(got["mixed"][r, 1:lens[r] + 1], prefix[r, :lens[r]])
+    assert (got["mixed"][3, 4:] == 0).all() or got["mixed"][3, 3] == eos   # the forced EOS finished row 3
+
+
 @pytest.mark.parametrize("use_global,use_location", [(False, False), (True, True)])
 def test_predictor_strings_equal_reference(use_global, use_location):
     cfg_kw = dict(TINY, max_position_embeddings=12, image_size=64, use_global_features=use_global,
@@ -249,7 +358,8 @@ def test_package_imports_without_jax_or_retr_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'retr_tpu' or m.startswith('retr_tpu.')]\n"
         "assert not bad, bad\n"
-        "assert 'retr_tpu_torch.predictor' in sys.modules\n"
+        "for m in ('predictor', 'serve', 'native', 'train.checkpoints'):\n"
+        "    assert 'retr_tpu_torch.' + m in sys.modules, m\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
