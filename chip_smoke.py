@@ -91,6 +91,22 @@ Phases (any failure raises, exits non-zero and prints no result line):
      step: 6 encoder, 6 causal decoder, 6 cross); one f32 step at batch 2,
      dropout 0, on the GPU and on the CPU (loss within 1e-4 and pre-clip
      gradient norm within 1e-3 relative);
+  6b. train_epoch, the training and evaluation loop (retr_tpu_torch.engine) at
+     the served width in bf16, dropout 0.1, on a synthetic RefCOCO written to a
+     temporary directory (128 images of 240-640 px as .npy files read by
+     RefCocoCaptions' read_image, 100 training and 40 validation annotations
+     with 1-3 expressions each, so no Pillow is needed): build_dataset and a
+     shuffled DataLoader at batch 32 (an epoch of the loader alone first),
+     two epochs of train_one_epoch (staged uploads off, then on; seconds,
+     steps/s, samples/s, loss, peak memory) and four more with the two in
+     turns, the batches of staged and inline uploads bit-equal, an epoch
+     under torch.profiler; the scorer on the references themselves (BLEU-1
+     and ROUGE-L 1); evaluate on the validation split with
+     use_pallas_attention (18 fused_attention launches a batch); eval_model
+     greedy (fused_stack_step) and beam 5 (self_attn_block_beam,
+     cross_attn_block, ff_block) on the 40 unique validation annotations (a
+     batch of 32 and a ragged 8): expressions/s, the PhaseTimer phases, every
+     metric finite;
   7. every kernel's launch count from its path's run must be > 0.
 
 The card's line, then a line {"kernels": [...]} with one entry per kernel,
@@ -1967,6 +1983,191 @@ def train(dev, state, card):
     return launches
 
 
+# ---------------------------------------------------------------------------------
+# Phase 6b: train_epoch, the training and evaluation loop on a synthetic RefCOCO
+# ---------------------------------------------------------------------------------
+
+REFCOCO_IMAGES, REFCOCO_TRAIN, REFCOCO_VAL = 128, 100, 40   # images, training / validation annotations
+EPOCH_BATCH = 32                                            # Config.batch_size
+
+
+def write_refcoco(root, n_images=REFCOCO_IMAGES, n_train=REFCOCO_TRAIN, n_val=REFCOCO_VAL, seed=0, words=None):
+    """A synthetic RefCOCO in the reference's on-disk formats, without Pillow:
+    ``<root>/refs/refcoco/{instances.json, refs(unc).p}`` and, for each image,
+    ``<root>/coco/train2014/COCO_train2014_<id>.npy`` (uint8 HWC, 240-640 px;
+    read them with :func:`read_npy`). Annotations are spread over the images
+    (some hold two), each with 1-3 sentences of 3-8 words drawn from
+    ``words``; the first ``n_train`` are "train", the next ``n_val`` "val".
+    Returns (coco_dir, ref_dir)."""
+    import pickle
+
+    import numpy as np
+
+    from retr_tpu_torch.data.tokenizer import DEFAULT_TEST_WORDS
+
+    words = list(words or DEFAULT_TEST_WORDS)
+    rng = np.random.default_rng(seed)
+    coco_dir, ref_dir = os.path.join(root, "coco"), os.path.join(root, "refs", "refcoco")
+    os.makedirs(os.path.join(coco_dir, "train2014"), exist_ok=True)
+    os.makedirs(ref_dir, exist_ok=True)
+    sizes = []
+    for i in range(n_images):
+        h, w = int(rng.integers(240, 641)), int(rng.integers(240, 641))
+        np.save(os.path.join(coco_dir, "train2014", f"COCO_train2014_{1000 + i:012d}.npy"),
+                rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        sizes.append((h, w))
+    annotations, refs, sent_id = [], [], 0
+    for a in range(n_train + n_val):
+        i = a % n_images
+        h, w = sizes[i]
+        x, y = float(rng.uniform(0, w * 0.6)), float(rng.uniform(0, h * 0.6))
+        box = [x, y, float(rng.uniform(16, w - x)), float(rng.uniform(16, h - y))]
+        annotations.append({"id": a, "image_id": 1000 + i, "bbox": box, "category_id": 1})
+        sents = []
+        for _ in range(int(rng.integers(1, 4))):
+            sents.append({"sent_id": sent_id, "sent": " ".join(rng.choice(words, int(rng.integers(3, 9))))})
+            sent_id += 1
+        refs.append({"ann_id": a, "ref_id": a, "image_id": 1000 + i, "split": "train" if a < n_train else "val",
+                     "file_name": f"COCO_train2014_{1000 + i:012d}_{a}.jpg", "sentences": sents})
+    with open(os.path.join(ref_dir, "instances.json"), "w") as f:
+        json.dump({"annotations": annotations}, f)
+    with open(os.path.join(ref_dir, "refs(unc).p"), "wb") as f:
+        pickle.dump(refs, f)
+    return coco_dir, ref_dir
+
+
+def read_npy(path):
+    """RefCocoCaptions' ``read_image`` for :func:`write_refcoco`'s files: the
+    .npy beside the .jpg name the dataset asks for."""
+    import numpy as np
+
+    return np.load(os.path.splitext(path)[0] + ".npy")
+
+
+def train_epoch(dev, state, card, by_run):
+    """Phase 6b at the served width (bf16, dropout 0.1) on a synthetic RefCOCO:
+    six epochs of engine.train_one_epoch through build_dataset and a shuffled
+    DataLoader at batch 32 (staged uploads off, on, then the two in turns),
+    a seventh under torch.profiler; engine.evaluate on the validation split with
+    use_pallas_attention (18 fused_attention launches a batch); engine.eval_model
+    greedy and beam 5 on the unique validation annotations (32 + a ragged 8)."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from retr_tpu_torch import engine
+    from retr_tpu_torch.data.dataset import DataLoader, build_dataset
+    from retr_tpu_torch.metrics import NLGEval
+    from retr_tpu_torch.models import weights
+    from retr_tpu_torch.train import state as tstate
+    from retr_tpu_torch.utils.profiling import PhaseTimer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_refcoco_")
+    try:
+        t0 = time.perf_counter()
+        coco_dir, ref_dir = write_refcoco(tmp)
+        tok = synthetic_tokenizer()
+        cfg = served_config("bfloat16").replace(dropout=0.1, dir=coco_dir, ref_dir=ref_dir,
+                                                batch_size=EPOCH_BATCH)
+
+        def loader(mode, unique=False, **kw):
+            ds = build_dataset(cfg, mode, tokenizer=tok, return_unique=unique, read_image=read_npy)
+            return DataLoader(ds, EPOCH_BATCH, num_workers=4, **kw)
+
+        train_loader = loader("train", shuffle=True, drop_last=True)
+        log("refcoco_fixture", json.dumps({"images": REFCOCO_IMAGES, "train_annotations": REFCOCO_TRAIN,
+                                           "val_annotations": REFCOCO_VAL,
+                                           "train_expressions": len(train_loader.dataset),
+                                           "steps_per_epoch": len(train_loader),
+                                           "seconds": time.perf_counter() - t0, "card": card}))
+        st = tstate.create_train_state(cfg, weights.to_params(state, cfg, device=dev), device=dev,
+                                       steps_per_epoch=len(train_loader))
+        step = tstate.make_train_step(cfg)
+        t0 = time.perf_counter()
+        n_host = sum(1 for _ in train_loader)     # the loader alone: host preprocessing of an epoch
+        dt = time.perf_counter() - t0
+        log("train_loader", json.dumps({"batches": n_host, "seconds": dt, "samples_per_s": n_host * EPOCH_BATCH / dt,
+                                        "num_workers": train_loader.num_workers, "card": card}))
+        losses = []
+        # epochs 0-1: inline then staged uploads; 2-5 the two in turns (epoch 0 pays the set-up)
+        for epoch, staged in enumerate((False, True, False, True, True, False)):
+            torch.cuda.reset_peak_memory_stats()
+            (st, loss), dt = _synced(lambda: engine.train_one_epoch(st, step, train_loader, 0, epoch=epoch,
+                                                                    stage_uploads=staged))
+            losses.append(loss)
+            steps = len(train_loader)
+            log("train_epoch", json.dumps({"epoch": epoch, "stage_uploads": staged, "batch": EPOCH_BATCH,
+                                           "steps": steps, "seconds": dt, "steps_per_s": steps / dt,
+                                           "samples_per_s": steps * EPOCH_BATCH / dt, "loss": loss,
+                                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                                           "card": card}))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"epoch losses not finite: {losses}")
+
+        def recorded(staged):   # the batches a step receives, built inline or on the staging thread
+            store = []
+            engine.train_one_epoch(st, lambda state, batch, seed: (store.append(batch), (state, 0.0))[1],
+                                   train_loader, 0, epoch=3, stage_uploads=staged)
+            torch.cuda.synchronize()
+            return store
+
+        inline, staged = recorded(False), recorded(True)
+        equal = len(inline) == len(staged) and all(
+            (x is None and y is None) or torch.equal(x, y) for a, b in zip(inline, staged) for x, y in zip(a, b))
+        log("staged_uploads", json.dumps({"batches": len(inline), "bit_equal_to_inline": equal, "card": card}))
+        if not equal:
+            raise AssertionError("batches built on the staging thread differ from those built inline")
+        del inline, staged
+        prof = device_profile(lambda: engine.train_one_epoch(st, step, train_loader, 0, epoch=6, stage_uploads=True),
+                              len(train_loader), top_n=8)
+        log("profile", json.dumps({"train_epoch": 6, "stage_uploads": True, "steps": len(train_loader), **prof,
+                                   "card": card}))
+
+        val_loader = loader("val")
+        eval_cfg = cfg.replace(use_pallas_attention=True)
+        want = (cfg.enc_layers + 2 * cfg.dec_layers) * len(val_loader)
+        val_loss, dt, _ = counted("evaluate, use_pallas_attention", by_run,
+                                  lambda: engine.evaluate(st.params, eval_cfg, val_loader), {"fused_attention": want})
+        log("evaluate", json.dumps({"batches": len(val_loader), "expressions": len(val_loader.dataset),
+                                    "seconds": dt, "loss": val_loss, "fused_attention_launches": want,
+                                    "card": card}))
+        if not math.isfinite(val_loss):
+            raise AssertionError(f"validation loss {val_loss}")
+
+        unique = loader("val", unique=True)
+        # the scorer on known input: each annotation's first reference as its hypothesis
+        refs = {}
+        for ann_id, _, caption, _ in unique.dataset.annot:
+            refs.setdefault(ann_id, []).append(engine.normalize_with_tokenizer(caption, tok))
+        per_ann = [refs[a[0]] for a in unique.dataset.annot_select]
+        own = NLGEval().compute_metrics(list(map(list, zip(*per_ann))), [r[0] for r in per_ann])
+        log("metrics_on_references", json.dumps({**own, "card": card}))
+        if not all(abs(own[k] - 1.0) < 1e-6 for k in ("Bleu_1", "ROUGE_L")) or not own["CIDEr"] > 0:
+            raise AssertionError(f"the scorer on its own references: {own}")
+        runs = (("eval_model greedy", "greedy", ["fused_stack_step"]),
+                ("eval_model beam 5", "beam", ["self_attn_block_beam", "cross_attn_block", "ff_block"]))
+        for label, decoder, kernels in runs:
+            timer = PhaseTimer()
+            (metrics, hyps), dt, counts = counted(
+                label, by_run, lambda: engine.eval_model(st.params, cfg, unique, tok, decoder=decoder, timer=timer),
+                {k: None for k in kernels})
+            log("eval_model", json.dumps({"decoder": decoder, "expressions": len(hyps),
+                                          "batches": len(unique), "seconds": dt, "expressions_per_s": len(hyps) / dt,
+                                          "metrics": metrics, "phases": timer.summary(),
+                                          "launches": {k: counts[k] for k in kernels},
+                                          "first": [h["expression"][:60] for h in hyps[:2]], "card": card}))
+            keys = {"Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr"}
+            if len(hyps) != len(unique.dataset) or set(metrics) != keys or \
+                    not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"{label}: {len(hyps)} hypotheses for {len(unique.dataset)}, metrics {metrics}")
+        del st, step
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def loop_times(tree) -> int:
     """One turn of --compare: the decode-loop times of the package under ``tree``."""
     import statistics
@@ -2167,6 +2368,7 @@ def main(mode=None) -> int:
     torch.cuda.empty_cache()
 
     launches["fused_attention"] = train(dev, state, card)                 # phase 6
+    train_epoch(dev, state, card, by_run)                                  # phase 6b
 
     entries = []                                                           # phase 7
     for name, (replaces, source, case) in KERNELS.items():
@@ -2187,7 +2389,7 @@ def main(mode=None) -> int:
         for key in ("grid", "plan", "device_ms", "ms_events", "library_device_ms", "phase_us"):   # the kernel's own lines
             if key in main_rec:
                 entry[key] = main_rec[key]
-        if len(by_run.get(name, {})) > 1:
+        if by_run.get(name):
             entry["launches_by_run"] = by_run[name]
         if name == "fused_attention":   # launches: eval steps; the serving encoder's beside them
             entry["launches_serving_encoder"] = launches["fused_attention (serving encoder)"]

@@ -8,7 +8,9 @@ the 6-layer encoder run once, and a KV-cached loop whose decoder layers run in
 hand-written CUDA kernels (``ops/decoder_kernels.py``,
 ``csrc/stack_kernels.cu``, ``csrc/block_kernels.cu``, ``csrc/head_kernels.cu``,
 and ``csrc/width_kernels.cu`` at other widths). Trains and evaluates
-the teacher-forced model (``train/state.py``); with
+the teacher-forced model (``train/state.py``) on RefCOCO (``data/dataset.py``,
+colour jitter in ``data/pipeline.py``) through ``engine.py``, which scores
+generated expressions with BLEU, METEOR, ROUGE-L and CIDEr (``metrics/``); with
 ``Config.use_pallas_attention`` every attention core without attention dropout
 runs in the fused attention kernel (``ops/attention.py``,
 ``csrc/attention_kernels.cu``). Module names follow ``retr_tpu`` so each piece

@@ -44,8 +44,14 @@ class Sample(NamedTuple):
 def load_image(image_path: str) -> np.ndarray:
     """Open an image file as an RGB uint8 array (reference load_image,
     eval_utils/decode.py:13-17, minus the torch transform — feed the result to
-    preprocess_sample)."""
-    from PIL import Image
+    preprocess_sample). Needs PIL; without it this raises, naming the ways
+    around it."""
+    try:
+        from PIL import Image
+    except ImportError as exc:
+        raise ImportError(
+            "decoding an image file needs PIL, which is not installed: pass the image as a uint8 HWC "
+            "array, or give RefCocoCaptions a read_image=<path -> uint8 HWC array>") from exc
 
     with Image.open(image_path) as im:
         if im.mode != "RGB":

@@ -1,12 +1,17 @@
-"""Source positional encoding: the 1-D sine table over the flattened feature
-sequence (retr_tpu/models/positional.py)."""
+"""Source positional encoding over the flattened feature sequence
+(retr_tpu/models/positional.py): the 1-D sine table ("sine"/"v2"), or the
+learned table with its LayerNorm and dropout ("learned"/"v3", the reference's
+position_encoding.py:38-63, params ``transformer.src_pos``)."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
+
+from retr_tpu_torch.models import layers
 
 
 def sine_table(d_model: int, max_len: int = 1024, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -23,11 +28,17 @@ def sine_table(d_model: int, max_len: int = 1024, dtype=torch.float32, device=No
     return torch.as_tensor(pe.astype(np.float32), device=device).to(dtype)
 
 
-def positional_encoding(kind: str, seq_len: int, d_model: int, device=None) -> torch.Tensor:
-    """[S, d] positional encoding. Only the sine table is ported; the learned
-    table ("v3"/"learned") is not yet."""
+def positional_encoding(kind: str, seq_len: int, d_model: int, params: Optional[dict] = None, *,
+                        dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None,
+                        train: bool = False, device=None) -> torch.Tensor:
+    """[S, d] positional encoding. The learned kind is
+    ``dropout(LayerNorm(params["table"][:S]))``, with dropout only under
+    ``train``."""
     if kind in ("v2", "sine"):
         return sine_table(d_model, max_len=max(seq_len, 1024), device=device)[:seq_len]
     if kind in ("v3", "learned"):
-        raise NotImplementedError("learned source positions are not ported yet")
+        if params is None:
+            raise ValueError("learned source positions need their parameters (transformer.src_pos)")
+        emb = layers.layer_norm(params["norm"], params["table"][:seq_len])
+        return layers.dropout(emb, dropout_rate, generator, train)
     raise ValueError(f"not supported {kind}")

@@ -99,8 +99,9 @@ def encode(params: Params, src: torch.Tensor, src_pad_mask: torch.Tensor, cfg: C
     With ``need_weights`` atts is ``{"enc_tc_self_att": [L, B, S, S]}``, the
     head-averaged maps of the plain attention core (the fused kernel is not
     used for that call), and no layer is rematerialised."""
-    pos = positional_encoding(cfg.position_embedding, src.shape[1], cfg.hidden_dim,
-                              device=src.device)
+    pos = positional_encoding(cfg.position_embedding, src.shape[1], cfg.hidden_dim, params.get("src_pos"),
+                              dropout_rate=cfg.dropout, train=train, device=src.device,
+                              generator=layers.make_generator(_seed(seed, 999), src.device))
     bias = key_padding_bias(src_pad_mask)
     kp_bias = bias[:, 0, 0, :]  # [B, S] form for the fused kernel
 

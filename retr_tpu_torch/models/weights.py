@@ -28,6 +28,11 @@ from retr_tpu_torch.models.resnet import BN_EPS, fold_bn, resnet_structure
 Params = Dict[str, Any]
 StateDict = Dict[str, torch.Tensor]
 
+# the learned source positions (Config.position_embedding "learned"/"v3"): the
+# reference's PositionalEmbedding, ConcatTransformer.positional_encoding
+# (a [1024, d] table and a LayerNorm)
+SRC_POS = "transformer.positional_encoding"
+
 
 # ---------------------------------------------------------------------------------
 # JAX parameter tree (numpy leaves) -> reference-named state dict
@@ -97,7 +102,8 @@ def from_jax_params(params_np: Mapping, cfg: Config) -> StateDict:
 
     tp = params_np["transformer"]
     if "src_pos" in tp:
-        raise NotImplementedError("learned source positions are not ported yet")
+        out[f"{SRC_POS}.embedding.weight"] = _t(tp["src_pos"]["table"])
+        _put_norm(out, f"{SRC_POS}.norm", tp["src_pos"]["norm"])
     for i, layer in enumerate(tp["encoder"]["layers"]):
         _put_att(out, f"transformer.encoder.layers.{i}.self_attn", layer["self_attn"])
         _put_ff(out, f"transformer.encoder.layers.{i}.ff", layer["ff"])
@@ -200,6 +206,9 @@ def to_params(state_dict: Mapping[str, torch.Tensor], cfg: Config, device=None) 
     }
     if f"{t}encoder.norm.weight" in sd:
         transformer["encoder"]["norm"] = _norm(sd, f"{t}encoder.norm")
+    if f"{SRC_POS}.embedding.weight" in sd:
+        transformer["src_pos"] = {"table": sd[f"{SRC_POS}.embedding.weight"],
+                                  "norm": _norm(sd, f"{SRC_POS}.norm")}
     conv_w = sd["input_proj.weight"]
     params: Params = {
         "backbone": backbone,
@@ -306,6 +315,13 @@ class _Embeddings(nn.Module):
         self.LayerNorm = nn.LayerNorm(cfg.hidden_dim, eps=cfg.layer_norm_eps)
 
 
+class _LearnedPositions(nn.Module):
+    def __init__(self, d: int, max_len: int = 1024):
+        super().__init__()
+        self.embedding = nn.Embedding(max_len, d)
+        self.norm = nn.LayerNorm(d)
+
+
 class _Transformer(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
@@ -314,6 +330,8 @@ class _Transformer(nn.Module):
                               nn.LayerNorm(d) if cfg.pre_norm else None)
         self.decoder = _Stack([_DecLayer(cfg) for _ in range(cfg.dec_layers)], nn.LayerNorm(d))
         self.embeddings = _Embeddings(cfg)
+        if cfg.position_embedding in ("v3", "learned"):
+            self.positional_encoding = _LearnedPositions(d)
 
 
 class _MLP(nn.Module):

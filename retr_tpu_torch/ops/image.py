@@ -1,5 +1,5 @@
-"""Host-side image resizing and padding on numpy arrays (the numpy half of
-retr_tpu/ops/image.py).
+"""Image ops (retr_tpu/ops/image.py): resizing and padding on the host in
+numpy, colour jitter on the device in torch.
 
 - :func:`pil_resize_uint8` is bit-exact with PIL ``Image.resize(BILINEAR)`` on
   uint8 images (Pillow's fixed-point coefficients, per-pass rounding + clipping);
@@ -9,16 +9,21 @@ retr_tpu/ops/image.py).
   rounding for images, floor/ceil for masks), one pixel apart when the size
   difference is 3 mod 4.
 
-Normalization happens on the device (data/pipeline.py); colour jitter belongs
-to training and is not ported yet.
+- :func:`jitter_draws` and :func:`apply_color_jitter` are torchvision's
+  ColorJitter(brightness, contrast, saturation) as ``color_jitter`` computes it,
+  batched on the device and split in two: the random factors and op order
+  per row, then a pure function of the image and those draws.
+
+Normalization happens on the device (data/pipeline.py).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
 PRECISION_BITS = 32 - 8 - 2  # Pillow Resample.c fixed-point precision for 8bpc
 
@@ -143,3 +148,60 @@ def pad_mask_to_square(mask: np.ndarray) -> np.ndarray:
         lead, _ = pad_mask_offsets(m - h)
         out[lead : lead + h, :] = mask
     return out
+
+
+# ---------------------------------------------------------------------------------
+# Colour jitter (device-side, batched)
+# ---------------------------------------------------------------------------------
+
+# the reference's ColorJitter ranges (data_utils/refcoco.py:28-35)
+BRIGHTNESS, CONTRAST, SATURATION = (0.5, 1.3), (0.8, 1.5), (0.2, 1.5)
+
+
+class JitterDraws(NamedTuple):
+    """Per-row draws of one jitter: the three factors [N] f32 and ``order``
+    [N, 3] int64, a permutation of (0 brightness, 1 contrast, 2 saturation):
+    row n applies op ``order[n, i]`` i-th."""
+
+    brightness: torch.Tensor
+    contrast: torch.Tensor
+    saturation: torch.Tensor
+    order: torch.Tensor
+
+
+def jitter_draws(generator: Optional[torch.Generator], n: int, device) -> JitterDraws:
+    """Uniform factors in the reference's ranges and a uniform random order of
+    the three ops, for each of ``n`` rows (torchvision permutes the enabled ops
+    per image). torch cannot reproduce ``jax.random``, so the draws match
+    ``color_jitter``'s in distribution; the generator lives on ``device``."""
+    u = torch.rand((3, n), generator=generator, device=device)
+    lo = torch.tensor([BRIGHTNESS[0], CONTRAST[0], SATURATION[0]], device=device)[:, None]
+    hi = torch.tensor([BRIGHTNESS[1], CONTRAST[1], SATURATION[1]], device=device)[:, None]
+    f = lo + u * (hi - lo)
+    order = torch.argsort(torch.rand((n, 3), generator=generator, device=device), dim=1)
+    return JitterDraws(f[0], f[1], f[2], order)
+
+
+def _gray(x: torch.Tensor) -> torch.Tensor:  # PIL convert("L") weights
+    return x[..., 0] * 0.299 + x[..., 1] * 0.587 + x[..., 2] * 0.114
+
+
+def apply_color_jitter(x: torch.Tensor, draws: JitterDraws) -> torch.Tensor:
+    """[N, H, W, 3] float in [0, 255] -> the same, jittered: ``color_jitter``'s
+    arithmetic (brightness ``clip(x * fb)``, contrast about the rounded mean
+    of gray, saturation about gray, each clipped to [0, 255]) in each row's
+    order. Every op is computed for every row and selected by the order, so
+    nothing waits for the host."""
+    def col(v):
+        return v.to(x.dtype)[:, None, None, None]
+
+    fb, fc, fs = col(draws.brightness), col(draws.contrast), col(draws.saturation)
+    for i in range(3):
+        bright = torch.clamp(x * fb, 0.0, 255.0)
+        mean = torch.round(_gray(x).mean(dim=(1, 2)))[:, None, None, None]
+        contrast = torch.clamp(mean + (x - mean) * fc, 0.0, 255.0)
+        g = _gray(x)[..., None]
+        sat = torch.clamp(g + (x - g) * fs, 0.0, 255.0)
+        op = draws.order[:, i][:, None, None, None]
+        x = torch.where(op == 0, bright, torch.where(op == 1, contrast, sat))
+    return x

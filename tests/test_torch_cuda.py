@@ -883,3 +883,78 @@ def test_score_launches_fused_attention_and_attention_maps_do_not(dev):
     text, atts = pred.predict_with_attention(imgs[0], boxes[0])
     assert dk.LAUNCHES["fused_attention"] == 0 and isinstance(text, str)
     np.testing.assert_allclose(atts["dec_exp_tc_cross_att"].sum(-1), 1.0, atol=1e-3)
+
+
+def test_apply_color_jitter_on_cuda_equals_cpu(dev):
+    """The same draws on the card and on the CPU: within 1e-3 on the 0-255
+    scale (the contrast mean is a sum in another order)."""
+    from retr_tpu_torch.ops import image as imops
+
+    gen = torch.Generator().manual_seed(0)
+    img = torch.randint(0, 256, (16, 224, 224, 3), generator=gen, dtype=torch.uint8)
+    draws = imops.jitter_draws(gen, 16, "cpu")
+    want = imops.apply_color_jitter(img.float(), draws)
+    got = imops.apply_color_jitter(img.to(dev).float(), imops.JitterDraws(*(d.to(dev) for d in draws)))
+    assert float((got.cpu() - want).abs().max()) <= 1e-3
+    cuda_draws = imops.jitter_draws(torch.Generator(device=dev).manual_seed(0), 16, dev)
+    assert all(d.device.type == "cuda" for d in cuda_draws)
+
+
+def test_train_epoch_and_eval_model_on_cuda(dev, tmp_path):
+    """A tiny-width model on a synthetic RefCOCO (chip_smoke.write_refcoco,
+    .npy images): two epochs (inline and staged uploads, whose batches are
+    bit-equal), the validation loss through fused_attention, eval_model
+    greedy and beam through the decode kernels; losses and metrics finite."""
+    import math
+
+    from retr_tpu_torch import engine
+    from retr_tpu_torch.data.dataset import DataLoader, build_dataset
+    from retr_tpu_torch.data.tokenizer import prepare_tokenizer
+
+    coco_dir, ref_dir = chip_smoke.write_refcoco(str(tmp_path), n_images=12, n_train=10, n_val=5)
+    tok = prepare_tokenizer()[0]
+    cfg = Config(**{**SERVE_CFG, "vocab_size": tok.vocab_size, "dropout": 0.1, "dir": coco_dir,
+                    "ref_dir": ref_dir, "beam_size": 3})
+
+    def loader(mode, unique=False, **kw):
+        ds = build_dataset(cfg, mode, tokenizer=tok, return_unique=unique, read_image=chip_smoke.read_npy)
+        return DataLoader(ds, 4, num_workers=2, **kw)
+
+    train = loader("train", shuffle=True, drop_last=True)
+    torch.manual_seed(0)
+    params = weights.to_params(weights.reference_module(cfg).state_dict(), cfg, device=dev)
+    st = tstate.create_train_state(cfg, params, device=dev, steps_per_epoch=len(train))
+    step = tstate.make_train_step(cfg)
+    losses = []
+    for epoch in (0, 1):
+        st, loss = engine.train_one_epoch(st, step, train, 0, epoch=epoch, stage_uploads=epoch == 1)
+        losses.append(loss)
+    assert all(math.isfinite(x) for x in losses) and st.step == 2 * len(train)
+
+    def record(staged):
+        store = []
+
+        def rec(state, batch, seed):
+            store.append(batch)
+            return state, 0.0
+
+        engine.train_one_epoch(st, rec, train, 7, epoch=3, stage_uploads=staged)
+        torch.cuda.synchronize()
+        return store
+
+    for a, b in zip(record(False), record(True)):
+        assert all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+    val = loader("val")
+    dk.reset_launches()
+    val_loss = engine.evaluate(st.params, cfg.replace(use_pallas_attention=True), val)
+    assert math.isfinite(val_loss)
+    assert dk.LAUNCHES["fused_attention"] == (cfg.enc_layers + 2 * cfg.dec_layers) * len(val)
+    unique = loader("val", unique=True)
+    for decoder, kernels in (("greedy", ["fused_stack_step"]),
+                             ("beam", ["self_attn_block_beam", "cross_attn_block", "ff_block"])):
+        dk.reset_launches()
+        metrics, hyps = engine.eval_model(st.params, cfg, unique, tok, decoder=decoder)
+        assert all(dk.LAUNCHES[k] > 0 for k in kernels), (decoder, dk.LAUNCHES)
+        assert len(hyps) == len(unique.dataset) and len(metrics) == 7
+        assert all(math.isfinite(v) for v in metrics.values())

@@ -358,7 +358,8 @@ def test_package_imports_without_jax_or_retr_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'retr_tpu' or m.startswith('retr_tpu.')]\n"
         "assert not bad, bad\n"
-        "for m in ('predictor', 'serve', 'native', 'train.checkpoints'):\n"
+        "for m in ('predictor', 'serve', 'native', 'train.checkpoints', 'engine', 'metrics.nlg',\n"
+        "          'metrics.meteor', 'data.annotations', 'data.dataset', 'utils.logging', 'utils.profiling'):\n"
         "    assert 'retr_tpu_torch.' + m in sys.modules, m\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

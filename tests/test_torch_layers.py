@@ -73,8 +73,21 @@ def test_sine_table_matches(seq_len, d):
 
 
 def test_learned_positions_not_ported_yet():
-    with pytest.raises(NotImplementedError):
+    """Ported since: the learned table's LayerNorm equals retr_tpu's on the
+    same parameters (the name is kept from when the port raised here); it
+    needs its parameters, and drops out only under ``train``."""
+    p = jpos.learned_init(jax.random.key(3), 64)
+    tp = {"table": torch.from_numpy(np.array(p["table"])),
+          "norm": {k: torch.from_numpy(np.array(v)) for k, v in p["norm"].items()}}
+    ref = jpos.positional_encoding("learned", 10, 64, p)
+    got = tpos.positional_encoding("learned", 10, 64, tp)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="src_pos"):
         tpos.positional_encoding("learned", 10, 64)
+    gen = torch.Generator().manual_seed(0)
+    assert torch.equal(tpos.positional_encoding("learned", 10, 64, tp, dropout_rate=0.5, generator=gen), got)
+    dropped = tpos.positional_encoding("learned", 10, 64, tp, dropout_rate=0.5, generator=gen, train=True)
+    assert 0.3 < float((dropped == 0).float().mean()) < 0.7
 
 
 def test_masks_match():
