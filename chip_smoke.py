@@ -93,9 +93,9 @@ Phases (any failure raises, exits non-zero and prints no result line):
      gradient norm within 1e-3 relative);
   6b. train_epoch, the training and evaluation loop (retr_tpu_torch.engine) at
      the served width in bf16, dropout 0.1, on a synthetic RefCOCO written to a
-     temporary directory (128 images of 240-640 px as .npy files read by
-     RefCocoCaptions' read_image, 100 training and 40 validation annotations
-     with 1-3 expressions each, so no Pillow is needed): build_dataset and a
+     temporary directory (128 images of 240-640 px saved by np.save under
+     COCO's .jpg names, which preprocess.load_image reads without Pillow,
+     100 training and 40 validation annotations with 1-3 expressions each): build_dataset and a
      shuffled DataLoader at batch 32 (an epoch of the loader alone first),
      two epochs of train_one_epoch (staged uploads off, then on; seconds,
      steps/s, samples/s, loss, peak memory) and four more with the two in
@@ -107,6 +107,19 @@ Phases (any failure raises, exits non-zero and prints no result line):
      cross_attn_block, ff_block) on the 40 unique validation annotations (a
      batch of 32 and a ragged 8): expressions/s, the PhaseTimer phases, every
      metric finite;
+  6c. main, the training entry point end to end at the served width in bf16
+     (dropout 0.1, use_pallas_attention, async checkpoints) on 6b's synthetic
+     RefCOCO and a 30522-word vocab file: build_model on the card (parameter
+     count, per-leaf bound, variance and identity-BN checks), main.main for 2
+     epochs then resume=True to 3 (resume logged at epoch 2, epoch 2 trained
+     alone; fused_stack_step and fused_attention launched), the latest
+     checkpoint loaded and saved inline and through AsyncSaver (seconds, bytes),
+     eval_model's main_val_set with --override_config (every metric equal to
+     the last epoch_end's) and with --decoder beam (the beam kernels); on an
+     untrained checkpoint, whose captions are not empty, the CLI's hypotheses
+     equal to engine.eval_model's on the same parameters, greedy and beam;
+     export_pth, Predictor.from_checkpoint of each directory against its .pth
+     (parameters bit-equal, 8 captions and 8 scores equal); one ``main`` line;
   7. every kernel's launch count from its path's run must be > 0.
 
 The card's line, then a line {"kernels": [...]} with one entry per kernel,
@@ -1994,8 +2007,9 @@ EPOCH_BATCH = 32                                            # Config.batch_size
 def write_refcoco(root, n_images=REFCOCO_IMAGES, n_train=REFCOCO_TRAIN, n_val=REFCOCO_VAL, seed=0, words=None):
     """A synthetic RefCOCO in the reference's on-disk formats, without Pillow:
     ``<root>/refs/refcoco/{instances.json, refs(unc).p}`` and, for each image,
-    ``<root>/coco/train2014/COCO_train2014_<id>.npy`` (uint8 HWC, 240-640 px;
-    read them with :func:`read_npy`). Annotations are spread over the images
+    ``<root>/coco/train2014/COCO_train2014_<id>.jpg``, which holds a uint8 HWC
+    array of 240-640 px saved by ``np.save`` (``preprocess.load_image`` reads
+    it by its magic bytes). Annotations are spread over the images
     (some hold two), each with 1-3 sentences of 3-8 words drawn from
     ``words``; the first ``n_train`` are "train", the next ``n_val`` "val".
     Returns (coco_dir, ref_dir)."""
@@ -2013,8 +2027,8 @@ def write_refcoco(root, n_images=REFCOCO_IMAGES, n_train=REFCOCO_TRAIN, n_val=RE
     sizes = []
     for i in range(n_images):
         h, w = int(rng.integers(240, 641)), int(rng.integers(240, 641))
-        np.save(os.path.join(coco_dir, "train2014", f"COCO_train2014_{1000 + i:012d}.npy"),
-                rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        with open(os.path.join(coco_dir, "train2014", f"COCO_train2014_{1000 + i:012d}.jpg"), "wb") as f:
+            np.save(f, rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
         sizes.append((h, w))
     annotations, refs, sent_id = [], [], 0
     for a in range(n_train + n_val):
@@ -2034,14 +2048,6 @@ def write_refcoco(root, n_images=REFCOCO_IMAGES, n_train=REFCOCO_TRAIN, n_val=RE
     with open(os.path.join(ref_dir, "refs(unc).p"), "wb") as f:
         pickle.dump(refs, f)
     return coco_dir, ref_dir
-
-
-def read_npy(path):
-    """RefCocoCaptions' ``read_image`` for :func:`write_refcoco`'s files: the
-    .npy beside the .jpg name the dataset asks for."""
-    import numpy as np
-
-    return np.load(os.path.splitext(path)[0] + ".npy")
 
 
 def train_epoch(dev, state, card, by_run):
@@ -2073,7 +2079,7 @@ def train_epoch(dev, state, card, by_run):
                                                 batch_size=EPOCH_BATCH)
 
         def loader(mode, unique=False, **kw):
-            ds = build_dataset(cfg, mode, tokenizer=tok, return_unique=unique, read_image=read_npy)
+            ds = build_dataset(cfg, mode, tokenizer=tok, return_unique=unique)
             return DataLoader(ds, EPOCH_BATCH, num_workers=4, **kw)
 
         train_loader = loader("train", shuffle=True, drop_last=True)
@@ -2163,6 +2169,217 @@ def train_epoch(dev, state, card, by_run):
                     not all(math.isfinite(v) for v in metrics.values()):
                 raise AssertionError(f"{label}: {len(hyps)} hypotheses for {len(unique.dataset)}, metrics {metrics}")
         del st, step
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------------
+# Phase 6c: main, the training entry point end to end, and the command lines
+# ---------------------------------------------------------------------------------
+
+
+def write_vocab(path):
+    """The synthetic tokenizer's vocabulary (V entries, ids 0..V-1) as a vocab
+    file, so ``Config.vocab_file`` gives main() and the CLIs a 30522-word tokenizer."""
+    tok = synthetic_tokenizer()
+    by_id = sorted(tok.vocab.items(), key=lambda kv: kv[1])
+    if [i for _, i in by_id] != list(range(V)):
+        raise AssertionError("the synthetic vocabulary does not cover ids 0..V-1")
+    with open(path, "w") as f:
+        f.writelines(t + "\n" for t, _ in by_id)
+    return path
+
+
+def init_checks(params, cfg):
+    """Per-leaf checks of a fresh build_model tree against the reference's
+    initialisers: a xavier table and an MHA projection (max|x| within the bound
+    and above 0.9 of it, variance within 10% of b^2/3), a kaiming-normal
+    convolution (variance within 10% of 2/fan_out), a folded identity
+    BatchNorm (scale 1/sqrt(1 + 1e-5), bias 0, exact)."""
+    import math
+
+    import torch
+
+    d = cfg.hidden_dim
+    uniform = {"transformer.embeddings.word": (params["transformer"]["embeddings"]["word"]["table"],
+                                               math.sqrt(6.0 / (V + d))),
+               "transformer.encoder.layers.0.self_attn.mha.q": (
+                   params["transformer"]["encoder"]["layers"][0]["self_attn"]["mha"]["q"]["w"], math.sqrt(6.0 / (4 * d)))}
+    out = {}
+    for name, (x, b) in uniform.items():
+        x = x.double()
+        top, var = float(x.abs().max()), float(x.var())
+        out[name] = {"bound": b, "max_abs": top, "var_over_expected": var / (b * b / 3)}
+        if not (0.9 * b < top <= b and abs(var / (b * b / 3) - 1) <= 0.1):
+            raise AssertionError(f"{name}: {out[name]}")
+    w = params["backbone"]["layer2"][0]["conv2"]["w"].double()
+    want = 2.0 / (w.shape[0] * w.shape[2] * w.shape[3])
+    out["backbone.layer2.0.conv2"] = {"var_over_expected": float(w.var()) / want, "mean": float(w.mean())}
+    if abs(float(w.var()) / want - 1) > 0.1:
+        raise AssertionError(f"kaiming conv: {out['backbone.layer2.0.conv2']}")
+    bn = params["backbone"]["layer3"][0]["bn1"]
+    if not (torch.equal(bn["scale"], torch.full_like(bn["scale"], 1.0 / math.sqrt(1.0 + 1e-5)))
+            and not bn["bias"].any()):
+        raise AssertionError("a fresh folded BatchNorm is not the identity")
+    out["backbone.layer3.0.bn1"] = "identity, exact"
+    return out
+
+
+def train_main(dev, card, by_run):
+    """Phase 6c at the served width (bf16, dropout 0.1, use_pallas_attention,
+    async checkpoints) on phase 6b's synthetic RefCOCO: build_model on the card
+    and its per-leaf init checks; main.main for 2 epochs, then resume=True to 3
+    (resume logged at epoch 2, epoch 2 trained alone); a checkpoint loaded and
+    saved inline and through AsyncSaver (seconds, bytes); eval_model's
+    main_val_set on the latest checkpoint with --override_config (CIDEr and
+    every metric equal to the last epoch_end) and with --decoder beam. The
+    trained model decodes only PAD after 18 steps, so the decode is checked
+    on an untrained checkpoint too: the CLI's hypotheses, all non-empty,
+    equal engine.eval_model's on the parameters built anew, greedy and beam.
+    export_pth of each checkpoint; the Predictors of each directory and of
+    its .pth hold the same parameters, caption 8 requests alike (the
+    untrained ones non-empty) and score 8 texts to the same bits. One
+    ``main`` line."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from retr_tpu_torch import engine
+    from retr_tpu_torch import eval_model as em
+    from retr_tpu_torch import export_pth
+    from retr_tpu_torch import main as tmain
+    from retr_tpu_torch.config import Config
+    from retr_tpu_torch.data.tokenizer import DEFAULT_TEST_WORDS, prepare_tokenizer
+    from retr_tpu_torch.models import caption
+    from retr_tpu_torch.predictor import Predictor
+    from retr_tpu_torch.train import checkpoints as ckpt
+    from retr_tpu_torch.train import state as tstate
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_main_")
+    try:
+        coco_dir, ref_dir = write_refcoco(os.path.join(tmp, "refcoco"))
+        cfg = served_config("bfloat16").replace(
+            dropout=0.1, dir=coco_dir, ref_dir=ref_dir, batch_size=EPOCH_BATCH, num_workers=4, epochs=2,
+            use_pallas_attention=True, async_checkpoints=True, vocab_file=write_vocab(os.path.join(tmp, "vocab.txt")),
+            project_data_path=os.path.join(tmp, "run"), checkpoint_path="")
+        t0 = time.perf_counter()
+        params, _ = caption.build_model(cfg, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for _, x in tstate.tree_leaves_with_path(params))
+        checks = init_checks(params, cfg)
+        del params
+
+        def events():
+            with open(os.path.join(cfg.checkpoint_path, "metrics.jsonl")) as f:
+                return [json.loads(line) for line in f]
+
+        path_kernels = {"fused_stack_step": None, "fused_attention": None}
+        _, train_s, train_counts = counted("main, 2 epochs", by_run,
+                                           lambda: tmain.main(cfg), path_kernels)
+        first = events()
+        _, resume_run_s, resume_counts = counted("main, resume to 3 epochs", by_run,
+                                                 lambda: tmain.main(cfg.replace(epochs=3), resume=True), path_kernels)
+        ev = events()
+        resumed = ev[len(first):]
+        names = [e["event"] for e in resumed]
+        if "resume" not in names or resumed[names.index("resume")]["epoch"] != 2 or \
+                [e["epoch"] for e in resumed if e["event"] == "epoch_start"] != [2]:
+            raise AssertionError(f"the resumed run: {names}")
+        starts = {e["epoch"]: e["t"] for e in ev if e["event"] == "epoch_start"}
+        ends = [e for e in ev if e["event"] == "epoch_end"]
+        epochs = [{"epoch": e["epoch"], "seconds": e["t"] - starts[e["epoch"]], "train_loss": e["train_loss"],
+                   "val_loss": e["val_loss"], "cider": e["cider"]} for e in ends]
+        if [e["epoch"] for e in epochs] != [0, 1, 2] or not all(
+                math.isfinite(e["train_loss"]) and math.isfinite(e["val_loss"]) for e in epochs):
+            raise AssertionError(f"epochs: {epochs}")
+        resume_s = resumed[names.index("resume")]["t"] - resumed[0]["t"]   # the resumed run's start to its resume
+
+        latest = ckpt.latest_checkpoint(cfg.checkpoint_path, cfg)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(latest, f)) for f in os.listdir(latest))
+        template = tstate.create_train_state(cfg, caption.build_model(cfg, seed=1, device=dev)[0], device=dev,
+                                             steps_per_epoch=1)
+        # the untrained model's checkpoint: after 18 steps the trained one
+        # decodes only PAD, so this one's non-empty captions carry the decode checks
+        fresh = ckpt.save_checkpoint(os.path.join(tmp, "fresh"), template, cfg, epoch=0)
+        (st, meta), load_s = _synced(lambda: ckpt.load_checkpoint(latest, template))
+        if st.step != meta["step"]:
+            raise AssertionError(f"loaded step {st.step}, metadata {meta['step']}")
+        _, save_sync_s = _synced(lambda: ckpt.save_checkpoint(os.path.join(tmp, "sync"), st, cfg, epoch=meta["epoch"]))
+        saver = ckpt.AsyncSaver()
+        _, submit_s = _synced(lambda: saver.submit(os.path.join(tmp, "async"), st, cfg, epoch=meta["epoch"]))
+        t0 = time.perf_counter()
+        saver.wait()
+        wait_s = time.perf_counter() - t0
+        del st, template
+        torch.cuda.empty_cache()
+
+        tok = prepare_tokenizer(cfg.vocab_file)[0]
+        fresh_params = caption.build_model(cfg, seed=1, device=dev)[0]   # built anew, not read back
+        evals = {}
+        for decoder, kernels in (("greedy", path_kernels),
+                                 ("beam", {k: None for k in ("self_attn_block_beam", "cross_attn_block", "ff_block")})):
+            def run_cli(path):
+                args = em.build_argparser().parse_args(["--checkpoint", path, "--override_config", "--decoder",
+                                                        decoder, "--device", dev.type])
+                return em.main_val_set(args, Config())
+
+            (metrics, hyps), dt, counts = counted(f"eval_model CLI {decoder}", by_run, lambda: run_cli(latest), kernels)
+            if len(hyps) != REFCOCO_VAL or len(metrics) != 7 or not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"eval_model --decoder {decoder}: {len(hyps)} hypotheses, {metrics}")
+            # the CLI on the untrained checkpoint against engine.eval_model in
+            # this process on the parameters built anew: the same hypotheses
+            fresh_metrics, fresh_hyps = run_cli(fresh)
+            want_metrics, want_hyps = engine.eval_model(fresh_params, cfg.replace(device=dev.type),
+                                                        em.setup_val_dataloader(cfg, "val", tok), tok, decoder=decoder)
+            if fresh_hyps != want_hyps or fresh_metrics != want_metrics:
+                raise AssertionError(f"eval_model CLI --decoder {decoder} on a checkpoint against eval_model on its "
+                                     f"parameters: {fresh_hyps[:2]} / {want_hyps[:2]}")
+            if len(fresh_hyps) != REFCOCO_VAL or not all(h["expression"] for h in fresh_hyps):
+                raise AssertionError(f"eval_model CLI --decoder {decoder}: empty hypotheses {fresh_hyps[:4]}")
+            evals[decoder] = {"seconds": dt, "metrics": metrics, "launches": {k: counts[k] for k in kernels},
+                              "untrained_hypotheses_equal_in_process": len(fresh_hyps),
+                              "untrained_first_hypotheses": [h["expression"][:60] for h in fresh_hyps[:2]]}
+        if evals["greedy"]["metrics"] != ends[-1]["metrics"]:
+            raise AssertionError(f"eval CLI {evals['greedy']['metrics']} against epoch_end {ends[-1]['metrics']}")
+        del fresh_params
+
+        imgs, boxes = requests(8, seed=3)
+        words = list(DEFAULT_TEST_WORDS)
+        texts = [" ".join(words[3 * i:3 * i + 3 + i % 4]) for i in range(8)]
+        predictor_checks = {}
+        for label, path in (("trained", latest), ("untrained", fresh)):
+            pth = export_pth.main(["--checkpoint", path])
+            # from_checkpoint(.pth) would take the rest of the config from Config(), ResNet-101
+            preds = [Predictor.from_checkpoint(path, max_batch=8, device=dev),
+                     Predictor(ckpt.load_reference_state(pth)[0], cfg, max_batch=8, device=dev)]
+            leaves = [list(tstate.tree_leaves_with_path(p.params)) for p in preds]
+            if not all(a == b and torch.equal(x, y) for (a, x), (b, y) in zip(*leaves)):
+                raise AssertionError(f"the {label} Predictor's parameters from the directory and its .pth differ")
+            captions = [p.predict_batch(imgs, boxes) for p in preds]
+            scores = [p.score(imgs, boxes, texts) for p in preds]
+            if captions[0] != captions[1] or scores[0] != scores[1]:
+                raise AssertionError(f"{label}: the directory's and its .pth's Predictors differ: {captions} {scores}")
+            if not all(math.isfinite(r["logprob"]) and r["n_tokens"] > 0 for r in scores[0]):
+                raise AssertionError(f"{label}: scores {scores[0]}")
+            if label == "untrained" and not all(captions[0]):
+                raise AssertionError(f"the untrained model's captions are empty: {captions[0]}")
+            predictor_checks[label] = {"captions_equal": len(captions[0]), "scores_equal": len(scores[0]),
+                                       "first_captions": [c[:60] for c in captions[0][:2]],
+                                       "first_logprobs": [r["logprob"] for r in scores[0][:2]]}
+            del preds, leaves
+            os.remove(pth)
+        log("main", json.dumps({
+            "n_parameters": n_params, "build_model_s": build_s, "init_checks": checks, "epochs": epochs,
+            "main_2_epochs_s": train_s, "main_resume_s": resume_run_s, "resume_s": resume_s, "load_s": load_s,
+            "save_sync_s": save_sync_s, "save_async_submit_s": submit_s, "save_async_wait_s": wait_s,
+            "checkpoint_bytes": ckpt_bytes, "eval_cli": evals,
+            "launches": {"main, 2 epochs": {k: train_counts[k] for k in path_kernels},
+                         "main, resume": {k: resume_counts[k] for k in path_kernels}},
+            "predictor_dir_vs_pth": predictor_checks, "card": card}))
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2369,6 +2586,7 @@ def main(mode=None) -> int:
 
     launches["fused_attention"] = train(dev, state, card)                 # phase 6
     train_epoch(dev, state, card, by_run)                                  # phase 6b
+    train_main(dev, card, by_run)                                          # phase 6c
 
     entries = []                                                           # phase 7
     for name, (replaces, source, case) in KERNELS.items():

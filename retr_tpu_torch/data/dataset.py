@@ -6,8 +6,8 @@
   sample: decode, crop, pad, the PIL-exact resize and the tokenizer
   (``data/preprocess.py``). ``return_unique`` keeps the first sentence per
   ann_id (refcoco.py:82-91). Images are read by ``read_image(path)``, by
-  default ``preprocess.load_image`` (PIL, as the JAX package decodes); decoded
-  images are kept in a thread-safe LRU cache.
+  default ``preprocess.load_image`` (PIL, as the JAX package decodes, or
+  ``np.load`` for a file saved by ``np.save``); decoded images are kept in a thread-safe LRU cache.
 - :func:`build_dataset` selects the partition (train/val/testA/testB/test,
   refcoco.py:207-220).
 - :class:`DataLoader` shuffles with ``np.random.default_rng(seed + epoch)``,

@@ -44,14 +44,20 @@ class Sample(NamedTuple):
 def load_image(image_path: str) -> np.ndarray:
     """Open an image file as an RGB uint8 array (reference load_image,
     eval_utils/decode.py:13-17, minus the torch transform — feed the result to
-    preprocess_sample). Needs PIL; without it this raises, naming the ways
-    around it."""
+    preprocess_sample). A file that starts with NumPy's ``.npy`` magic is read
+    by ``np.load`` whatever its name (the dataset asks for COCO's ``.jpg``
+    names), as a uint8 HWC array; any other file needs PIL, and without it
+    this raises, naming the ways around it."""
+    with open(image_path, "rb") as f:
+        is_npy = f.read(len(np.lib.format.MAGIC_PREFIX)) == np.lib.format.MAGIC_PREFIX
+    if is_npy:
+        return np.load(image_path, allow_pickle=False)
     try:
         from PIL import Image
     except ImportError as exc:
         raise ImportError(
             "decoding an image file needs PIL, which is not installed: pass the image as a uint8 HWC "
-            "array, or give RefCocoCaptions a read_image=<path -> uint8 HWC array>") from exc
+            "array, save it with np.save, or give RefCocoCaptions a read_image=<path -> uint8 HWC array>") from exc
 
     with Image.open(image_path) as im:
         if im.mode != "RGB":

@@ -18,12 +18,46 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from retr_tpu_torch import device as device_mod
 from retr_tpu_torch.config import Config
 from retr_tpu_torch.masking import Masked, ensure_unmasked_values, filler_indices
 from retr_tpu_torch.models import layers, resnet, transformer
 from retr_tpu_torch.precision import matmul_precision
 
 Params = Dict[str, Any]
+
+
+def init(gen: torch.Generator, cfg: Config) -> Params:
+    """Fresh parameters on the host (retr_tpu/models/caption.py:37): input_proj,
+    the MLP head and loc_proj at nn.Linear's (and nn.Conv2d's) default init."""
+    if cfg.use_global_features and not cfg.use_location_features:
+        raise NotImplementedError()  # raised before anything is built
+    nc, d = cfg.backbone_num_channels, cfg.hidden_dim
+    params: Params = {
+        "backbone": resnet.init(gen, cfg.backbone, cfg.dilation),
+        "input_proj": layers.torch_linear_init(gen, nc, d),   # Conv2d(nc, d, 1) as a linear
+        "transformer": transformer.init(gen, cfg),
+        "mlp": {"layers": [layers.torch_linear_init(gen, d, 512), layers.torch_linear_init(gen, 512, 512),
+                           layers.torch_linear_init(gen, 512, cfg.vocab_size)]},
+    }
+    if cfg.use_location_features:
+        # one token per location scalar with global features, else one token of all of them
+        n_loc = 1 if cfg.use_global_features else cfg.num_location_features
+        params["loc_proj"] = layers.torch_linear_init(gen, n_loc, d)
+    return params
+
+
+def build_model(cfg: Config, seed: Optional[int] = None, device=None):
+    """(params, criterion), the reference's factory (retr_tpu/models/caption.py:224):
+    :func:`init` from a CPU generator seeded with ``seed`` (default ``cfg.seed``),
+    the tree then moved to ``device`` (``cuda`` unless told otherwise). The
+    criterion is the training loss's cross-entropy, averaged over every
+    position, PAD included."""
+    from retr_tpu_torch.train.state import cross_entropy  # train/state imports this module
+
+    gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+    params = init(gen, cfg)
+    return layers.tree_to(params, device=device_mod.resolve(device)), cross_entropy
 
 
 def mlp_head(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,7 @@ a recomputation under ``torch.utils.checkpoint`` draws the same masks.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -40,6 +41,15 @@ def make_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def tree_to(tree, **kw):
+    """Each tensor of a tree of dicts and lists through ``Tensor.to(**kw)``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, **kw) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, **kw) for v in tree]
+    return tree.to(**kw)
+
+
 def maybe_checkpoint(fn, remat: bool, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat`` is on and
     autograd records (the backward then recomputes fn's activations instead of
@@ -61,6 +71,59 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------------
+# Initialisers (retr_tpu/models/layers.py:26-116): the reference's, so a model
+# trained from scratch starts from the same distributions. Each draws from an
+# explicit CPU torch.Generator into f32 host tensors, so a seed gives the same
+# parameters whatever device they then move to. torch cannot replay jax.random:
+# the two packages agree in distribution, not in values.
+# ---------------------------------------------------------------------------------
+
+
+def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
+    return torch.empty(shape).uniform_(-bound, bound, generator=gen)
+
+
+def xavier_uniform(gen: torch.Generator, shape) -> torch.Tensor:
+    """nn.init.xavier_uniform_ on an [in, out] weight: U(+-sqrt(6 / (in + out)))."""
+    fan_in, fan_out = shape[0], shape[1]
+    return _uniform(gen, shape, math.sqrt(6.0 / (fan_in + fan_out)))
+
+
+def torch_linear_init(gen: torch.Generator, in_dim: int, out_dim: int) -> Params:
+    """nn.Linear's default: U(+-1/sqrt(fan_in)) for both w and b."""
+    bound = 1.0 / math.sqrt(in_dim)
+    return {"w": _uniform(gen, (in_dim, out_dim), bound), "b": _uniform(gen, (out_dim,), bound)}
+
+
+def xavier_linear_init(gen: torch.Generator, in_dim: int, out_dim: int) -> Params:
+    """A Linear whose weight ConcatTransformer._reset_parameters re-initialises
+    (xavier) while its bias keeps nn.Linear's default."""
+    return {"w": xavier_uniform(gen, (in_dim, out_dim)),
+            "b": _uniform(gen, (out_dim,), 1.0 / math.sqrt(in_dim))}
+
+
+def layer_norm_init(dim: int) -> Params:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def embedding_init(gen: torch.Generator, num: int, dim: int) -> Params:
+    """Xavier table: ConcatTransformer._reset_parameters re-initialises every
+    parameter of rank > 1, the embedding tables included."""
+    return {"table": xavier_uniform(gen, (num, dim))}
+
+
+def mha_init(gen: torch.Generator, embed_dim: int) -> Params:
+    """nn.MultiheadAttention's: q/k/v are slices of one xavier [3E, E] in_proj
+    (bound sqrt(6 / 4E)) with zero biases; out_proj xavier again (the reset),
+    zero bias."""
+    e = embed_dim
+    bound = math.sqrt(6.0 / (e + 3 * e))
+    p = {k: {"w": _uniform(gen, (e, e), bound), "b": torch.zeros(e)} for k in ("q", "k", "v")}
+    p["out"] = {"w": xavier_uniform(gen, (e, e)), "b": torch.zeros(e)}
+    return p
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:

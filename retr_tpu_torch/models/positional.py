@@ -28,6 +28,12 @@ def sine_table(d_model: int, max_len: int = 1024, dtype=torch.float32, device=No
     return torch.as_tensor(pe.astype(np.float32), device=device).to(dtype)
 
 
+def learned_init(gen: torch.Generator, d_model: int, max_len: int = 1024) -> dict:
+    """The learned table (xavier, as ConcatTransformer's reset re-initialises it)
+    and its LayerNorm."""
+    return {"table": layers.xavier_uniform(gen, (max_len, d_model)), "norm": layers.layer_norm_init(d_model)}
+
+
 def positional_encoding(kind: str, seq_len: int, d_model: int, params: Optional[dict] = None, *,
                         dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None,
                         train: bool = False, device=None) -> torch.Tensor:

@@ -11,13 +11,14 @@ FrozenBatchNorm buffers are.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from retr_tpu_torch.masking import Masked, downsample_mask_nearest
-from retr_tpu_torch.models.layers import maybe_checkpoint
+from retr_tpu_torch.models.layers import maybe_checkpoint, tree_to
 from retr_tpu_torch.precision import matmul_precision
 
 Params = Dict[str, Any]
@@ -65,6 +66,50 @@ def resnet_structure(name: str, dilation: bool):
     return block_type, plan
 
 
+def _kaiming_normal_conv(gen: torch.Generator, shape) -> torch.Tensor:
+    """torchvision's conv init, kaiming_normal_(mode='fan_out', nonlinearity='relu'),
+    on an OIHW weight: N(0, 2 / (O * kh * kw))."""
+    o, _, kh, kw = shape
+    return torch.randn(shape, generator=gen) * math.sqrt(2.0 / (o * kh * kw))
+
+
+def _frozen_bn_identity(n: int) -> Params:
+    """A fresh FrozenBatchNorm2d (w=1, b=0, rm=0, rv=1), folded."""
+    return {"scale": torch.full((n,), 1.0 / math.sqrt(1.0 + BN_EPS)), "bias": torch.zeros(n)}
+
+
+def _block_init(gen: torch.Generator, block_type: str, inplanes: int, planes: int, has_ds: bool) -> Params:
+    if block_type == "bottleneck":
+        shapes = [(planes, inplanes, 1, 1), (planes, planes, 3, 3), (planes * 4, planes, 1, 1)]
+    else:
+        shapes = [(planes, inplanes, 3, 3), (planes, planes, 3, 3)]
+    p: Params = {}
+    for i, shape in enumerate(shapes, 1):
+        p[f"conv{i}"] = {"w": _kaiming_normal_conv(gen, shape)}
+        p[f"bn{i}"] = _frozen_bn_identity(shape[0])
+    if has_ds:
+        out = shapes[-1][0]
+        p["downsample"] = {"conv": {"w": _kaiming_normal_conv(gen, (out, inplanes, 1, 1))},
+                           "bn": _frozen_bn_identity(out)}
+    return p
+
+
+def init(gen: torch.Generator, name: str = "ResNet101", dilation: bool = True) -> Params:
+    """Fresh backbone parameters on the host (retr_tpu/models/resnet.py:138):
+    kaiming-normal convolutions, every BatchNorm the folded identity."""
+    block_type, plan = resnet_structure(name, dilation)
+    expansion = 4 if block_type == "bottleneck" else 1
+    params: Params = {"conv1": {"w": _kaiming_normal_conv(gen, (64, 3, 7, 7))}, "bn1": _frozen_bn_identity(64)}
+    inplanes = 64
+    for stage, (planes, stage_plan) in enumerate(zip([64, 128, 256, 512], plan)):
+        blocks = []
+        for _, _, has_ds in stage_plan:
+            blocks.append(_block_init(gen, block_type, inplanes, planes, has_ds))
+            inplanes = planes * expansion
+        params[f"layer{stage + 1}"] = blocks
+    return params
+
+
 def _conv(w, x, stride=1, padding=0, dilation=1):
     return F.conv2d(x, w, stride=stride, padding=padding, dilation=dilation)
 
@@ -104,14 +149,6 @@ def _basic_apply(p, x, stride, dilation):
     return torch.relu(out + identity)
 
 
-def _cast(tree, dtype):
-    if isinstance(tree, dict):
-        return {k: _cast(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_cast(v, dtype) for v in tree]
-    return tree.to(dtype)
-
-
 def apply(params: Params, x: torch.Tensor, *, name: str = "ResNet101", dilation: bool = True,
           compute_dtype=torch.float32, stop_prefix_gradient: bool = False,
           remat: bool = False) -> torch.Tensor:
@@ -125,7 +162,7 @@ def apply(params: Params, x: torch.Tensor, *, name: str = "ResNet101", dilation:
     block_type, plan = resnet_structure(name, dilation)
     block_apply = _bottleneck_apply if block_type == "bottleneck" else _basic_apply
     if compute_dtype != torch.float32:
-        params = _cast(params, compute_dtype)
+        params = tree_to(params, dtype=compute_dtype)
     with matmul_precision(compute_dtype):
         x = x.to(compute_dtype)
         x = torch.relu(_bn(params["bn1"], _conv(params["conv1"]["w"], x, stride=2, padding=3)))

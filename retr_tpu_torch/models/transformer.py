@@ -29,11 +29,48 @@ import torch
 from retr_tpu_torch.config import Config
 from retr_tpu_torch.masking import causal_mask, key_padding_bias
 from retr_tpu_torch.models import layers
-from retr_tpu_torch.models.positional import positional_encoding
+from retr_tpu_torch.models.positional import learned_init, positional_encoding
 from retr_tpu_torch.ops import decoder_kernels as dk
 from retr_tpu_torch.precision import matmul_precision
 
 Params = Dict[str, Any]
+
+
+def _enc_layer_init(gen: torch.Generator, d: int, dff: int) -> Params:
+    return {
+        "self_attn": {"norm": layers.layer_norm_init(d), "mha": layers.mha_init(gen, d)},
+        "ff": {"norm": layers.layer_norm_init(d), "lin1": layers.xavier_linear_init(gen, d, dff),
+               "lin2": layers.xavier_linear_init(gen, dff, d)},
+    }
+
+
+def _dec_layer_init(gen: torch.Generator, d: int, dff: int) -> Params:
+    return {
+        "self_attn": {"norm": layers.layer_norm_init(d), "mha": layers.mha_init(gen, d)},
+        "cross_attn": {"norm": layers.layer_norm_init(d), "mha": layers.mha_init(gen, d)},
+        "ff": {"norm": layers.layer_norm_init(d), "lin1": layers.xavier_linear_init(gen, d, dff),
+               "lin2": layers.xavier_linear_init(gen, dff, d)},
+    }
+
+
+def init(gen: torch.Generator, cfg: Config) -> Params:
+    """Fresh transformer parameters on the host (retr_tpu/models/transformer.py:74):
+    the encoder's final LayerNorm under ``pre_norm``, the learned source
+    positions (``src_pos``) under ``position_embedding`` "learned"/"v3"."""
+    d, dff = cfg.hidden_dim, cfg.dim_feedforward
+    params: Params = {
+        "encoder": {"layers": [_enc_layer_init(gen, d, dff) for _ in range(cfg.enc_layers)]},
+        "decoder": {"layers": [_dec_layer_init(gen, d, dff) for _ in range(cfg.dec_layers)],
+                    "norm": layers.layer_norm_init(d)},
+        "embeddings": {"word": layers.embedding_init(gen, cfg.vocab_size, d),
+                       "pos": layers.embedding_init(gen, cfg.max_position_embeddings, d),
+                       "norm": layers.layer_norm_init(d)},
+    }
+    if cfg.pre_norm:
+        params["encoder"]["norm"] = layers.layer_norm_init(d)
+    if cfg.position_embedding in ("v3", "learned"):
+        params["src_pos"] = learned_init(gen, d, max_len=1024)
+    return params
 
 
 def _with_pos(x, pos):

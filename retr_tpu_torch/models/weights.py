@@ -2,16 +2,18 @@
 
 The state dict uses the reference model's module names (``backbone.body.*``,
 ``input_proj.*``, ``transformer.*``, ``mlp.layers.N.*``, ``loc_proj.*``), the same
-names retr_tpu/models/torch_export.py writes, so a reference ``.pth`` loader can
-come later. :func:`reference_module` builds an ``nn.Module`` with exactly those
-names and torch layouts, which a state dict loads into strictly.
+names retr_tpu/models/torch_export.py writes. :func:`reference_module` builds an
+``nn.Module`` with exactly those names and torch layouts, which a state dict
+loads into strictly.
 
-- :func:`from_jax_params` takes the JAX package's parameter tree with numpy
-  leaves (``jax.tree.map(np.asarray, params)``) and returns the state dict.
-  Folded BatchNorm is written as ``weight=scale, bias=bias, running_mean=0,
-  running_var=1-eps``, which folds back to the same (scale, bias) exactly.
+- :func:`to_state_dict` takes a parameter tree, the port's or the JAX
+  package's with numpy leaves (``jax.tree.map(np.asarray, params)``), and
+  returns the state dict. Folded BatchNorm is written as ``weight=scale, bias=bias,
+  running_mean=0, running_var=1-eps``, which folds back to the same (scale,
+  bias) exactly.
 - :func:`to_params` turns a state dict into the tree the port computes with:
-  linear weights ``[in, out]``, conv weights OIHW, BatchNorm folded.
+  linear weights ``[in, out]``, conv weights OIHW, BatchNorm folded;
+  ``to_params(to_state_dict(p)) == p`` bit for bit.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 from retr_tpu_torch.config import Config
+from retr_tpu_torch.models.layers import tree_to
 from retr_tpu_torch.models.resnet import BN_EPS, fold_bn, resnet_structure
 
 Params = Dict[str, Any]
@@ -35,16 +38,19 @@ SRC_POS = "transformer.positional_encoding"
 
 
 # ---------------------------------------------------------------------------------
-# JAX parameter tree (numpy leaves) -> reference-named state dict
+# Parameter tree (the port's, or the JAX package's with numpy leaves) ->
+# reference-named state dict
 # ---------------------------------------------------------------------------------
 
 
 def _t(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device="cpu", dtype=torch.float32)
     return torch.tensor(np.asarray(x, np.float32))
 
 
 def _put_lin(out: StateDict, name: str, p) -> None:
-    out[f"{name}.weight"] = _t(np.asarray(p["w"]).T)
+    out[f"{name}.weight"] = _t(p["w"]).t().contiguous()
     out[f"{name}.bias"] = _t(p["b"])
 
 
@@ -56,10 +62,8 @@ def _put_norm(out: StateDict, name: str, p) -> None:
 def _put_att(out: StateDict, name: str, p) -> None:
     _put_norm(out, f"{name}.norm", p["norm"])
     m = p["mha"]
-    out[f"{name}.sublayer.in_proj_weight"] = _t(
-        np.concatenate([np.asarray(m[k]["w"]).T for k in ("q", "k", "v")], axis=0))
-    out[f"{name}.sublayer.in_proj_bias"] = _t(
-        np.concatenate([np.asarray(m[k]["b"]) for k in ("q", "k", "v")], axis=0))
+    out[f"{name}.sublayer.in_proj_weight"] = torch.cat([_t(m[k]["w"]).t() for k in ("q", "k", "v")], dim=0)
+    out[f"{name}.sublayer.in_proj_bias"] = torch.cat([_t(m[k]["b"]) for k in ("q", "k", "v")], dim=0)
     _put_lin(out, f"{name}.sublayer.out_proj", m["out"])
 
 
@@ -77,11 +81,14 @@ def _put_bn(out: StateDict, name: str, p) -> None:
     out[f"{name}.running_var"] = torch.full_like(scale, 1.0 - BN_EPS)
 
 
-def from_jax_params(params_np: Mapping, cfg: Config) -> StateDict:
-    """retr_tpu parameter tree (numpy leaves, any variant) -> reference-named
-    state dict of f32 CPU tensors."""
+def to_state_dict(params: Mapping, cfg: Config) -> StateDict:
+    """Parameter tree (any variant; torch or numpy leaves) -> reference-named
+    state dict of f32 CPU tensors, the inverse of :func:`to_params`
+    (retr_tpu/models/torch_export.py). Each folded BatchNorm is written as
+    ``weight=scale, bias=bias, running_mean=0, running_var=1-eps``, which
+    :func:`to_params` folds back to the same bits."""
     out: StateDict = {}
-    bb = params_np["backbone"]
+    bb = params["backbone"]
     out["backbone.body.conv1.weight"] = _t(bb["conv1"]["w"])
     _put_bn(out, "backbone.body.bn1", bb["bn1"])
     block_type, plan = resnet_structure(cfg.backbone, cfg.dilation)
@@ -97,10 +104,10 @@ def from_jax_params(params_np: Mapping, cfg: Config) -> StateDict:
                 out[f"{base}.downsample.0.weight"] = _t(bp["downsample"]["conv"]["w"])
                 _put_bn(out, f"{base}.downsample.1", bp["downsample"]["bn"])
 
-    out["input_proj.weight"] = _t(np.asarray(params_np["input_proj"]["w"]).T[:, :, None, None])
-    out["input_proj.bias"] = _t(params_np["input_proj"]["b"])
+    out["input_proj.weight"] = _t(params["input_proj"]["w"]).t()[:, :, None, None].contiguous()
+    out["input_proj.bias"] = _t(params["input_proj"]["b"])
 
-    tp = params_np["transformer"]
+    tp = params["transformer"]
     if "src_pos" in tp:
         out[f"{SRC_POS}.embedding.weight"] = _t(tp["src_pos"]["table"])
         _put_norm(out, f"{SRC_POS}.norm", tp["src_pos"]["norm"])
@@ -119,10 +126,10 @@ def from_jax_params(params_np: Mapping, cfg: Config) -> StateDict:
     out["transformer.embeddings.position_embeddings.weight"] = _t(emb["pos"]["table"])
     _put_norm(out, "transformer.embeddings.LayerNorm", emb["norm"])
 
-    for i, layer in enumerate(params_np["mlp"]["layers"]):
+    for i, layer in enumerate(params["mlp"]["layers"]):
         _put_lin(out, f"mlp.layers.{i}", layer)
-    if "loc_proj" in params_np:
-        _put_lin(out, "loc_proj", params_np["loc_proj"])
+    if "loc_proj" in params:
+        _put_lin(out, "loc_proj", params["loc_proj"])
     return out
 
 
@@ -166,8 +173,10 @@ def _bn(sd, name) -> Params:
 
 
 def to_params(state_dict: Mapping[str, torch.Tensor], cfg: Config, device=None) -> Params:
-    """Reference-named state dict -> parameter tree (f32) on ``device``."""
-    sd = {k: v.detach().to(device=device, dtype=torch.float32) for k, v in state_dict.items()}
+    """Reference-named state dict -> parameter tree (f32) on ``device``. The
+    BatchNorm folds run on the host, so the tree has the same bits on every
+    device."""
+    sd = {k: v.detach().to(device="cpu", dtype=torch.float32) for k, v in state_dict.items()}
     block_type, plan = resnet_structure(cfg.backbone, cfg.dilation)
     n_convs = 3 if block_type == "bottleneck" else 2
     pre = "backbone.body."
@@ -218,7 +227,7 @@ def to_params(state_dict: Mapping[str, torch.Tensor], cfg: Config, device=None) 
     }
     if "loc_proj.weight" in sd:
         params["loc_proj"] = _lin(sd, "loc_proj")
-    return params
+    return tree_to(params, device=device)
 
 
 # ---------------------------------------------------------------------------------

@@ -6,7 +6,7 @@ once, the KV-cached greedy, sampling or beam loop through the CUDA decode
 kernels, then pruning and detokenization.
 
     pred = Predictor(state_dict, cfg, tokenizer, max_batch=32)   # runs on cuda
-    pred = Predictor.from_checkpoint("Concat_refcoco_checkpoint_7.pth")
+    pred = Predictor.from_checkpoint("Concat_refcoco_checkpoint_7")   # or a reference .pth
     pred.predict(image, bbox)                          # -> "the woman in the red coat"
     pred.predict_batch(images, bboxes)                 # -> list[str], greedy
     pred.predict_batch(images, bboxes, beam=True)      # beam search, cfg.beam_size beams
@@ -83,15 +83,15 @@ class Predictor:
     # -- construction ---------------------------------------------------------------
     @classmethod
     def from_checkpoint(cls, path: str, **kw) -> "Predictor":
-        """A reference ``.pth`` file: its ``model_state_dict``, with the variant
-        read from the file name over ``Config()``'s defaults. ``kw`` go to the
+        """A checkpoint directory of ``retr_tpu_torch.main``, with the config it
+        was trained with, or a reference ``.pth`` file, with the variant read
+        from the file name over ``Config()``'s defaults. ``kw`` go to the
         constructor (``tokenizer``, ``max_batch``, ``device``)."""
-        if not path.endswith(".pth"):
-            raise NotImplementedError(
-                "retr_tpu_torch reads reference .pth checkpoints only; the retr_tpu checkpoint "
-                "format is not ported yet (ROADMAP item A11)")
-        cfg = checkpoints.override_config_with_reference_filename(Config(), path)
-        state, _ = checkpoints.load_reference_state(path)
+        if path.endswith(".pth"):
+            cfg = checkpoints.override_config_with_reference_filename(Config(), path)
+        else:
+            cfg = checkpoints.config_from_checkpoint(path)
+        state, _ = checkpoints.load_model_state(path)
         return cls(state, cfg, **kw)
 
     # -- inference ------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """HTTP serving front end over Predictor and ServingQueue (retr_tpu/serve.py; stdlib only).
 
-    python -m retr_tpu_torch.serve --checkpoint Concat_refcoco_checkpoint_7.pth \\
+    python -m retr_tpu_torch.serve --checkpoint Concat_refcoco_checkpoint_7[.pth] \\
         [--host 127.0.0.1] [--port 8000] [--max-batch 32] [--decoder greedy] \\
         [--max-wait-s 0.05] [--max-queued N] [--allow-local-paths ROOT] [--device cuda]
 
@@ -118,7 +118,8 @@ def run_in_thread(queue: ServingQueue, host: str = "127.0.0.1", port: int = 0,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--checkpoint", required=True, help="a reference .pth checkpoint")
+    ap.add_argument("--checkpoint", required=True,
+                    help="a checkpoint directory of retr_tpu_torch.main, or a reference .pth")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-batch", type=int, default=32)

@@ -180,7 +180,7 @@ def create_train_state(cfg: Config, params: Params, device=None,
 CE_IMPL = "fused"
 
 
-def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logits32 = logits.float()
     tgt = targets.long()[..., None]
     if CE_IMPL == "logsoftmax":
@@ -198,7 +198,7 @@ def loss_fn(params: Params, cfg: Config, batch: Batch, seed: Optional[int], *, t
                         if batch.global_images is not None else None),
         loc_feats=batch.loc_feats, train=train, seed=seed, compute_dtype=compute_dtype,
     )
-    return _cross_entropy(logits, batch.caps[:, 1:])
+    return cross_entropy(logits, batch.caps[:, 1:])
 
 
 def _trained(state: TrainState) -> List[torch.Tensor]:

@@ -52,7 +52,7 @@ def model():
     img = rng.standard_normal((3, 3, 32, 32)).astype(np.float32)
     mask = np.zeros((3, 32, 32), bool)
     mask[1, :, 20:] = True
-    tp = weights.to_params(weights.from_jax_params(jax.tree.map(np.asarray, params), cfg), cfg, device="cpu")
+    tp = weights.to_params(weights.to_state_dict(jax.tree.map(np.asarray, params), cfg), cfg, device="cpu")
     return dict(jcfg=jcfg, cfg=cfg, params=params, tp=tp, img=img, mask=mask)
 
 
@@ -177,7 +177,7 @@ def test_beam_predictor_strings_equal_reference(use_global, use_location):
     imgs = [rng.integers(0, 256, (60 + 10 * i, 80, 3), dtype=np.uint8) for i in range(3)]
     boxes = [[5, 5, 30 + i, 25] for i in range(3)]
     want = JaxPredictor(params, jcfg, jtok, max_batch=2).predict_batch(imgs, boxes, beam=True)
-    pred = Predictor(weights.from_jax_params(jax.tree.map(np.asarray, params), cfg), cfg, tok,
+    pred = Predictor(weights.to_state_dict(jax.tree.map(np.asarray, params), cfg), cfg, tok,
                      max_batch=2, device="cpu")
     assert pred.predict_batch(imgs, boxes, decoder="beam") == want
     assert pred.predict(imgs[2], boxes[2], beam=True) == want[2]

@@ -902,7 +902,7 @@ def test_apply_color_jitter_on_cuda_equals_cpu(dev):
 
 def test_train_epoch_and_eval_model_on_cuda(dev, tmp_path):
     """A tiny-width model on a synthetic RefCOCO (chip_smoke.write_refcoco,
-    .npy images): two epochs (inline and staged uploads, whose batches are
+    images saved by np.save): two epochs (inline and staged uploads, whose batches are
     bit-equal), the validation loss through fused_attention, eval_model
     greedy and beam through the decode kernels; losses and metrics finite."""
     import math
@@ -917,7 +917,7 @@ def test_train_epoch_and_eval_model_on_cuda(dev, tmp_path):
                     "ref_dir": ref_dir, "beam_size": 3})
 
     def loader(mode, unique=False, **kw):
-        ds = build_dataset(cfg, mode, tokenizer=tok, return_unique=unique, read_image=chip_smoke.read_npy)
+        ds = build_dataset(cfg, mode, tokenizer=tok, return_unique=unique)
         return DataLoader(ds, 4, num_workers=2, **kw)
 
     train = loader("train", shuffle=True, drop_last=True)
@@ -958,3 +958,37 @@ def test_train_epoch_and_eval_model_on_cuda(dev, tmp_path):
         assert all(dk.LAUNCHES[k] > 0 for k in kernels), (decoder, dk.LAUNCHES)
         assert len(hyps) == len(unique.dataset) and len(metrics) == 7
         assert all(math.isfinite(v) for v in metrics.values())
+
+
+def test_checkpoint_moves_between_the_card_and_the_cpu(dev, tmp_path):
+    """A checkpoint saved from the card loads with device "cpu" to the same
+    parameters, AdamW moments, step and grad_norm, and one saved from the CPU
+    loads on the card alike; AdamW's step counters stay on the host."""
+    from retr_tpu_torch.models import caption
+    from retr_tpu_torch.train import checkpoints as ckpt
+
+    cfg = Config(**SERVE_CFG)
+
+    def template(device, seed):
+        params, _ = caption.build_model(cfg, seed=seed, device=device)
+        return tstate.create_train_state(cfg, params, device=device, steps_per_epoch=1)
+
+    def same(a, b):
+        la, lb = list(tstate.tree_leaves_with_path(a.params)), list(tstate.tree_leaves_with_path(b.params))
+        assert all(torch.equal(x.cpu(), y.cpu()) for (_, x), (_, y) in zip(la, lb))
+        assert a.step == b.step and torch.equal(a.grad_norm.cpu(), b.grad_norm.cpu())
+        sa, sb = a.opt_state.state_dict()["state"], b.opt_state.state_dict()["state"]
+        assert sa.keys() == sb.keys() and all(torch.equal(sa[i][k].cpu(), sb[i][k].cpu()) for i in sb for k in sb[i])
+
+    g = torch.Generator().manual_seed(0)
+    batch = Batch(torch.randn(2, 3, 64, 64, generator=g), torch.zeros(2, 64, 64, dtype=torch.bool),
+                  torch.randint(1, 96, (2, 12), generator=g, dtype=torch.int32), torch.zeros(2, 12, dtype=torch.bool))
+    st = template(dev, 0)
+    st, _ = tstate.make_train_step(cfg)(st, Batch(*(t.to(dev) if t is not None else None for t in batch)), 1)
+    on_cpu, _ = ckpt.load_checkpoint(ckpt.save_checkpoint(str(tmp_path / "card"), st, cfg, epoch=0), template("cpu", 1))
+    same(on_cpu, st)
+    back, _ = ckpt.load_checkpoint(ckpt.save_checkpoint(str(tmp_path / "cpu"), on_cpu, cfg, epoch=0), template(dev, 2))
+    same(back, st)
+    step_device = next(iter(st.opt_state.state.values()))["step"].device   # where a fresh AdamW keeps it
+    assert all(s["exp_avg"].device.type == "cuda" and s["step"].device == step_device
+               for s in back.opt_state.state.values())

@@ -146,6 +146,18 @@ def test_default_reader_raises_without_pil(fixture, monkeypatch):
         ds[0]
 
 
+def test_load_image_reads_an_np_save_file_by_its_magic(tmp_path, monkeypatch):
+    """A uint8 HWC array saved by np.save under a COCO .jpg name reads back
+    bit-equal, without PIL."""
+    arr = np.random.default_rng(0).integers(0, 256, (7, 9, 3), dtype=np.uint8)
+    path = tmp_path / "COCO_train2014_000000001000.jpg"
+    with open(path, "wb") as f:
+        np.save(f, arr)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    got = preprocess.load_image(str(path))
+    assert got.dtype == np.uint8 and np.array_equal(got, arr)
+
+
 def test_read_image_argument_and_pad_host_batch(fixture):
     """A numpy reader of the same pixels gives the same samples as the PIL
     default; pad_host_batch pads a ragged batch as retr_tpu's does."""
@@ -247,13 +259,13 @@ LEARNED = dict(backbone="ResNet18", dilation=False, hidden_dim=64, nheads=4, enc
 
 
 def test_learned_source_positions_match(fixture):
-    """position_embedding="learned": the weights cross through from_jax_params
+    """position_embedding="learned": the weights cross through to_state_dict
     and the reference module's names; teacher-forced logits within 1e-5 and
     greedy tokens equal to retr_tpu's."""
     jcfg, cfg = JaxConfig(**LEARNED), Config(**LEARNED)
     params = jax.jit(lambda k: jcaption.build_model(jcfg, k)[0])(jax.random.key(4))   # jit: 2x faster than eager
     assert "src_pos" in params["transformer"]
-    sd = weights.from_jax_params(jax.tree.map(np.asarray, params), cfg)
+    sd = weights.to_state_dict(jax.tree.map(np.asarray, params), cfg)
     weights.reference_module(cfg).load_state_dict(sd, strict=True)
     tp = weights.to_params(sd, cfg, device="cpu")
     np.testing.assert_array_equal(tp["transformer"]["src_pos"]["table"].numpy(),

@@ -64,7 +64,7 @@ def model():
     free = np.asarray(jdecode.greedy(params, jcfg, samples, max_len=16, bos_token=BOS, eos_token=-1))
     eos = 6
     ref = np.asarray(jdecode.greedy(params, jcfg, samples, max_len=16, bos_token=BOS, eos_token=eos))
-    tp = weights.to_params(weights.from_jax_params(jax.tree.map(np.asarray, params), cfg), cfg, device="cpu")
+    tp = weights.to_params(weights.to_state_dict(jax.tree.map(np.asarray, params), cfg), cfg, device="cpu")
     return dict(jcfg=jcfg, cfg=cfg, params=params, tp=tp, img=img, mask=mask, free=free, eos=eos, ref=ref)
 
 
@@ -336,7 +336,7 @@ def test_predictor_strings_equal_reference(use_global, use_location):
     imgs = [rng.integers(0, 256, (60 + 10 * i, 80, 3), dtype=np.uint8) for i in range(3)]
     boxes = [[5, 5, 30 + i, 25] for i in range(3)]
     want = JaxPredictor(params, jcfg, jtok, max_batch=2).predict_batch(imgs, boxes)
-    sd = weights.from_jax_params(jax.tree.map(np.asarray, params), cfg)
+    sd = weights.to_state_dict(jax.tree.map(np.asarray, params), cfg)
     pred = Predictor(sd, cfg, tok, max_batch=2, device="cpu")
     assert pred.predict_batch(imgs, boxes) == want
     assert pred.predict(imgs[1], boxes[1]) == want[1]

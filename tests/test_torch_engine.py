@@ -1,7 +1,7 @@
 """The port's engine (retr_tpu_torch/engine.py) held against retr_tpu.engine on
 the CPU, on the synthetic RefCOCO fixture with the JAX e2e tests' config
 (ResNet18, 64 px, 1+1 layers, hidden 64, max_position_embeddings 16), f32,
-dropout 0, the JAX parameters moved across by ``weights.from_jax_params``.
+dropout 0, the JAX parameters moved across by ``weights.to_state_dict``.
 
 - two epochs of ``train_one_epoch``: epoch losses within 1e-4 relative, with
   the port's ``jitter_draws`` patched to return the draws JAX makes for the
@@ -60,7 +60,7 @@ def env(tmp_path_factory):
               batch_size=2, num_workers=2, beam_size=3)
     jcfg, cfg = JaxConfig(**kw), Config(**kw)
     params = jax.jit(lambda k: jcaption.build_model(jcfg, k)[0])(jax.random.key(0))
-    sd = weights.from_jax_params(jax.tree.map(np.asarray, params), cfg)
+    sd = weights.to_state_dict(jax.tree.map(np.asarray, params), cfg)
     return types.SimpleNamespace(jcfg=jcfg, cfg=cfg, tok=tok, jtok=jtok, params=params, sd=sd,
                                  tp=weights.to_params(sd, cfg, device="cpu"))
 

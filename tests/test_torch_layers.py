@@ -130,7 +130,7 @@ def test_weight_bridge_strict_load_and_round_trip(variant):
     cfg = Config(**TINY, use_global_features=use_global, use_location_features=use_loc)
     params, _ = jcaption.build_model(jcfg, jax.random.key(0))
     pnp = jax.tree.map(np.asarray, params)
-    sd = weights.from_jax_params(pnp, cfg)
+    sd = weights.to_state_dict(pnp, cfg)
     module = weights.reference_module(cfg)
     result = module.load_state_dict(sd, strict=True)
     assert not result.missing_keys and not result.unexpected_keys

@@ -63,7 +63,7 @@ def test_encode_matches(variant):
     jcfg = JaxConfig(**TINY, use_global_features=use_global, use_location_features=use_loc)
     cfg = Config(**TINY, use_global_features=use_global, use_location_features=use_loc)
     params, _ = jcaption.build_model(jcfg, jax.random.key(3))
-    tp = weights.to_params(weights.from_jax_params(jax.tree.map(np.asarray, params), cfg), cfg, device="cpu")
+    tp = weights.to_params(weights.to_state_dict(jax.tree.map(np.asarray, params), cfg), cfg, device="cpu")
     img, mask = _inputs(3, 64, 1)
     gimg, gmask = _inputs(3, 64, 2)
     loc = np.random.default_rng(4).random((3, 5)).astype(np.float32)
@@ -87,7 +87,7 @@ def test_fully_masked_target_uses_the_given_filler():
     given (JAX-drawn here), as retr_tpu does with its own key."""
     jcfg, cfg = JaxConfig(**TINY), Config(**TINY)
     params, _ = jcaption.build_model(jcfg, jax.random.key(5))
-    tp = weights.to_params(weights.from_jax_params(jax.tree.map(np.asarray, params), cfg), cfg, device="cpu")
+    tp = weights.to_params(weights.to_state_dict(jax.tree.map(np.asarray, params), cfg), cfg, device="cpu")
     img, mask = _inputs(2, 64, 6)
     mask[1] = True
     n = 4  # 64 px / output stride 32 = 2x2 map

@@ -63,7 +63,7 @@ def model():
     img = rng.standard_normal((4, 3, 32, 32)).astype(np.float32)
     mask = np.zeros((4, 32, 32), bool)
     mask[1, :, 20:] = True
-    tp = weights.to_params(weights.from_jax_params(jax.tree.map(np.asarray, params), cfg), cfg, device="cpu")
+    tp = weights.to_params(weights.to_state_dict(jax.tree.map(np.asarray, params), cfg), cfg, device="cpu")
     return dict(jcfg=jcfg, cfg=cfg, params=params, tp=tp,
                 samples=Masked(torch.from_numpy(img), torch.from_numpy(mask)),
                 jsamples=JMasked(jnp.asarray(img), jnp.asarray(mask)))
@@ -145,7 +145,7 @@ def _pair(**cfg_kw):
     kw = {**PRED_CFG, "vocab_size": jtok.vocab_size, **cfg_kw}
     jcfg, cfg = JaxConfig(**kw), Config(**kw)
     params, _ = jcaption.build_model(jcfg, jax.random.key(0))
-    sd = weights.from_jax_params(jax.tree.map(np.asarray, params), cfg)
+    sd = weights.to_state_dict(jax.tree.map(np.asarray, params), cfg)
     return (jpredictor.Predictor(params, jcfg, jtok, max_batch=2),
             Predictor(sd, cfg, tok, max_batch=2, device="cpu"))
 
@@ -243,7 +243,10 @@ def test_from_checkpoint_pth_equals_reference(tmp_path, monkeypatch, name, loc, 
 
 
 def test_from_checkpoint_directory_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
+    """A directory is read as a checkpoint of retr_tpu_torch.main (tests/test_torch_main.py);
+    one without its retr_metadata.json is refused."""
+    (tmp_path / "Concat_refcoco_checkpoint_7").mkdir()
+    with pytest.raises(FileNotFoundError, match="retr_metadata.json"):
         Predictor.from_checkpoint(str(tmp_path / "Concat_refcoco_checkpoint_7"), device="cpu")
 
 

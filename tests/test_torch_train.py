@@ -1,6 +1,6 @@
 """The port's training slice held against retr_tpu on a tiny config (ResNet18,
 64 px, one encoder and one decoder layer, hidden 64, vocab 96), with the JAX
-parameters moved across by ``weights.from_jax_params`` and the same seeded
+parameters moved across by ``weights.to_state_dict`` and the same seeded
 numpy batch fed to both.
 
 Tolerances: logits 1e-4 (f32; the two frameworks sum convolutions and products
@@ -42,7 +42,7 @@ def _cfgs(**kw):
 
 def _model(jcfg, cfg, seed=0):
     params, _ = jcaption.build_model(jcfg, jax.random.key(seed))
-    sd = weights.from_jax_params(jax.tree.map(np.asarray, params), cfg)
+    sd = weights.to_state_dict(jax.tree.map(np.asarray, params), cfg)
     return params, weights.to_params(sd, cfg, device="cpu")
 
 
@@ -261,7 +261,7 @@ def test_cross_entropy_forms_equal_reference(impl, monkeypatch):
     monkeypatch.setattr(tstate, "CE_IMPL", impl)
     ref, ref_g = jax.value_and_grad(jstate._cross_entropy)(jnp.asarray(logits), jnp.asarray(targets))
     lt = torch.from_numpy(logits).requires_grad_(True)
-    got = tstate._cross_entropy(lt, torch.from_numpy(targets))
+    got = tstate.cross_entropy(lt, torch.from_numpy(targets))
     got.backward()
     assert abs(float(got.detach()) - float(ref)) < 1e-6
     np.testing.assert_allclose(lt.grad.numpy(), np.asarray(ref_g), atol=1e-7)
