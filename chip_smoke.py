@@ -120,6 +120,20 @@ Phases (any failure raises, exits non-zero and prints no result line):
      equal to engine.eval_model's on the same parameters, greedy and beam;
      export_pth, Predictor.from_checkpoint of each directory against its .pth
      (parameters bit-equal, 8 captions and 8 scores equal); one ``main`` line;
+  6d. parallel, the (dp, mp) mesh at the served width on 6b's synthetic
+     RefCOCO: worlds of processes on the one card, (c) mp=2 and (b) dp=2 over
+     gloo (NCCL refuses two ranks on one device), then (a) a world of one over
+     NCCL; in each, 3 f32 train steps at dropout 0 on a global batch of 16
+     (losses within 1e-4 relative of (a)'s), 3 bf16 steps at dropout 0.1
+     (ms/step), evaluate with use_pallas_attention (local heads under mp),
+     eval_model_sharded greedy and beam 5 on the 40 validation expressions
+     of build_model(seed=1) in f32 (hypotheses equal to engine.eval_model's
+     on one process except at the reference's near-ties, top-2 margin or
+     beam candidate gap under 1e-4) and bf16 (equal ones counted); (a)
+     restores (c)'s checkpoint and takes its next step within 1e-4, and
+     drives main.main for an epoch through its 1x1 mesh; fused_stack_step,
+     the beam trio and fused_attention launched on every rank; one
+     ``parallel`` line per world;
   7. every kernel's launch count from its path's run must be > 0.
 
 The card's line, then a line {"kernels": [...]} with one entry per kernel,
@@ -1749,7 +1763,8 @@ def device_profile(fn, steps, top_n=8):
 
 
 def greedy_with_margins(params, cfg, samples, eos):
-    """The greedy loop on the CPU, also returning each step's top-2 logit margin."""
+    """The greedy loop (on the samples' device), also returning each step's
+    top-2 logit margin."""
     import torch
 
     from retr_tpu_torch.models import caption, transformer
@@ -1757,12 +1772,12 @@ def greedy_with_margins(params, cfg, samples, eos):
     memory, mask, pos = caption.encode(params, cfg, samples)
     tp = transformer.prepare_decoder(params["transformer"])
     cache, cross = transformer.init_decode_state(tp, memory, mask, pos, cfg, 128)
-    b = memory.shape[0]
-    ids = torch.zeros((b, 128), dtype=torch.int32)
+    b, dev = memory.shape[0], memory.device
+    ids = torch.zeros((b, 128), dtype=torch.int32, device=dev)
     ids[:, 0] = 101
-    margins = torch.full((b, 128), float("inf"))
-    finished = torch.zeros(b, dtype=torch.bool)
-    step = torch.zeros((), dtype=torch.int32)
+    margins = torch.full((b, 128), float("inf"), device=dev)
+    finished = torch.zeros(b, dtype=torch.bool, device=dev)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
     for i in range(127):
         hs, cache = transformer.decode_step(tp, cache, cross, ids[:, i], step, cfg)
         logits = caption.mlp_head(params["mlp"], hs)
@@ -2385,6 +2400,412 @@ def train_main(dev, card, by_run):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------------
+# Phase 6d: parallel, the (dp, mp) mesh: worlds of processes on the card
+# ---------------------------------------------------------------------------------
+
+PAR_BATCH = 16                                              # the global batch of the train steps
+# world -> (dp, mp, backend): NCCL refuses two ranks on one device; gloo carries
+# the port's collectives (all_reduce alone on tensors) on CUDA tensors
+PAR_WORLDS = {"mp2": (1, 2, "gloo"), "dp2": (2, 1, "gloo"), "one": (1, 1, "nccl")}
+PAR_KERNELS = ("fused_stack_step", "cross_attn_block", "ff_block", "self_attn_block_beam", "fused_attention")
+
+
+def _row_min_margins(params, cfg, loader, decoder):
+    """Per row of the loader, the reference's least top-2 logit margin over
+    its greedy steps, or (beam) its least gap between the k-th and (k+1)-th
+    candidate and between its two best final scores: the near-tie rule."""
+    import torch
+
+    from retr_tpu_torch import decode
+    from retr_tpu_torch.data.pipeline import device_batch
+    from retr_tpu_torch.masking import Masked
+    from retr_tpu_torch.models import caption
+
+    dev = next(iter(params["mlp"]["layers"][0].values())).device
+    out = []
+    with torch.no_grad():
+        for host in loader:
+            b = device_batch(host, dev)
+            samples = Masked(b.images, b.image_masks)
+            if decoder == "greedy":
+                _, margins = greedy_with_margins(params, cfg, samples, 102)
+                out += margins.min(dim=1).values.tolist()
+            else:
+                memory, mem_mask, pos = caption.encode(params, cfg, samples)
+                gaps = []
+                _, scores = decode.beam_search_from_memory(params, cfg, memory, mem_mask, pos, max_len=128,
+                                                           bos_token=101, eos_token=102, beam_size=BEAM,
+                                                           margins=gaps)
+                least = torch.stack(gaps, dim=1).min(dim=1).values
+                out += torch.minimum(least, scores[:, 0] - scores[:, 1]).tolist()
+    return out
+
+
+DIGEST_STAGES = ("backbone", "memory", "decode_step", "head_logits")
+
+
+def _stage_digests(params, cfgs, batch):
+    """Digests of one batch of 32 at each stage of the sweep's first greedy
+    step, per compute type: the backbone features, the encoder memory, the
+    decode step's hidden state (``fused_stack_step``) and the head's logits
+    (cuBLAS). Where hypotheses differ between worlds, they say which stage's
+    bits differ first."""
+    import hashlib
+
+    import torch
+
+    from retr_tpu_torch import decode
+    from retr_tpu_torch.masking import Masked
+    from retr_tpu_torch.models import caption, resnet, transformer
+    from retr_tpu_torch.precision import dtype_of, matmul_precision
+
+    def digest(t):
+        return hashlib.sha256(t.detach().float().cpu().numpy().tobytes()).hexdigest()[:16]
+
+    samples = Masked(batch.images, batch.image_masks)
+    out = {}
+    with torch.no_grad():
+        for dt, cfg in cfgs.items():
+            cfg, cdt = cfg.replace(use_pallas_attention=True), dtype_of(cfg.compute_dtype)
+            feats = resnet.backbone_forward(params[dt]["backbone"], samples, name=cfg.backbone,
+                                            dilation=cfg.dilation, compute_dtype=cdt)
+            p, memory, mem_mask, pos = decode._encode_for_decode(params[dt], cfg, samples, None, None, cdt, None)
+            tp = transformer.prepare_decoder(p["transformer"])
+            cache, cross = transformer.init_decode_state(tp, memory, mem_mask, pos, cfg, cfg.max_position_embeddings)
+            bos = torch.full((memory.shape[0],), 101, dtype=torch.int32, device=memory.device)
+            with matmul_precision(memory.dtype):
+                hs, _ = transformer.decode_step(tp, cache, cross, bos, torch.zeros((), dtype=torch.int32,
+                                                                               device=memory.device), cfg)
+                logits = caption.mlp_head(p["mlp"], hs)
+            out[dt] = dict(zip(DIGEST_STAGES, map(digest, (feats.tensors, memory, hs, logits))))
+    return out
+
+
+def parallel_rank(kind, rank, world, store, workdir) -> int:
+    """One rank of a phase 6d world (a process of its own; ``--parallel-rank``):
+    3 f32 train steps at dropout 0 on a global batch of PAR_BATCH and evaluate
+    on their parameters, 3 bf16 steps at dropout 0.1 (timed) and evaluate;
+    each evaluate with use_pallas_attention on (fused_attention on this
+    rank's rows and, under mp, its local heads) and off (the plain version);
+    eval_model_sharded greedy and beam on the 40 validation expressions of
+    build_model(seed=1) in f32 and bf16; mp2 saves its f32 state, the world
+    of one loads it, and drives main.main for an epoch through its 1x1 mesh;
+    the world of one also runs engine.eval_model with no mesh (the
+    reference, before the counts are set to 0) at the loader's batch and at
+    half of it (dp=2's rows), and the near-tie margins. After the counts are
+    read: the stage digests (:func:`_stage_digests`) of one batch and of this
+    rank's rows of it (the world of one: of each half), and
+    engine.eval_model's bf16 greedy with the ranks at once and each alone.
+    Writes ``<workdir>/<kind>.r<rank>.json``."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from retr_tpu_torch import engine
+    from retr_tpu_torch import main as tmain
+    from retr_tpu_torch.config import Config
+    from retr_tpu_torch.data import dataset
+    from retr_tpu_torch.data.pipeline import device_batch
+    from retr_tpu_torch.data.tokenizer import prepare_tokenizer
+    from retr_tpu_torch.models import caption
+    from retr_tpu_torch.ops import decoder_kernels as dk
+    from retr_tpu_torch.parallel import mesh as pmesh
+    from retr_tpu_torch.parallel.sweep import eval_model_sharded
+    from retr_tpu_torch.train import checkpoints as ckpt
+    from retr_tpu_torch.train import state as tstate
+
+    dp, mp, backend = PAR_WORLDS[kind]
+    dev = torch.device("cuda", 0)
+    with open(os.path.join(workdir, "setup.json")) as f:
+        data = json.load(f)
+    pmesh.init_distributed(backend, dev, file_store=store, rank=rank, world_size=world)
+    out = {"world": kind, "rank": rank, "backend": dist.get_backend(), "dp": dp, "mp": mp}
+    try:
+        mesh = pmesh.make_mesh(dp, mp, device=dev)
+        cfgs = {dt: served_config(dt).replace(**data, device="cuda") for dt in ("float32", "bfloat16")}
+        tok = prepare_tokenizer(cfgs["float32"].vocab_file)[0]
+        train_set = dataset.build_dataset(cfgs["float32"], "training", tokenizer=tok)
+        batch = device_batch(next(iter(dataset.DataLoader(train_set, PAR_BATCH, num_workers=4))), dev)
+        unique_val = dataset.build_dataset(cfgs["float32"], "validation", tokenizer=tok, return_unique=True)
+        val = dataset.build_dataset(cfgs["float32"], "validation", tokenizer=tok)
+
+        def loader(ds):
+            return dataset.DataLoader(ds, EPOCH_BATCH, num_workers=4)
+
+        fresh = {dt: caption.build_model(cfg, seed=1, device=dev)[0] for dt, cfg in cfgs.items()}
+        if kind == "one":   # the references, on one process and no mesh, before the counts
+            for dt, cfg in cfgs.items():
+                for decoder in ("greedy", "beam"):
+                    _, hyps = engine.eval_model(fresh[dt], cfg.replace(use_pallas_attention=True), loader(unique_val),
+                                                tok, decoder=decoder)
+                    out[f"ref_{dt}_{decoder}"] = [h["expression"] for h in hyps]
+                    # the same rows in batches of half the loader's: dp=2's halves, decoded alone
+                    _, hyps = engine.eval_model(fresh[dt], cfg.replace(use_pallas_attention=True),
+                                                dataset.DataLoader(unique_val, EPOCH_BATCH // 2, num_workers=4),
+                                                tok, decoder=decoder)
+                    out[f"ref_half_{dt}_{decoder}"] = [h["expression"] for h in hyps]
+                    if dt == "float32":
+                        out[f"margins_{decoder}"] = _row_min_margins(fresh[dt], cfg, loader(unique_val), decoder)
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        dk.reset_launches()
+        t_start = time.perf_counter()
+
+        cfg = cfgs["float32"]
+        st = tstate.create_train_state(cfg, caption.build_model(cfg, seed=0, device=dev)[0], device=dev,
+                                       steps_per_epoch=4, mesh=mesh)
+        step = tstate.make_train_step(cfg)
+        local = pmesh.shard_batch(mesh, batch)
+        out["f32_losses"] = [float(step(st, local, 7)[1]) for _ in range(3)]
+        # the kernel on this rank's rows and local heads, and its plain version, on the same parameters
+        for pallas in (True, False):
+            out[f"f32_val_loss_{'kernel' if pallas else 'plain'}"] = engine.evaluate(
+                st.params, cfg.replace(use_pallas_attention=pallas), loader(val), mesh=mesh)
+        ckpt_dir = os.path.join(workdir, "ckpt_mp2")
+        if kind == "mp2":
+            out["checkpoint"] = ckpt.save_checkpoint(ckpt_dir, st, cfg, epoch=0)
+            out["f32_step4_loss"] = float(step(st, local, 7)[1])
+        elif kind == "one":   # mp2's checkpoint, restored into this world's mesh shape
+            path = ckpt.latest_checkpoint(ckpt_dir, cfg)
+            template = tstate.create_train_state(cfg, caption.build_model(cfg, seed=2, device=dev)[0], device=dev,
+                                                 steps_per_epoch=4, mesh=mesh)
+            restored, meta = ckpt.load_checkpoint(path, template)
+            out["restored_step"] = restored.step
+            out["f32_step4_loss_restored"] = float(step(restored, local, 7)[1])
+            del restored, template
+        del st
+
+        cfg = cfgs["bfloat16"].replace(dropout=0.1)
+        st = tstate.create_train_state(cfg, caption.build_model(cfg, seed=0, device=dev)[0], device=dev,
+                                       steps_per_epoch=4, mesh=mesh)
+        step = tstate.make_train_step(cfg)
+        step(st, local, 8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["bf16_losses"] = [float(step(st, local, 8)[1]) for _ in range(3)]
+        torch.cuda.synchronize()
+        out["bf16_ms_per_step"] = (time.perf_counter() - t0) / 3 * 1e3
+        t0 = time.perf_counter()
+        out["val_loss"] = engine.evaluate(st.params, cfg.replace(use_pallas_attention=True), loader(val), mesh=mesh)
+        out["evaluate_s"] = time.perf_counter() - t0
+        out["val_loss_plain"] = engine.evaluate(st.params, cfg.replace(use_pallas_attention=False), loader(val),
+                                                mesh=mesh)
+        del st
+
+        for dt, cfg in cfgs.items():
+            # this rank's slices: the sweep gathers them (an all_reduce over mp) and decodes the whole tree
+            specs = pmesh.param_shardings(fresh[dt], mesh, cfg.nheads)
+            local = pmesh.shard_params(fresh[dt], mesh, specs)
+            for decoder in ("greedy", "beam"):
+                t0 = time.perf_counter()
+                metrics, hyps = eval_model_sharded(local, cfg.replace(use_pallas_attention=True),
+                                                   loader(unique_val), tok, mesh, decoder=decoder,
+                                                   return_hypotheses=True, specs=specs)
+                out[f"sweep_{dt}_{decoder}"] = hyps
+                out[f"sweep_{dt}_{decoder}_s"] = time.perf_counter() - t0
+                if not all(math.isfinite(v) for v in metrics.values()):
+                    raise AssertionError(f"{kind}: metrics {metrics}")
+        if kind == "one":   # main through an explicit 1x1 mesh: its collectives run over NCCL
+            mcfg = Config(**{**served_config("bfloat16").to_dict(), **data, "device": "cuda", "dropout": 0.1,
+                             "epochs": 1, "dp_size": 1, "mp_size": 1, "async_checkpoints": False,
+                             "project_data_path": os.path.join(workdir, "main_one")})
+            t0 = time.perf_counter()
+            tmain.main(mcfg)
+            out["main_s"] = time.perf_counter() - t0
+            with open(os.path.join(mcfg.checkpoint_path, "metrics.jsonl")) as f:
+                events = [json.loads(line) for line in f]
+            out["main_events"] = [e["event"] for e in events if e["event"] != "train_step"]
+            out["main_epoch_end"] = {k: v for e in events if e["event"] == "epoch_end"
+                                     for k, v in e.items() if k in ("train_loss", "val_loss", "cider")}
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t_start
+        out["launches"] = {k: dk.LAUNCHES[k] for k in PAR_KERNELS}
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        host = next(iter(loader(unique_val)))
+        out["digests"] = _stage_digests(fresh, cfgs, device_batch(host, dev))
+        # this rank's rows as the sweep uploads them; the world of one: each half alone
+        out["digests_local"] = _stage_digests(fresh, cfgs, device_batch(pmesh.shard_batch(mesh, host), dev))
+        if kind == "one":
+            half = EPOCH_BATCH // 2
+            out["digests_halves"] = [_stage_digests(fresh, cfgs, device_batch(
+                type(host)(*(None if x is None else x[h * half:(h + 1) * half] for x in host)), dev))
+                for h in (0, 1)]
+        # bf16 greedy through engine.eval_model (no mesh, the whole split) with
+        # every rank at once, then with each rank alone on the card in turn
+        cfg16 = cfgs["bfloat16"].replace(use_pallas_attention=True)
+
+        def greedy16():
+            torch.cuda.synchronize()
+            hyps = engine.eval_model(fresh["bfloat16"], cfg16, loader(unique_val), tok)[1]
+            torch.cuda.synchronize()
+            return [h["expression"] for h in hyps]
+
+        dist.barrier()
+        out["bf16_greedy_together"] = greedy16()
+        for r in range(world):
+            dist.barrier()
+            if r == rank:
+                out["bf16_greedy_alone"] = greedy16()
+        dist.barrier()
+    except BaseException:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(workdir, f"{kind}.r{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_world(kind, workdir, timeout=420):
+    """Start the world's ranks at once; wait for all, killing any left at the
+    deadline; raise with each rank's last output if one failed."""
+    dp, mp, _ = PAR_WORLDS[kind]
+    world = dp * mp
+    store = os.path.join(workdir, f"{kind}.store")
+    logs = [os.path.join(workdir, f"{kind}.r{r}.log") for r in range(world)]
+    procs = []
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank", kind,
+                                               str(r), str(world), store, workdir], stdout=log,
+                                              stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        text = "".join(f"--- rank {r} (exit {p.returncode}) ---\n" + open(logs[r]).read()[-3000:]
+                       for r, p in enumerate(procs))
+        raise AssertionError(f"parallel world {kind} failed:\n{text}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"{kind}.r{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def parallel(dev, card, by_run):
+    """Phase 6d at the served width on a synthetic RefCOCO (phase 6b's
+    writer): (c) mp=2 and (b) dp=2, two processes each on the one card over
+    gloo, then (a) a world of one over NCCL. Every world's f32 losses within
+    1e-4 relative of (a)'s at the same global batch, and so its f32
+    evaluate on their parameters; each evaluate through fused_attention (on
+    dp's halves and mp's local heads) within TOL of the plain version on the
+    same parameters, f32 and bf16; its f32 hypotheses equal to (a)'s
+    engine.eval_model on one process except where the reference had a
+    near-tie (top-2 margin, or beam candidate gap, under 1e-4); its bf16
+    hypotheses counted, against (a)'s at the loader's batch and at half of
+    it, and the stage digests of its own rows against (a)'s of the same rows
+    alone; (a) restores (c)'s checkpoint and takes (c)'s fourth step within
+    1e-4; every kernel of PAR_KERNELS launched on every rank. One
+    ``parallel`` line per world."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        coco_dir, ref_dir = write_refcoco(os.path.join(tmp, "refcoco"))
+        with open(os.path.join(tmp, "setup.json"), "w") as f:
+            json.dump({"dir": coco_dir, "ref_dir": ref_dir, "vocab_file": write_vocab(os.path.join(tmp, "vocab.txt")),
+                       "batch_size": EPOCH_BATCH, "num_workers": 4}, f)
+        worlds = {kind: _run_world(kind, tmp) for kind in PAR_WORLDS}
+        one = worlds["one"][0]
+        note = (f"{torch.cuda.device_count()} card(s): the worlds of two share cuda:0 over gloo; "
+                "no NCCL world across cards was run")
+        for kind, ranks in worlds.items():
+            checks = {}
+            for r in ranks:
+                diff = max(abs(a - b) / abs(b) for a, b in zip(r["f32_losses"], one["f32_losses"]))
+                if not diff <= 1e-4:
+                    raise AssertionError(f"{kind} rank {r['rank']}: f32 losses {r['f32_losses']} against "
+                                         f"{one['f32_losses']}")
+                for k in PAR_KERNELS:
+                    if r["launches"][k] <= 0:
+                        raise AssertionError(f"{kind} rank {r['rank']}: {k} never launched: {r['launches']}")
+                for decoder in ("greedy", "beam"):
+                    want, got = one[f"ref_float32_{decoder}"], r[f"sweep_float32_{decoder}"]
+                    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+                    if len(got) != REFCOCO_VAL or any(not one[f"margins_{decoder}"][i] < 1e-4 for i in bad):
+                        raise AssertionError(f"{kind} rank {r['rank']}: f32 {decoder} hypotheses differ from "
+                                             f"engine.eval_model's without a near-tie at rows {bad}")
+                    equal16 = sum(a == b for a, b in zip(r[f"sweep_bfloat16_{decoder}"],
+                                                         one[f"ref_bfloat16_{decoder}"]))
+                    checks.setdefault(f"f32_{decoder}_equal", []).append(REFCOCO_VAL - len(bad))
+                    checks.setdefault(f"bf16_{decoder}_equal", []).append(equal16)
+                checks.setdefault("f32_loss_max_rel_diff", []).append(diff)
+                got, want = r["f32_val_loss_kernel"], one["f32_val_loss_kernel"]
+                if not abs(got - want) <= 1e-4 * abs(want):
+                    raise AssertionError(f"{kind} rank {r['rank']}: f32 evaluate {got} against (a)'s {want}")
+                checks.setdefault("f32_val_loss_rel_diff", []).append(abs(got - want) / abs(want))
+                for dname, on, off in (("float32", r["f32_val_loss_kernel"], r["f32_val_loss_plain"]),
+                                       ("bfloat16", r["val_loss"], r["val_loss_plain"])):
+                    if not abs(on - off) <= TOL[dname] * max(1.0, abs(off)):
+                        raise AssertionError(f"{kind} rank {r['rank']}: {dname} evaluate through fused_attention "
+                                             f"{on} against the plain version's {off}")
+                    checks.setdefault(f"{dname}_evaluate_kernel_minus_plain", []).append(on - off)
+                for decoder in ("greedy", "beam"):
+                    checks.setdefault(f"bf16_{decoder}_equal_at_half_batch", []).append(
+                        sum(a == b for a, b in zip(r[f"sweep_bfloat16_{decoder}"], one[f"ref_half_bfloat16_{decoder}"])))
+                same_rows = one["digests_halves"][r["rank"] // r["mp"]] if r["dp"] == 2 else one["digests"]
+                checks.setdefault("stage_bits_differing_on_same_rows", []).append(
+                    {dt: [stage for stage in DIGEST_STAGES if r["digests_local"][dt][stage] != same_rows[dt][stage]]
+                     for dt in ("float32", "bfloat16")})
+            for k in PAR_KERNELS:
+                counts = by_run.setdefault(k, {})
+                counts["parallel"] = counts.get("parallel", 0) + sum(r["launches"][k] for r in ranks)
+            line = {"world": kind, "ranks": len(ranks), "dp": ranks[0]["dp"], "mp": ranks[0]["mp"],
+                    "backend": ranks[0]["backend"], "device": "cuda:0",
+                    "bf16_ms_per_step": [r["bf16_ms_per_step"] for r in ranks],
+                    "f32_losses": ranks[0]["f32_losses"], "bf16_losses": ranks[0]["bf16_losses"],
+                    "val_loss": ranks[0]["val_loss"], "val_loss_plain": ranks[0]["val_loss_plain"],
+                    "f32_val_loss": ranks[0]["f32_val_loss_kernel"], "evaluate_s": [r["evaluate_s"] for r in ranks],
+                    "sweep_s": {k: [r[f"sweep_{k}_s"] for r in ranks] for k in
+                                ("float32_greedy", "float32_beam", "bfloat16_greedy", "bfloat16_beam")},
+                    "expressions": REFCOCO_VAL, **checks,
+                    "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+                    "launches": [r["launches"] for r in ranks], "seconds": [r["seconds"] for r in ranks],
+                    # engine.eval_model's bf16 greedy, equal to (a)'s reference: ranks at once, each alone
+                    "bf16_greedy_equal_together": [sum(a == b for a, b in zip(r["bf16_greedy_together"],
+                                                                             one["ref_bfloat16_greedy"])) for r in ranks],
+                    "bf16_greedy_equal_alone": [sum(a == b for a, b in zip(r["bf16_greedy_alone"],
+                                                                          one["ref_bfloat16_greedy"])) for r in ranks],
+                    # the first validation batch's stages, bit-equal to (a)'s per rank and type
+                    "stage_bits_equal_to_one": {dt: {stage: [r["digests"][dt][stage] == one["digests"][dt][stage]
+                                                             for r in ranks] for stage in DIGEST_STAGES}
+                                                for dt in ("float32", "bfloat16")},
+                    "note": note, "card": card}
+            if kind == "one":
+                if one["restored_step"] != 3 or not abs(one["f32_step4_loss_restored"] - worlds["mp2"][0][
+                        "f32_step4_loss"]) <= 1e-4 * abs(worlds["mp2"][0]["f32_step4_loss"]):
+                    raise AssertionError(f"mp2's checkpoint in the world of one: step {one['restored_step']}, loss "
+                                         f"{one['f32_step4_loss_restored']} against {worlds['mp2'][0]['f32_step4_loss']}")
+                if "mesh" not in one["main_events"] or not math.isfinite(one["main_epoch_end"].get("cider", math.nan)):
+                    raise AssertionError(f"main through the 1x1 mesh: {one['main_events']} {one['main_epoch_end']}")
+                line.update(checkpoint_from_mp2={"step": one["restored_step"],
+                                                 "step4_loss": one["f32_step4_loss_restored"],
+                                                 "mp2_step4_loss": worlds["mp2"][0]["f32_step4_loss"]},
+                            main_s=one["main_s"], main_epoch_end=one["main_epoch_end"])
+            log("parallel", json.dumps(line))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def loop_times(tree) -> int:
     """One turn of --compare: the decode-loop times of the package under ``tree``."""
     import statistics
@@ -2587,6 +3008,7 @@ def main(mode=None) -> int:
     launches["fused_attention"] = train(dev, state, card)                 # phase 6
     train_epoch(dev, state, card, by_run)                                  # phase 6b
     train_main(dev, card, by_run)                                          # phase 6c
+    parallel(dev, card, by_run)                                            # phase 6d
 
     entries = []                                                           # phase 7
     for name, (replaces, source, case) in KERNELS.items():
@@ -2620,6 +3042,9 @@ def main(mode=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.path.insert(0, REPO)
+        sys.exit(parallel_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6]))
     if sys.argv[1:2] == ["--loop-times"]:
         sys.exit(loop_times(sys.argv[2]))
     if sys.argv[1:2] == ["--kernel-times"]:

@@ -36,6 +36,7 @@ from retr_tpu_torch.config import Config
 from retr_tpu_torch.masking import Masked
 from retr_tpu_torch.models import caption, transformer
 from retr_tpu_torch.ops import decoder_kernels as dk
+from retr_tpu_torch.parallel import mesh as pmesh
 from retr_tpu_torch.precision import dtype_of, matmul_precision
 
 Params = Dict[str, Any]
@@ -158,11 +159,23 @@ def greedy_with_prefix(params: Params, cfg: Config, samples: Masked, prefix: tor
                        eos_token=eos_token, captions=captions)
 
 
-def gumbel_argmax(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def gumbel_argmax(logits: torch.Tensor, generator: torch.Generator,
+                  noise_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One categorical draw per row of ``logits`` [B, N] (f32) by the Gumbel-max
     trick, as ``jax.random.categorical`` draws: argmax(logits - log(-log(u))),
-    u uniform on (tiny, 1) from ``generator`` (on the logits' device)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=torch.float32)
+    u uniform on (tiny, 1) from ``generator`` (on the logits' device).
+
+    ``noise_rows=(start, frame)``: these rows are rows start.. of a batch of
+    ``frame`` rows; the noise of the whole frame is drawn and these rows'
+    kept (rows past the frame, padding, take its last), so a row draws the
+    same wherever the batch is split."""
+    if noise_rows is None:
+        u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=torch.float32)
+    else:
+        start, frame = noise_rows
+        u = torch.rand((frame, logits.shape[1]), generator=generator, device=logits.device, dtype=torch.float32)
+        rows = (torch.arange(logits.shape[0], device=logits.device) + start).clamp_(max=frame - 1)
+        u = u.index_select(0, rows)
     u = u.clamp_(min=torch.finfo(torch.float32).tiny)
     return (logits - torch.log(-torch.log(u))).argmax(dim=-1)
 
@@ -176,13 +189,15 @@ def _nucleus_keep(sorted_vals: torch.Tensor, top_p: float) -> torch.Tensor:
 
 
 def sample_tokens(logits: torch.Tensor, generator: torch.Generator, *, temperature: float = 1.0,
-                  top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+                  top_k: int = 0, top_p: float = 1.0,
+                  noise_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One token per row of f32 logits [B, V] under temperature, top-k and
     top-p, composed as retr_tpu.decode.sample composes them: argmax exactly when
     ``temperature <= 0`` or ``top_k == 1``; with ``0 < top_k < V`` the draw runs
     on the top-k shortlist (``topk_first``, ``lax.top_k``'s order), cut to its
     nucleus when ``top_p < 1``; otherwise on the full vocabulary, where a
-    ``top_p < 1`` cut removes every logit below the nucleus's smallest."""
+    ``top_p < 1`` cut removes every logit below the nucleus's smallest.
+    ``noise_rows``: as :func:`gumbel_argmax`'s."""
     if temperature <= 0.0 or top_k == 1:
         return logits.argmax(dim=-1).to(torch.int32)
     neg_inf = -1e30
@@ -191,19 +206,20 @@ def sample_tokens(logits: torch.Tensor, generator: torch.Generator, *, temperatu
         vals, idx = dk.topk_first(z, top_k)
         if top_p < 1.0:
             vals = torch.where(_nucleus_keep(vals, top_p), vals, neg_inf)
-        choice = gumbel_argmax(vals, generator)
+        choice = gumbel_argmax(vals, generator, noise_rows)
         return idx.gather(1, choice[:, None])[:, 0].to(torch.int32)
     if top_p < 1.0:
         sorted_z = z.sort(dim=-1, descending=True).values
         cutoff = torch.where(_nucleus_keep(sorted_z, top_p), sorted_z, float("inf")).amin(dim=-1, keepdim=True)
         z = torch.where(z < cutoff, neg_inf, z)
-    return gumbel_argmax(z, generator).to(torch.int32)
+    return gumbel_argmax(z, generator, noise_rows).to(torch.int32)
 
 
 def sample(params: Params, cfg: Config, samples: Masked, generator: torch.Generator, *,
            global_samples: Optional[Masked] = None, loc_feats: Optional[torch.Tensor] = None,
            max_len: int = 128, bos_token: int = 101, eos_token: int = 102, temperature: float = 1.0,
-           top_k: int = 0, top_p: float = 1.0, compute_dtype=torch.float32, filler_idx=None) -> torch.Tensor:
+           top_k: int = 0, top_p: float = 1.0, compute_dtype=torch.float32, filler_idx=None,
+           noise_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Ancestral sampling with temperature, top-k and nucleus (top-p) filtering
     (retr_tpu.decode.sample; :func:`sample_tokens` composes the filters).
 
@@ -211,13 +227,17 @@ def sample(params: Params, cfg: Config, samples: Masked, generator: torch.Genera
     on the samples' device (the counterpart of the JAX key), and the draws
     stay on the device, so a step does not wait for the host. torch cannot
     reproduce ``jax.random``: the draws match the JAX package's in
-    distribution, and exactly where sampling reduces to argmax."""
+    distribution, and exactly where sampling reduces to argmax.
+    ``noise_rows=(start, frame)``: the samples are rows start.. of a batch
+    of ``frame`` rows, which each step's noise is drawn for (the sharded
+    sweep's dp ranks; :func:`gumbel_argmax`)."""
     params, memory, mem_mask, pos = _encode_for_decode(params, cfg, samples, global_samples, loc_feats,
                                                        compute_dtype, filler_idx)
 
     def choose(i, hs, captions):
         logits = caption.mlp_head(params["mlp"], hs).float()
-        return sample_tokens(logits, generator, temperature=temperature, top_k=top_k, top_p=top_p)
+        return sample_tokens(logits, generator, temperature=temperature, top_k=top_k, top_p=top_p,
+                             noise_rows=noise_rows)
 
     return _token_loop(params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
                        eos_token=eos_token)
@@ -298,6 +318,10 @@ def beam_search_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, 
     (transformer.decode_step_beam). ``early_stop`` ends the loop, per batch
     element, once no live beam can outrank the worst finished one (finishing
     now) or evict a finished one under the raw score, as in the JAX package.
+    The loop's condition is the whole batch's: under an active mesh it is
+    OR-ed over the dp group each step, as the JAX loop's condition is
+    all-reduced over a dp-sharded batch, so a dp rank's rows decode as in
+    the whole batch.
 
     ``margins``: if a list, each step appends the [B] gap between the k-th and
     (k+1)-th candidate of the k*k shortlist (a diagnostic for parity checks).
@@ -322,8 +346,8 @@ def beam_search_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, 
     anc = torch.zeros((b, k, max_len), dtype=torch.int32, device=dev)
     first_slot = beams == 0
     step = torch.zeros((), dtype=torch.int32, device=dev)
-    running = _beam_active(scores, finished, fin_len, 0, length_penalty=length_penalty,
-                           early_stop=early_stop)
+    running = pmesh.any_over_dp(_beam_active(scores, finished, fin_len, 0, length_penalty=length_penalty,
+                                             early_stop=early_stop))
     head_p = dk.pack_head(params["mlp"]) if dk.BEAM_TOPK_KERNEL else None
     with matmul_precision(memory.dtype):
         for i in range(max_len - 1):
@@ -367,8 +391,9 @@ def beam_search_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, 
             finished = torch.where(running, prev_fin | ends, finished)
             fin_len = torch.where(running, new_fin_len, fin_len)
             anc = torch.where(running, anc_i.gather(1, rows), anc)
-            running = running & _beam_active(scores, finished, fin_len, i + 1,
-                                             length_penalty=length_penalty, early_stop=early_stop)
+            running = running & pmesh.any_over_dp(_beam_active(scores, finished, fin_len, i + 1,
+                                                               length_penalty=length_penalty,
+                                                               early_stop=early_stop))
             step += 1
 
     # length-normalised ranking: tokens after BOS up to and including the first EOS

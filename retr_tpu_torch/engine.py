@@ -17,6 +17,16 @@ epoch)`` and batch i's augmentation seed ``fold_in(epoch seed, i)``, so a
 batch built on the staging thread equals one built inline. Batches go to the
 device the parameters live on. Loss reads are deferred ``pipeline_depth - 1``
 steps: the read of a loss on the device is the only barrier.
+
+Under a ``parallel.mesh.Mesh`` every rank is a process, as in JAX's
+multi-host runs: a training batch is this rank's own loader rows (``main``
+shards the loader by dp rank), jittered from a seed that folds in the dp
+rank (JAX folds in the process index; the ranks of one mp group feed one
+model, so they must jitter alike); an evaluation batch, alike on every rank,
+is cut to this dp rank's rows (``parallel.mesh.shard_batch``) and the loss is
+the dp mean of the equal slices, or computed whole on every rank where the
+batch does not split; ``eval_model`` decodes each dp rank's rows of the
+batch padded to a multiple of dp and gathers the ids on every rank.
 """
 
 from __future__ import annotations
@@ -35,13 +45,11 @@ from retr_tpu_torch.data.pipeline import Batch, device_batch
 from retr_tpu_torch.masking import Masked
 from retr_tpu_torch.metrics import NLGEval
 from retr_tpu_torch.models import layers
+from retr_tpu_torch.parallel import mesh as pmesh
 from retr_tpu_torch.precision import dtype_of
 from retr_tpu_torch.train.state import TrainState, make_eval_step, tree_leaves_with_path
 from retr_tpu_torch.utils.logging import MetricLogger
 from retr_tpu_torch.utils.profiling import PhaseTimer
-
-MULTI_GPU = "ROADMAP A13 (multi-GPU) is not ported yet: pass mesh=None"
-
 
 class NonFiniteLossError(RuntimeError):
     """Raised when a training batch produces a non-finite loss (engine.py:75-77).
@@ -75,6 +83,12 @@ def pack_encoder_inputs(encoder_input, global_features: bool, location_features:
         return masked(t_img, t_mask), None, torch.as_tensor(l_feats)
     t_img, t_mask, g_img, g_mask, l_feats = encoder_input
     return masked(t_img, t_mask), masked(g_img, g_mask), torch.as_tensor(l_feats)
+
+
+def _check_mesh(mesh) -> Optional[pmesh.Mesh]:
+    if mesh is not None and not isinstance(mesh, pmesh.Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (or None), not {type(mesh).__name__}")
+    return mesh
 
 
 def _device_of(params) -> torch.device:
@@ -174,9 +188,13 @@ def train_one_epoch(
     later; a non-finite loss raises :class:`NonFiniteLossError` at most that
     many steps after it was made (``pipeline_depth=1``: at once). A
     ``DataLoader``'s shuffle epoch is pinned to ``epoch``; a list of host
-    batches is taken as it is."""
-    if mesh is not None:
-        raise NotImplementedError(MULTI_GPU)
+    batches is taken as it is.
+
+    ``mesh``: a ``parallel.mesh.Mesh``; each batch is this rank's own rows
+    (the global batch is the dp ranks' together), batch i jittered from
+    ``fold_in(fold_in(epoch seed, dp rank), i)`` where dp > 1. The step sees
+    the mesh through ``state.mesh``."""
+    mesh = _check_mesh(mesh)
     # the permutation is a function of (seed, epoch): a resumed run sees the
     # same order in epoch e as an uninterrupted one
     if isinstance(loader, DataLoader):
@@ -185,6 +203,7 @@ def train_one_epoch(
     device = _device_of(state.params)
     epoch_loss, n = 0.0, 0
     epoch_seed = layers.fold_in(seed, epoch)
+    aug_seed = epoch_seed if mesh is None or mesh.dp == 1 else layers.fold_in(epoch_seed, mesh.dp_rank)
     step0 = state.step
     pending: deque = deque()  # (global_step, loss on the device)
 
@@ -200,7 +219,7 @@ def train_one_epoch(
             logger.log("train_step", step=i, loss=loss_value, epoch=epoch)
 
     def make_batch(i, host_batch):
-        gen = layers.make_generator(layers.fold_in(epoch_seed, i), device)
+        gen = layers.make_generator(layers.fold_in(aug_seed, i), device)
         return device_batch(host_batch, device, train=True, generator=gen)
 
     if stage_uploads:
@@ -223,9 +242,10 @@ def evaluate(params, cfg: Config, loader: DataLoader, *, eval_step=None, mesh=No
              pipeline_depth: int = 2) -> float:
     """Validation loss (reference engine.py:89-114) on the device of
     ``params``; per-batch losses are read ``pipeline_depth - 1`` batches
-    behind the dispatch."""
-    if mesh is not None:
-        raise NotImplementedError(MULTI_GPU)
+    behind the dispatch. Under ``mesh`` (``params`` this rank's slices), each
+    batch is cut to this dp rank's rows and its loss is the dp mean; a batch
+    that does not split over dp is computed whole on every rank."""
+    mesh = _check_mesh(mesh)
     if eval_step is None:
         eval_step = make_eval_step(cfg)
     device = _device_of(params)
@@ -237,10 +257,16 @@ def evaluate(params, cfg: Config, loader: DataLoader, *, eval_step=None, mesh=No
         total += float(pending.popleft())
         n += 1
 
-    for host_batch in loader:
-        pending.append(eval_step(params, device_batch(host_batch, device)))
-        if len(pending) >= max(1, pipeline_depth):
-            drain_one()
+    with pmesh.active(mesh):
+        for host_batch in loader:
+            full = device_batch(host_batch, device)
+            batch = pmesh.shard_batch(mesh, full)
+            loss = eval_step(params, batch)
+            if batch is not full:
+                loss = pmesh.all_reduce(loss.clone(), mesh.dp_group) / mesh.dp
+            pending.append(loss)
+            if len(pending) >= max(1, pipeline_depth):
+                drain_one()
     while pending:
         drain_one()
     return total / max(n, 1)
@@ -251,7 +277,8 @@ def normalize_with_tokenizer(sent: str, tokenizer) -> str:
     return tokenizer.decode(tokenizer.encode(sent), skip_special_tokens=True)
 
 
-def _decode(params, cfg: Config, batch: Batch, decoder: str, special: dict, batch_index: int) -> torch.Tensor:
+def _decode(params, cfg: Config, batch: Batch, decoder: str, special: dict, batch_index: int,
+            noise_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     samples = Masked(batch.images, batch.image_masks)
     g = Masked(batch.global_images, batch.global_masks) if batch.global_images is not None else None
     common = dict(global_samples=g, loc_feats=batch.loc_feats, max_len=cfg.max_position_embeddings,
@@ -266,7 +293,7 @@ def _decode(params, cfg: Config, batch: Batch, decoder: str, special: dict, batc
         # deterministic per (cfg.seed, batch index): reruns reproduce
         gen = layers.make_generator(layers.fold_in(cfg.seed, batch_index), batch.images.device)
         return decode_mod.sample(params, cfg, samples, gen, temperature=cfg.sample_temperature,
-                                 top_k=cfg.sample_top_k, top_p=cfg.sample_top_p, **common)
+                                 top_k=cfg.sample_top_k, top_p=cfg.sample_top_p, noise_rows=noise_rows, **common)
     raise ValueError(f"unknown decoder {decoder!r}")
 
 
@@ -281,6 +308,8 @@ def eval_model(
     decoder: str = "greedy",
     timer: Optional[PhaseTimer] = None,
     pipeline_depth: int = 2,
+    mesh: Optional[pmesh.Mesh] = None,
+    specs: Optional[dict] = None,
 ) -> Tuple[Dict[str, float], List[dict]]:
     """Decode the loader's dataset on the device of ``params`` and score it
     with the NLG suite; returns (metrics, [{"ann_id", "expression"}, ...]).
@@ -293,7 +322,24 @@ def eval_model(
     the padded rows are dropped after. ``timer`` (a PhaseTimer) records the
     phases host_wait (blocked on the loader), input (device batch), decode,
     fetch (the ids' copy to the host) and score. Batch n+1 is dispatched
-    before batch n's ids are fetched (``pipeline_depth=1``: serial)."""
+    before batch n's ids are fetched (``pipeline_depth=1``: serial).
+
+    Under ``mesh`` (retr_tpu/parallel/sweep.py) each batch is padded to a
+    multiple of dp, each dp rank uploads and decodes its rows, and the ids
+    come back to every rank (``all_gather_object`` over dp), so every rank
+    scores the whole split alike. ``params`` are the whole tree, or this
+    rank's slices with the ``specs`` they were cut by (``TrainState.specs``),
+    gathered here once: the decode kernels fuse the residual add into each
+    block, and a tensor-parallel decode step would have to put it after the
+    all-reduce of the partial sums. "sample" draws batch i's noise over the
+    loader's batch and keeps each rank's rows, so a row draws alike whatever
+    dp is."""
+    mesh = _check_mesh(mesh)
+    if specs is not None:
+        params = pmesh.gather_params(params, mesh, specs)
+    dp, dp_rank = (1, 0) if mesh is None else (mesh.dp, mesh.dp_rank)
+    frame = getattr(loader, "batch_size", 0)
+    full = -(-frame // dp) * dp
     timer = timer if timer is not None else PhaseTimer()
     nlgeval = NLGEval(no_skipthoughts=True, no_glove=True, metrics_to_omit=metrics_to_omit or [])
 
@@ -311,43 +357,48 @@ def eval_model(
 
     def dispatch(host_batch):
         nonlocal n_dispatched
-        padded = pad_host_batch(host_batch, getattr(loader, "batch_size", 0))
+        # under a mesh: this dp rank's rows of the batch padded to a multiple of dp, uploaded alone
+        padded = pmesh.shard_batch(mesh, pad_host_batch(host_batch, full))
         with timer.phase("input"):
             batch = device_batch(padded, device)
         with timer.phase("decode"), torch.no_grad():
-            out = _decode(params, cfg, batch, decoder, special, n_dispatched)
+            out = _decode(params, cfg, batch, decoder, special, n_dispatched,
+                          noise_rows=None if mesh is None else (dp_rank * (full // dp), frame))
         n_dispatched += 1
         return out, host_batch
 
     def collect(entry):
         ids_dev, host_batch = entry
         with timer.phase("fetch"):
-            token_ids = ids_dev.cpu().numpy()
+            token_ids = ids_dev.cpu().tolist()
+            if mesh is not None:
+                token_ids = [row for part in pmesh.all_gather_object(token_ids, mesh.dp_group) for row in part]
         token_ids = token_ids[: len(host_batch.ann_ids)]  # drop the padded rows
 
-        pruned = decode_mod.prune_token_ids(token_ids.tolist(), clean=True, pad_token=special["pad"],
+        pruned = decode_mod.prune_token_ids(token_ids, clean=True, pad_token=special["pad"],
                                             bos_token=special["bos"], eos_token=special["eos"])
         hyps = tokenizer.batch_decode(pruned)
         hypotheses.extend(hyps)
         ids_hyps = [{"ann_id": int(i), "expression": h} for i, h in zip(host_batch.ann_ids.tolist(), hyps)]
         ids_hypotheses.extend(ids_hyps)
-        if print_samples:
+        if print_samples and (mesh is None or mesh.rank == 0):
             print(*ids_hyps, sep="\n")
         refs = [annotations[int(i)] for i in host_batch.ann_ids]
         references.extend([normalize_with_tokenizer(r, tokenizer) for r in rs] for rs in refs)
 
     pending: deque = deque()
     it = iter(loader)
-    while True:
-        with timer.phase("host_wait"):
-            host_batch = next(it, None)
-        if host_batch is None:
-            break
-        pending.append(dispatch(host_batch))
-        if len(pending) >= max(1, pipeline_depth):
+    with pmesh.active(mesh):
+        while True:
+            with timer.phase("host_wait"):
+                host_batch = next(it, None)
+            if host_batch is None:
+                break
+            pending.append(dispatch(host_batch))
+            if len(pending) >= max(1, pipeline_depth):
+                collect(pending.popleft())
+        while pending:
             collect(pending.popleft())
-    while pending:
-        collect(pending.popleft())
 
     # the reference's zip(*) transposition truncates to the min ref count (engine.py:181)
     transposed_references = list(map(list, zip(*references)))

@@ -22,6 +22,7 @@ from retr_tpu_torch import device as device_mod
 from retr_tpu_torch.config import Config
 from retr_tpu_torch.masking import Masked, ensure_unmasked_values, filler_indices
 from retr_tpu_torch.models import layers, resnet, transformer
+from retr_tpu_torch.parallel import mesh as pmesh
 from retr_tpu_torch.precision import matmul_precision
 
 Params = Dict[str, Any]
@@ -60,10 +61,15 @@ def build_model(cfg: Config, seed: Optional[int] = None, device=None):
     return layers.tree_to(params, device=device_mod.resolve(device)), cross_entropy
 
 
-def mlp_head(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """3-layer MLP with ReLU between layers."""
+def mlp_head(p: Params, x: torch.Tensor, vocab_size: Optional[int] = None) -> torch.Tensor:
+    """3-layer MLP with ReLU between layers. Where the last layer is
+    column-sharded over the active mesh's mp (narrower than ``vocab_size``),
+    its input goes through ``copy_to_mp`` and the logits are this rank's
+    vocabulary slice."""
     n = len(p["layers"])
     for i, lp in enumerate(p["layers"]):
+        if i == n - 1 and vocab_size is not None and lp["w"].shape[1] != vocab_size:
+            x = pmesh.copy_to_mp(x)
         x = layers.linear(lp, x)
         if i < n - 1:
             x = torch.relu(x)
@@ -140,7 +146,8 @@ def forward(params: Params, cfg: Config, samples: Masked, target_exp: torch.Tens
             train: bool = False, seed: Optional[int] = None, compute_dtype=torch.float32,
             filler_idx=None):
     """Teacher-forced forward: token ids [B, T] (True = pad in the mask) ->
-    logits [B, T, vocab] in f32, or (logits, attention maps) with
+    logits [B, T, vocab] in f32 (this rank's vocabulary slice where the head
+    is mp-sharded), or (logits, attention maps) with
     ``return_attention`` (keys ``enc_tc_self_att``, ``dec_exp_self_att``,
     ``dec_exp_tc_cross_att``, each [layers, B, T, S]). ``train`` turns on
     dropout (generators from ``seed``) and detaches the frozen backbone prefix."""
@@ -151,7 +158,7 @@ def forward(params: Params, cfg: Config, samples: Masked, target_exp: torch.Tens
                                    target_exp, target_exp_mask, cfg, return_attention=return_attention,
                                    train=train, seed=seed)
     with matmul_precision(compute_dtype):
-        out = mlp_head(params["mlp"], hs)
+        out = mlp_head(params["mlp"], hs, cfg.vocab_size)
     return (out, atts) if return_attention else out
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from retr_tpu_torch.ops import attention as fused_ops
+from retr_tpu_torch.parallel import mesh as pmesh
 
 Params = dict
 
@@ -182,20 +183,48 @@ def multi_head_attention(p: Params, query, key_, value, *, num_heads: int,
     With ``use_pallas``, no attention map asked for and no attention dropout,
     the fused kernel (ops/attention.py) takes the mask in its decomposed form
     (``key_pad_bias`` [B, Sk], ``causal``); the plain path covers the rest.
-    Attention dropout acts on the probabilities, as torch's MHA does."""
-    q = split_heads(linear(p["q"], query), num_heads)
-    k = split_heads(linear(p["k"], key_), num_heads)
-    v = split_heads(linear(p["v"], value), num_heads)
+    Attention dropout acts on the probabilities, as torch's MHA does.
+
+    ``num_heads`` is the model's head count. Where q/k/v are column-sharded
+    over the active mesh's mp (their width below the out-projection's), this
+    rank computes its whole heads, ``num_heads * local width / E`` of them:
+    the inputs go through ``copy_to_mp``, the out-projection's partial sums
+    through ``reduce_from_mp`` before its bias, and the attention dropout mask
+    is the one of all heads, cut to this rank's (so it equals mp=1's)."""
+    e = p["out"]["w"].shape[1]
+    split = p["q"]["w"].shape[1] != e
+    if split:
+        if need_weights:
+            raise NotImplementedError("attention maps of mp-sharded heads")
+        query = pmesh.copy_to_mp(query)
+        key_ = query if key_ is query else pmesh.copy_to_mp(key_)
+        value = pmesh.copy_to_mp(value)
+    heads = num_heads * p["q"]["w"].shape[1] // e
+    q = split_heads(linear(p["q"], query), heads)
+    k = split_heads(linear(p["k"], key_), heads)
+    v = split_heads(linear(p["v"], value), heads)
+
+    def out_proj(x):
+        if not split:
+            return linear(p["out"], x)
+        return pmesh.reduce_from_mp(x @ p["out"]["w"]) + p["out"]["b"]
 
     if use_pallas and not need_weights and not (dropout_rate > 0.0 and train):
         out, _ = fused_ops.attention(q, k, v, bias, use_pallas=True, causal=causal,
                                      key_bias=key_pad_bias)
-        return linear(p["out"], merge_heads(out.to(v.dtype))), None
+        return out_proj(merge_heads(out.to(v.dtype))), None
 
     if dropout_rate > 0.0 and train:
         probs = _probs(q, k, bias)
-        out = torch.matmul(dropout(probs, dropout_rate, generator, train).to(v.dtype), v)
+        if split and generator is not None:
+            b, h, sq, sk = probs.shape
+            keep = 1.0 - dropout_rate
+            mask = torch.rand((b, num_heads, sq, sk), generator=generator, device=probs.device) < keep
+            dropped = torch.where(mask[:, pmesh.mp_slice(h)], probs / keep, 0.0).to(probs.dtype)
+        else:
+            dropped = dropout(probs, dropout_rate, generator, train)
+        out = torch.matmul(dropped.to(v.dtype), v)
         weights = probs.mean(dim=1) if need_weights else None
     else:
         out, weights = attention_core(q, k, v, bias, need_weights=need_weights)
-    return linear(p["out"], merge_heads(out)), weights
+    return out_proj(merge_heads(out)), weights

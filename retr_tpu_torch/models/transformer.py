@@ -31,6 +31,7 @@ from retr_tpu_torch.masking import causal_mask, key_padding_bias
 from retr_tpu_torch.models import layers
 from retr_tpu_torch.models.positional import learned_init, positional_encoding
 from retr_tpu_torch.ops import decoder_kernels as dk
+from retr_tpu_torch.parallel import mesh as pmesh
 from retr_tpu_torch.precision import matmul_precision
 
 Params = Dict[str, Any]
@@ -107,9 +108,16 @@ def _cross_att_block(p, q, kv, q_pos, k_pos, bias, cfg, *, gen=None, train=False
 
 
 def _ff_block(p, x, cfg, *, gen=None, train=False):
-    """FFResidual: Linear-ReLU-Linear, pre-norm."""
+    """FFResidual: Linear-ReLU-Linear, pre-norm. Where lin1 is column-sharded
+    over the active mesh's mp (narrower than ``cfg.dim_feedforward``), its
+    input goes through ``copy_to_mp`` and lin2's partial sums through
+    ``reduce_from_mp`` before its bias."""
     nx = layers.layer_norm(p["norm"], x)
-    h = layers.linear(p["lin2"], torch.relu(layers.linear(p["lin1"], nx)))
+    if p["lin1"]["w"].shape[1] == cfg.dim_feedforward:
+        h = layers.linear(p["lin2"], torch.relu(layers.linear(p["lin1"], nx)))
+    else:
+        h = torch.relu(layers.linear(p["lin1"], pmesh.copy_to_mp(nx)))
+        h = pmesh.reduce_from_mp(h @ p["lin2"]["w"]) + p["lin2"]["b"]
     return x + layers.dropout(h, cfg.dropout, gen, train)
 
 

@@ -21,6 +21,14 @@ weights reach the port as a ``.pth`` through ``python -m retr_tpu.export_pth``);
 their ``retr_metadata.json`` is, by :func:`read_metadata` and
 :func:`config_from_checkpoint`.
 
+Under a mesh (``TrainState.mesh``) a checkpoint holds the whole tensors:
+:func:`save_checkpoint` gathers the parameters and AdamW's two moments over
+the mp group on the calling thread (a collective, which every rank must
+call in the same order, so never on :class:`AsyncSaver`'s worker), rank 0
+alone writes, and every rank waits at a barrier; :func:`load_checkpoint`
+reads the whole file on every rank and keeps this rank's slices. So a
+checkpoint does not depend on the mesh's shape.
+
 The reference saves ``{"model_state_dict": ..., "epoch": ..., ...}`` and
 encodes the model variant in the file name, which
 :func:`override_config_with_reference_filename` reads.
@@ -38,7 +46,8 @@ import torch
 
 from retr_tpu_torch.config import Config
 from retr_tpu_torch.models import weights
-from retr_tpu_torch.train.state import TrainState, tree_leaves_with_path, tree_map_with_path
+from retr_tpu_torch.parallel import mesh as pmesh
+from retr_tpu_torch.train.state import TrainState, trained_specs, tree_leaves_with_path, tree_map_with_path
 
 METADATA_FILE = "retr_metadata.json"
 STATE_FILE = "state.pth"
@@ -69,14 +78,24 @@ def _state_tensors(state: TrainState, copy: bool) -> Dict[str, Any]:
     """What a checkpoint holds of ``state``, on the state's device: the
     parameter tree, the optimizer state dict without the groups' schedules,
     step and grad_norm. ``copy`` clones every tensor, so the snapshot stays as
-    it is while training goes on updating the state in place."""
+    it is while training goes on updating the state in place. Under a mesh
+    the sharded parameters and moments are gathered to whole tensors."""
     def own(t):
         return t.detach().clone() if copy else t.detach()
 
     opt = state.opt_state.state_dict()
+    params = tree_map_with_path(lambda _, t: own(t), state.params)
+    moments = {i: {k: own(v) for k, v in s.items()} for i, s in opt["state"].items()}
+    if state.mesh is not None:
+        params = pmesh.gather_params(params, state.mesh, state.specs)
+        specs = trained_specs(state)
+        keys = [(i, k) for i, s in moments.items() for k, v in s.items() if v.dim() > 0]   # not AdamW's step
+        full = pmesh.gather_leaves([moments[i][k] for i, k in keys], [specs[i] for i, _ in keys], state.mesh)
+        for (i, k), t in zip(keys, full):
+            moments[i][k] = t
     return {
-        "params": tree_map_with_path(lambda _, t: own(t), state.params),
-        "optimizer": {"state": {i: {k: own(v) for k, v in s.items()} for i, s in opt["state"].items()},
+        "params": params,
+        "optimizer": {"state": moments,
                       "param_groups": [{k: v for k, v in g.items() if k != "schedule"}
                                        for g in opt["param_groups"]]},
         "step": int(state.step),
@@ -84,10 +103,14 @@ def _state_tensors(state: TrainState, copy: bool) -> Dict[str, Any]:
     }
 
 
+def _path(directory: str, cfg: Config, epoch: int) -> str:
+    return os.path.abspath(os.path.join(directory, checkpoint_name(cfg, epoch)))
+
+
 def _write(directory: str, snap: Dict[str, Any], cfg: Config, *, epoch: int,
            train_loss: float = float("nan"), val_loss: float = float("nan"),
            cider_score: float = float("nan")) -> str:
-    path = os.path.abspath(os.path.join(directory, checkpoint_name(cfg, epoch)))
+    path = _path(directory, cfg, epoch)
     os.makedirs(path, exist_ok=True)
     opt = snap["optimizer"]
     payload = {
@@ -115,9 +138,14 @@ def save_checkpoint(directory: str, state: TrainState, cfg: Config, *, epoch: in
                     train_loss: float = float("nan"), val_loss: float = float("nan"),
                     cider_score: float = float("nan")) -> str:
     """Write ``state`` as ``<directory>/<checkpoint_name(cfg, epoch)>``; returns
-    that path."""
-    return _write(directory, _state_tensors(state, copy=False), cfg, epoch=epoch, train_loss=train_loss,
-                  val_loss=val_loss, cider_score=cider_score)
+    that path. Under a mesh every rank calls it: rank 0 writes, all wait."""
+    snap = _state_tensors(state, copy=False)
+    mesh = state.mesh
+    if mesh is None or mesh.rank == 0:
+        _write(directory, snap, cfg, epoch=epoch, train_loss=train_loss, val_loss=val_loss,
+               cider_score=cider_score)
+    pmesh.barrier(mesh)
+    return _path(directory, cfg, epoch)
 
 
 class AsyncSaver:
@@ -127,15 +155,21 @@ class AsyncSaver:
     flight: ``submit`` first joins the previous one, so copies never pile up
     on the device. A failed save re-raises at the next ``submit`` and at
     :meth:`wait`, which joins the save in flight; call it before reading
-    checkpoints back and when training ends."""
+    checkpoints back and when training ends. Under a mesh every rank calls
+    both: ``submit`` gathers the state on the calling thread, rank 0's worker
+    writes it, and ``wait`` ends at a barrier of every rank."""
 
     def __init__(self) -> None:
         self._thread: Optional[threading.Thread] = None
         self._errors: List[Exception] = []
+        self._mesh: Optional[pmesh.Mesh] = None
 
     def submit(self, directory: str, state: TrainState, cfg: Config, **meta: Any) -> None:
         self.wait()
         snap = _state_tensors(state, copy=True)
+        self._mesh = state.mesh
+        if state.mesh is not None and state.mesh.rank != 0:
+            return
 
         def run():
             try:
@@ -150,6 +184,9 @@ class AsyncSaver:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            pmesh.barrier(mesh)
         if self._errors:
             raise self._errors[0]
 
@@ -186,10 +223,20 @@ def load_checkpoint(path: str, template: TrainState) -> Tuple[TrainState, Dict[s
     """Restore a checkpoint directory into ``template`` (a ``create_train_state``
     of the same model; its device is the one loaded to): parameters copied in
     place, the optimizer's state loaded and its groups' schedules kept, step
-    and grad_norm set. Returns (template, metadata)."""
+    and grad_norm set. Under the template's mesh each rank keeps its slices
+    of the whole tensors. Returns (template, metadata)."""
     blob = _read_state(path)
     meta = read_metadata(path)
-    loaded = dict(tree_leaves_with_path(weights.to_params(blob["model_state_dict"], config_from_checkpoint(path))))
+    mesh = template.mesh
+    params = weights.to_params(blob["model_state_dict"], config_from_checkpoint(path))
+    opt_sd = blob["optimizer_state_dict"]
+    if mesh is not None:
+        params = pmesh.shard_params(params, mesh, template.specs)
+        specs = trained_specs(template)
+        opt_sd = {"state": {i: {k: pmesh.shard_leaf(v, specs[i], mesh).contiguous() if v.dim() > 0 else v
+                                for k, v in s.items()} for i, s in opt_sd["state"].items()},
+                  "param_groups": opt_sd["param_groups"]}
+    loaded = dict(tree_leaves_with_path(params))
     live = list(tree_leaves_with_path(template.params))
     if [p for p, _ in live] != list(loaded):
         raise ValueError(f"{path} holds another model than the template's")
@@ -200,7 +247,7 @@ def load_checkpoint(path: str, template: TrainState) -> Tuple[TrainState, Dict[s
     schedules = [g["schedule"] for g in opt.param_groups]
     # the moments go to their parameter's device; AdamW's step counters stay
     # on the host, where a fresh AdamW keeps them
-    opt.load_state_dict(blob["optimizer_state_dict"])
+    opt.load_state_dict(opt_sd)
     for g, schedule in zip(opt.param_groups, schedules):
         g["schedule"] = schedule
     template.step = int(blob["step"])

@@ -38,6 +38,7 @@ from retr_tpu_torch.config import Config
 from retr_tpu_torch.data.pipeline import Batch
 from retr_tpu_torch.masking import Masked
 from retr_tpu_torch.models import caption, layers
+from retr_tpu_torch.parallel import mesh as pmesh
 from retr_tpu_torch.precision import dtype_of, matmul_precision
 
 Params = Dict[str, Any]
@@ -147,26 +148,59 @@ def make_optimizer(cfg: Config, params: Params, steps_per_epoch: int) -> torch.o
 class TrainState:
     """Parameters (f32 leaf tensors; frozen ones do not require grad), the
     AdamW that updates them, the number of updates made, and the pre-clip
-    global gradient norm of the last update."""
+    global gradient norm of the last update. Under a mesh, ``params`` are
+    this rank's slices and ``specs`` the spec tree they were cut by
+    (``parallel.mesh.param_shardings``)."""
 
     params: Params
     opt_state: torch.optim.AdamW
     step: int = 0
     grad_norm: Optional[torch.Tensor] = None
+    mesh: Optional[pmesh.Mesh] = None
+    specs: Optional[Params] = None
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` (no index) names the current card."""
+    def index(d):
+        return torch.cuda.current_device() if d.type == "cuda" and d.index is None else d.index
+    return a.type == b.type and (a.type != "cuda" or index(a) == index(b))
 
 
 def create_train_state(cfg: Config, params: Params, device=None,
-                       steps_per_epoch: int = 1000) -> TrainState:
+                       steps_per_epoch: int = 1000, mesh: Optional[pmesh.Mesh] = None) -> TrainState:
     """Copy ``params`` (the port's tree, e.g. ``weights.to_params``) to ``device``
-    (``cuda`` unless told otherwise) as f32 leaves, and build the optimizer."""
-    dev = device_mod.resolve(device)
+    (``cuda`` unless told otherwise; the mesh's device under ``mesh``, and a
+    ``device`` that is not the mesh's raises) as f32 leaves, and build the
+    optimizer. Under ``mesh`` the full tree is cut to this rank's slices
+    first."""
+    if mesh is None:
+        dev = device_mod.resolve(device)
+    elif device is not None and not _same_device(torch.device(device), mesh.device):
+        raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+    else:
+        dev = mesh.device
+    specs = None
+    if mesh is not None:
+        specs = pmesh.param_shardings(params, mesh, cfg.nheads)
+        params = pmesh.shard_params(params, mesh, specs)
 
     def leaf(path, t):
         t = t.detach().to(device=dev, dtype=torch.float32).clone()
         return t.requires_grad_(_label_path(path) != "frozen")
 
     params = tree_map_with_path(leaf, params)
-    return TrainState(params, make_optimizer(cfg, params, steps_per_epoch))
+    return TrainState(params, make_optimizer(cfg, params, steps_per_epoch), mesh=mesh, specs=specs)
+
+
+def trained_specs(state: TrainState) -> List[pmesh.Spec]:
+    """The spec of each trained leaf, in the optimizer's order (all
+    replicated without a mesh)."""
+    trained = _trained(state)
+    if state.specs is None:
+        return [pmesh.REPLICATED] * len(trained)
+    spec_of = {id(x): s for x, s in zip(pmesh.leaves(state.params), pmesh.leaves(state.specs))}
+    return [spec_of[id(p)] for p in trained]
 
 
 # ---------------------------------------------------------------------------------
@@ -180,12 +214,34 @@ def create_train_state(cfg: Config, params: Params, device=None,
 CE_IMPL = "fused"
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, vocab_size: Optional[int] = None) -> torch.Tensor:
+    """Mean cross-entropy over every position. Logits narrower than
+    ``vocab_size`` are this rank's slice of an mp-sharded head: the
+    vocab-parallel form (:func:`_vocab_parallel_cross_entropy`)."""
     logits32 = logits.float()
+    if vocab_size is not None and logits.shape[-1] != vocab_size:
+        return _vocab_parallel_cross_entropy(logits32, targets.long())
     tgt = targets.long()[..., None]
     if CE_IMPL == "logsoftmax":
         return -torch.log_softmax(logits32, dim=-1).gather(-1, tgt)[..., 0].mean()
     return (torch.logsumexp(logits32, dim=-1) - logits32.gather(-1, tgt)[..., 0]).mean()
+
+
+def _vocab_parallel_cross_entropy(logits32: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """logsumexp - target logit over a vocabulary split across the mp group,
+    with three all_reduces over [B, T]: the max (a shift, no gradient), the
+    sum of exponentials and the target logit (each rank holds it or 0). The
+    gradient reaching this rank's logits is its slice of softmax - onehot."""
+    v = logits32.shape[-1]
+    start = pmesh.current().mp_rank * v
+    gmax = pmesh.all_reduce(logits32.detach().amax(dim=-1), pmesh.mp_group(), "max")
+    shifted = logits32 - gmax[..., None]
+    sum_exp = pmesh.reduce_from_mp(shifted.exp().sum(dim=-1))
+    local = targets - start
+    inside = (local >= 0) & (local < v)
+    picked = shifted.gather(-1, local.clamp(0, v - 1)[..., None])[..., 0]
+    target = pmesh.reduce_from_mp(torch.where(inside, picked, 0.0))
+    return (torch.log(sum_exp) - target).mean()
 
 
 def loss_fn(params: Params, cfg: Config, batch: Batch, seed: Optional[int], *, train: bool,
@@ -198,22 +254,60 @@ def loss_fn(params: Params, cfg: Config, batch: Batch, seed: Optional[int], *, t
                         if batch.global_images is not None else None),
         loc_feats=batch.loc_feats, train=train, seed=seed, compute_dtype=compute_dtype,
     )
-    return cross_entropy(logits, batch.caps[:, 1:])
+    return cross_entropy(logits, batch.caps[:, 1:], cfg.vocab_size)
 
 
 def _trained(state: TrainState) -> List[torch.Tensor]:
     return [p for g in state.opt_state.param_groups for p in g["params"]]
 
 
+def _flat_all_reduce(tensors: List[torch.Tensor], group, scale: float) -> None:
+    """Sum ``tensors`` over ``group`` in one all_reduce of a flat bucket, then
+    scale, in place."""
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    pmesh.all_reduce(flat, group).mul_(scale)
+    for t, chunk in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(chunk.view_as(t))
+
+
+def _average_gradients(state: TrainState, specs: List[pmesh.Spec]) -> None:
+    """DDP's arithmetic on the parameter tree: each sharded gradient is
+    averaged over its dp group; each replicated one over the whole world
+    (its mp copies are equal up to the rounding of the card's atomics, so
+    the mean keeps the replicated parameters bit-equal across the mp group)."""
+    mesh = state.mesh
+    grads = [p.grad for p in _trained(state)]
+    _flat_all_reduce([g for g, s in zip(grads, specs) if "mp" not in s], mesh.world_group, 1.0 / mesh.world)
+    _flat_all_reduce([g for g, s in zip(grads, specs) if "mp" in s], mesh.dp_group, 1.0 / mesh.dp)
+
+
+def _global_norm(grads: List[torch.Tensor], specs: List[pmesh.Spec], mesh) -> torch.Tensor:
+    """The norm of the whole gradient: the squares of the sharded leaves
+    summed over the mp group, the replicated leaves counted once."""
+    split = [g for g, s in zip(grads, specs) if "mp" in s]
+    if not split:
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    rest = [g for g, s in zip(grads, specs) if "mp" not in s]
+    sq_split = pmesh.all_reduce(torch.stack(torch._foreach_norm(split)).square().sum(), mesh.mp_group)
+    sq_rest = torch.stack(torch._foreach_norm(rest)).square().sum() if rest else torch.zeros_like(sq_split)
+    return torch.sqrt(sq_rest + sq_split)
+
+
 def _update(cfg: Config, state: TrainState) -> None:
-    """PAD-row zero, global-norm clip, AdamW at the scheduled learning rates."""
+    """dp gradient mean (under a mesh), PAD-row zero, global-norm clip, AdamW
+    at the scheduled learning rates."""
     trained = _trained(state)
     for p in trained:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    specs = trained_specs(state)
+    if state.mesh is not None:
+        _average_gradients(state, specs)
     state.params["transformer"]["embeddings"]["word"]["table"].grad[cfg.pad_token_id] = 0.0
     grads = [p.grad for p in trained]
-    state.grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    state.grad_norm = _global_norm(grads, specs, state.mesh)
     norm = float(state.grad_norm)
     if cfg.clip_max_norm > 0 and norm >= cfg.clip_max_norm:
         torch._foreach_div_(grads, norm)                 # optax's form: (g / norm) * max_norm
@@ -243,16 +337,25 @@ def make_train_step(cfg: Config, *, compute_dtype=None, accum_steps: Optional[in
     that many micro-batches (micro-batch i draws dropout from
     ``fold_in(step seed, i)``), sums their gradients and scales the sum by
     1/accum_steps before the one update: the mean of equal-size micro-batch
-    gradients is the full batch's gradient."""
+    gradients is the full batch's gradient.
+
+    Under ``state.mesh`` the batch is this dp rank's rows: the step runs with
+    the mesh active (the mp-sharded blocks' collectives), folds the dp rank
+    into the step seed where dp > 1, averages the gradients (and the returned
+    loss) over dp after the backward and any accumulation, and clips by the
+    global norm of the sharded gradient."""
     dt = dtype_of(cfg.compute_dtype if compute_dtype is None else compute_dtype)
     accum = cfg.grad_accum_steps if accum_steps is None else accum_steps
 
     def step(state: TrainState, batch: Batch, seed: int) -> Tuple[TrainState, torch.Tensor]:
         micro = _split(batch, accum)
+        mesh = state.mesh
         step_seed = layers.fold_in(seed, state.step)
+        if mesh is not None and mesh.dp > 1:
+            step_seed = layers.fold_in(step_seed, mesh.dp_rank)
         state.opt_state.zero_grad(set_to_none=True)
         total = None
-        with matmul_precision(dt):
+        with pmesh.active(mesh), matmul_precision(dt):
             for i, mb in enumerate(micro):
                 loss = loss_fn(state.params, cfg, mb, step_seed if accum == 1 else layers.fold_in(step_seed, i),
                                train=True, compute_dtype=dt)
@@ -263,6 +366,8 @@ def make_train_step(cfg: Config, *, compute_dtype=None, accum_steps: Optional[in
                 if p.grad is not None:
                     p.grad.mul_(1.0 / accum)
             total = total * (1.0 / accum)
+        if mesh is not None:
+            total = pmesh.all_reduce(total.clone(), mesh.dp_group) / mesh.dp
         _update(cfg, state)
         return state, total
 

@@ -8,7 +8,9 @@ through the attention kernel against the plain attention path, and the
 serving surface (sampling at temperature 0 equal to greedy, a seed's
 determinism, f32 prefix and sample-greedy buffers against the CPU's under
 the f32_parity rule, ``score`` through the attention kernel and
-``predict_with_attention`` without it). Run on the card with
+``predict_with_attention`` without it); a dp=2 world of two processes on
+the one card over gloo, whose two f32 train steps equal the world of one's.
+Run on the card with
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
@@ -992,3 +994,44 @@ def test_checkpoint_moves_between_the_card_and_the_cpu(dev, tmp_path):
     step_device = next(iter(st.opt_state.state.values()))["step"].device   # where a fresh AdamW keeps it
     assert all(s["exp_avg"].device.type == "cuda" and s["step"].device == step_device
                for s in back.opt_state.state.values())
+
+
+def test_dp2_world_on_one_card_over_gloo_matches_the_world_of_one(dev, tmp_path):
+    """Two ranks share cuda:0 (NCCL refuses that; gloo carries the port's
+    all_reduces on CUDA tensors): two f32 steps at dropout 0 on a global
+    batch of 4, losses within 1e-4 relative of the world of one's."""
+    import json
+    import os
+
+    from retr_tpu_torch.data import dataset
+    from retr_tpu_torch.data.pipeline import device_batch
+    from retr_tpu_torch.data.tokenizer import prepare_tokenizer
+    from retr_tpu_torch.models import caption
+    # by its own name, as pytest puts tests/ on sys.path: a package named
+    # "tests" installed elsewhere would shadow the repository's directory
+    from torch_parallel_worker import run_world
+
+    coco_dir, ref_dir = chip_smoke.write_refcoco(str(tmp_path / "refcoco"), n_images=8, n_train=8, n_val=4)
+    kw = dict(dir=coco_dir, ref_dir=ref_dir, backbone="ResNet18", dilation=False, hidden_dim=64, nheads=4,
+              enc_layers=1, dec_layers=1, dim_feedforward=128, vocab_size=chip_smoke.V, max_position_embeddings=16,
+              dropout=0.0, image_size=64, batch_size=2, num_workers=1,
+              vocab_file=chip_smoke.write_vocab(str(tmp_path / "vocab.txt")), device="cuda")
+    cfg = Config(**kw)
+    sd = weights.to_state_dict(caption.build_model(cfg, seed=0, device="cpu")[0], cfg)
+    in_dir, out_dir = tmp_path / "in", tmp_path / "out"
+    in_dir.mkdir()
+    out_dir.mkdir()
+    torch.save(sd, in_dir / "init.pt")
+    with open(in_dir / "setup.json", "w") as f:
+        json.dump({"cfg": kw, "global_batch": 4, "device": "cuda:0"}, f)
+    ranks = run_world("2x1_train", 2, str(in_dir), str(out_dir))
+
+    tok = prepare_tokenizer(cfg.vocab_file)[0]
+    ds = dataset.build_dataset(cfg, "training", tokenizer=tok)
+    batch = device_batch(next(iter(dataset.DataLoader(ds, 4, num_workers=1))), dev)
+    st = tstate.create_train_state(cfg, weights.to_params(sd, cfg, device="cpu"), device=dev, steps_per_epoch=4)
+    step = tstate.make_train_step(cfg)
+    want = [float(step(st, batch, 5)[1]) for _ in range(2)]
+    for r in ranks:
+        assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(r["losses"], want)), (r["losses"], want)
+    assert os.path.exists(out_dir / "2x1_train.r1.pt")

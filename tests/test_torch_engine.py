@@ -14,7 +14,9 @@ dropout 0, the JAX parameters moved across by ``weights.to_state_dict``.
 - ``evaluate`` within 1e-5 relative (attention kernel flag off and on);
 - ``eval_model``: greedy ids_hypotheses and metrics equal, a ragged last
   batch, beam top hypotheses equal, sample at top_k=1 equal;
-- ``mesh`` raises; ``use_pallas_attention`` cannot train and says so;
+- a ``mesh`` that is not a ``parallel.mesh.Mesh`` raises ``TypeError`` (the
+  mesh itself: tests/test_torch_parallel.py); ``use_pallas_attention`` cannot
+  train and says so;
 - ``pack_encoder_inputs``, ``MetricLogger`` and ``PhaseTimer`` as retr_tpu's;
   ``trace`` and ``enable_nan_debugging`` on torch's profiler and anomaly mode.
 """
@@ -223,9 +225,9 @@ def test_eval_model_sample_at_top_k_1_matches_reference(env, unique_val):
 def test_mesh_and_unknown_decoder_raise(env, unique_val):
     hosts = _host_batches(env, 1)
     state = types.SimpleNamespace(step=0, params=env.tp)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         engine.train_one_epoch(state, _recorder([]), hosts, SEED, mesh=object())
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         engine.evaluate(env.tp, env.cfg, hosts, mesh=object())
     with pytest.raises(ValueError, match="decoder"):
         engine.eval_model(env.tp, env.cfg, unique_val[0], env.tok, decoder="nucleus")

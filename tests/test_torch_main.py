@@ -12,7 +12,8 @@ resume=True)`` to three epochs. Against retr_tpu's run:
   relative, the ``epoch_end`` CIDEr equal;
 - the resumed run logs ``resume`` at epoch 2 and trains epoch 2 only.
 Also: the early stop fires on the same epoch for stubbed CIDEr sequences; a
-mesh and ``--distributed`` raise naming ROADMAP A13; the eval CLI
+mesh in a world of one and ``--distributed`` without torchrun's variables
+raise, saying why (multi-process runs: tests/test_torch_parallel.py); the eval CLI
 (``--override_config``, ``--batch``, ``--store_results``, ``--decoder beam``,
 ``--profile_dir``, a ``.pth``) and ``export_pth`` on the checkpoint ``main``
 wrote; ``Predictor.from_checkpoint`` of the directory and of its ``.pth``
@@ -189,11 +190,16 @@ def test_early_stop_fires_on_the_reference_epoch(runs, tmp_path, case):
 
 
 @pytest.mark.parametrize("launch", ["mesh", "--distributed"])
-def test_multi_gpu_raises_naming_a13(runs, launch):
-    with pytest.raises(NotImplementedError, match="A13"):
-        if launch == "mesh":
+def test_multi_gpu_raises_naming_a13(runs, launch, monkeypatch):
+    """dp_size=2 in a world of one has no process group to make a mesh of;
+    --distributed without torchrun's RANK / WORLD_SIZE (and no store) names them."""
+    if launch == "mesh":
+        with pytest.raises(ValueError, match="needs an initialised process group"):
             tmain.main(runs.cfg.replace(dp_size=2))
-        else:
+    else:
+        for var in ("RANK", "WORLD_SIZE"):
+            monkeypatch.delenv(var, raising=False)
+        with pytest.raises(RuntimeError, match="RANK and WORLD_SIZE"):
             tmain.cli(["--distributed", "--config", runs.cfg_path])
 
 
