@@ -46,6 +46,16 @@ Phases (any failure raises, exits non-zero and prints no result line):
      kernel takes, every row tile of its rule and its own choice (a second
      launch bit-equal, the same bits at every tile, only the slot at step
      written, x unwritten);
+  3b. tp_kernels: the four split blocks' partial (tensor-parallel) mode, f32
+     and bf16, at mp 2 and 4 (4 and 2 local heads, FF 1024 and 512), at 32,
+     160, 512 and 2560 rows (the beam block at 160 and 2560), the self
+     blocks at steps 0, 63 and 127: rank 0's partial kernel against its
+     plain version, each output at its own magnitude, and the sum over the
+     mp slices finished by the epilogue against the whole-head kernel on the
+     same inputs (its partial and epilogue; in f32 also its output, which in
+     bf16 rounds after each head and is recorded beside), within TOL; timed
+     at step 63 with the cluster plan and the device time beside the
+     whole-head kernel's;
   4. serve requests through Predictor at the served width (ResNet-50 dilated,
      6+6 layers, d=256, vocab 30522, bf16, random weights from a seed): greedy
      with the one-launch stacked kernel, with the per-layer trio, with
@@ -129,12 +139,18 @@ Phases (any failure raises, exits non-zero and prints no result line):
      eval_model_sharded greedy and beam 5 on the 40 validation expressions
      of build_model(seed=1) in f32 (hypotheses equal to engine.eval_model's
      on one process except at the reference's near-ties, top-2 margin or
-     beam candidate gap under 1e-4) and bf16 (equal ones counted); (a)
+     beam candidate gap under 1e-4) and bf16 (equal ones counted); under
+     mp=2 tensor-parallel on each rank's slices (never gathered, self caches
+     of 4 heads, the partial blocks launched and the whole ones not), with
+     one bf16 decode step at 32 rows timed by utils.timing.time_chained on
+     the slices and on the gathered tree; (a)
      restores (c)'s checkpoint and takes its next step within 1e-4, and
      drives main.main for an epoch through its 1x1 mesh; fused_stack_step,
-     the beam trio and fused_attention launched on every rank; one
+     the beam trio and fused_attention launched on every rank of (a) and
+     (b), the four partial blocks and fused_attention on (c)'s; one
      ``parallel`` line per world;
-  7. every kernel's launch count from its path's run must be > 0.
+  7. every kernel's launch count from its path's run must be > 0 (the
+     partial blocks': phase 6d's mp=2 world, both ranks).
 
 The card's line, then a line {"kernels": [...]} with one entry per kernel,
 come before the last line, {"ok": true, "device": {...}}. It needs the rest of
@@ -255,20 +271,26 @@ def random_decoder(gen, dev, dtype):
             "ff": {"norm": norm(), "lin1": lin(C, F), "lin2": lin(F, C)}}
 
 
-def kernel_work(name, b, esize, step):
+def kernel_work(name, b, esize, step, mp=1):
     """(bytes, operations) the function needs for ``b`` rows: each input read
     once, each output written once; self caches read at the positions before
     ``step``. The heads count their weights and products (the top-k head's
-    trunk runs outside the kernel, as on the TPU)."""
-    attn_w = 4 * C * C + 6 * C          # q/k/v/out weights and biases, LN, qpos share
-    cross_w = 2 * C * C + 5 * C
-    ff_w = 2 * C * F + F + 3 * C
-    io = 2 * b * C * esize              # x in, y out
-    self_cache = 2 * b * H * step * D * esize + 2 * b * H * D * esize   # read prefix, write slot
-    cross_kv = 2 * b * H * S * D * esize
-    self_ops = 2 * b * (4 * C * C) + 2 * 2 * b * H * (step + 1) * D
-    cross_ops = 2 * b * (2 * C * C) + 2 * 2 * b * H * S * D
-    ff_ops = 2 * b * (2 * C * F)
+    trunk runs outside the kernel, as on the TPU). A ``*_partial`` block
+    works on an mp slice: H/mp heads (q/k/v width C/mp), F/mp hidden units,
+    no output bias, an f32 output."""
+    partial = name.endswith("_partial")
+    name = name.removesuffix("_partial")
+    h, ci, f = H // mp, C // mp, F // mp
+    bias_out = 0 if partial else C
+    attn_w = 4 * C * ci + 3 * ci + bias_out + 2 * C   # q/k/v/out weights and biases, LN
+    cross_w = 2 * C * ci + ci + bias_out + 3 * C
+    ff_w = 2 * C * f + f + bias_out + 2 * C
+    io = b * C * esize + b * C * (4 if partial else esize)   # x in, y out
+    self_cache = 2 * b * h * step * D * esize + 2 * b * h * D * esize   # read prefix, write slot
+    cross_kv = 2 * b * h * S * D * esize
+    self_ops = 2 * b * (4 * C * ci) + 2 * 2 * b * h * (step + 1) * D
+    cross_ops = 2 * b * (2 * C * ci) + 2 * 2 * b * h * S * D
+    ff_ops = 2 * b * (2 * C * f)
     if name == "ff_block":
         return io + ff_w * esize, ff_ops
     if name == "cross_attn_block":
@@ -301,7 +323,15 @@ def _tensor_err(got, want, dname):
     return (err if finite else float("inf")), TOL[dname] * max(1.0, float(want[0].abs().max()))
 
 
-def measure(name, dname, rows, kern, plain, lib, nl, err_fn=None, extra=None):
+def _each_err(got, want, dname):
+    """As _tensor_err, each output against its own plain output's magnitude
+    (a partial block's f32 sum is far smaller than the caches it writes);
+    returns the (err, tol) of the output nearest its tolerance."""
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    return max((_tensor_err(g, w, dname) for g, w in pairs), key=lambda et: et[0] / et[1])
+
+
+def measure(name, dname, rows, kern, plain, lib, nl, err_fn=None, extra=None, mp=1):
     """Hold kern(0) against plain(0), then time kernel, plain version and library
     yardstick (each a function of the layer index, cycled over ``nl`` layers as
     the decode loop does). ``extra`` joins the record; where it holds a
@@ -320,7 +350,7 @@ def measure(name, dname, rows, kern, plain, lib, nl, err_fn=None, extra=None):
         ms = time_ms(cyc(kern)) / nl
         plain_ms = time_ms(cyc(plain), reps=5, rounds=3) / nl
         lib_ms = None if lib is None else time_ms(cyc(lib)) / nl
-    nbytes, ops = kernel_work(name, rows, 4 if dname == "float32" else 2, CHECK_STEP)
+    nbytes, ops = kernel_work(name, rows, 4 if dname == "float32" else 2, CHECK_STEP, mp)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
     rec = dict(name=name, dtype=dname, batch=rows, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
@@ -831,6 +861,201 @@ def check_beam_and_heads(dev):
                 lambda li: dk.mlp_head_argmax_plain(head, xh), lambda li: argmax_lib(), 1, argmax_err,
                 head_device_times(argmax_call, argmax_lib, "mlp_head_argmax"))
             torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------------
+# Phase 3b: tp_kernels, the split blocks' partial (tensor-parallel) mode
+# ---------------------------------------------------------------------------------
+
+# partial wrapper -> (block kind, the Pallas kernel the block replaces, the
+# main path's case: phase 6d's mp=2 sweep, bf16, greedy 32 rows or beam 32 x 5)
+TP_KERNELS = {
+    "self_attn_block_partial": ("self", "retr_tpu/ops/decoder_kernels.py:228", ("bfloat16", 32)),
+    "cross_attn_block_partial": ("cross", "retr_tpu/ops/decoder_kernels.py:450", ("bfloat16", 32 * BEAM)),
+    "ff_block_partial": ("ff", "retr_tpu/ops/decoder_kernels.py:96", ("bfloat16", 32 * BEAM)),
+    "self_attn_block_beam_partial": ("beam", "retr_tpu/ops/decoder_kernels.py:380", ("bfloat16", 32 * BEAM)),
+}
+TP_MPS = (2, 4)                                  # local heads 4 and 2, F/mp 1024 and 512
+TP_STEPS = (0, CHECK_STEP, T - 1)                # the self blocks' steps; timed at CHECK_STEP
+TP_CUDA_NAME = {"ff": "ff_kernel", "cross": "cross_kernel", "self": SELF_KERNEL, "beam": SELF_KERNEL}
+
+
+def tp_slice(p, mp, r):
+    """Rank r's mp slice of one block's parameters, cut as
+    retr_tpu_torch/parallel/mesh.param_specs cuts it: q/k/v and FF1 by
+    column, the out-projection and FF2 by row, the norm and the output bias
+    whole (contiguous copies, as shard_params makes them)."""
+    def cut(w, dim):
+        n = w.shape[dim] // mp
+        return w.narrow(dim, r * n, n).contiguous()
+
+    if "lin1" in p:
+        return {"norm": p["norm"], "lin1": {"w": cut(p["lin1"]["w"], 1), "b": cut(p["lin1"]["b"], 0)},
+                "lin2": {"w": cut(p["lin2"]["w"], 0), "b": p["lin2"]["b"]}}
+    m = p["mha"]
+    mha = {k: {"w": cut(m[k]["w"], 1), "b": cut(m[k]["b"], 0)} for k in ("q", "k", "v")}
+    mha["out"] = {"w": cut(m["out"]["w"], 0), "b": m["out"]["b"]}
+    return {"norm": p["norm"], "mha": mha}
+
+
+def tp_case(dev, seed, dtype, kind, rows, mp, step=CHECK_STEP, nl=L, c=C, h=H, f=F, t=T, s=S, beams=BEAM):
+    """A partial block ("ff", "cross", "self" or "beam") at ``rows`` rows, mp
+    slices of ``nl`` layers' whole blocks of width ``c``, ``h`` heads, FF
+    ``f``. Returns (kern(li), plain(li), whole(li), sum_of_slices()): rank
+    0's partial kernel and its plain version on their own copies of the
+    same inputs (a self block returns (y, k cache, v cache), its caches the
+    local heads), the whole-head kernel on the whole block, and
+    (sum, whole, whole_partial): layer 0's partials of every rank summed in
+    rank order in f32 and finished by the epilogue, the whole-head kernel's
+    output, and the whole-head kernel's own partial (all h heads, one
+    cluster) finished by the epilogue, on copies of the same inputs. In f32
+    the three agree up to the order of the head sum; in bf16 an attention
+    block's whole kernel rounds after each head and the epilogue once, so
+    ``sum`` equals ``whole_partial`` up to that order and ``whole`` up to
+    the rounding."""
+    import torch
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, hl = c // h, h // mp
+
+    def rn(*shape, sc=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * sc).to(dtype)
+
+    def lin(i, o):
+        return {"w": rn(i, o, sc=(2.0 / (i + o)) ** 0.5), "b": rn(o, sc=0.02)}
+
+    def norm():
+        return {"scale": (1 + rn(c, sc=0.1).float()).to(dtype), "bias": rn(c, sc=0.1)}
+
+    if kind == "ff":
+        blocks = [{"norm": norm(), "lin1": lin(c, f), "lin2": lin(f, c)} for _ in range(nl)]
+    else:
+        blocks = [{"norm": norm(), "mha": {k: lin(c, c) for k in ("q", "k", "v", "out")}} for _ in range(nl)]
+    local = [tp_slice(p, mp, 0) for p in blocks]
+    ranks = [tp_slice(blocks[0], mp, r) for r in range(mp)]
+    x, qpos = rn(rows, c), rn(c, sc=0.5)
+
+    def heads(a, r):                              # rank r's heads of [.., rows, h, .., d]
+        return a[..., r * hl:(r + 1) * hl, :, :].contiguous()
+
+    if kind == "ff":
+        call = lambda p, partial, *_: dk.ff_block(p, x, partial=partial)  # noqa: E731
+        plain = lambda li: dk.ff_block_plain(local[li], x, partial=True)  # noqa: E731
+        epilogue, caches = dk.ff_block_epilogue, None
+    elif kind == "cross":
+        ck, cv = rn(nl, rows, h, s, d), rn(nl, rows, h, s, d)
+        pad = torch.rand(rows, s, generator=gen, device=dev) < 0.2
+        pad[:, 0] = False
+        kb = torch.where(pad, float("-inf"), 0.0)
+        lk, lv = heads(ck, 0), heads(cv, 0)
+        call = lambda p, partial, k, v, nh: dk.cross_attn_block(  # noqa: E731
+            p, x, qpos, k, v, kb, num_heads=nh, partial=partial)
+        plain = lambda li: dk.cross_attn_block_plain(local[li], x, qpos, lk[li], lv[li], kb, num_heads=hl,  # noqa: E731
+                                                     partial=True)
+        epilogue, caches = dk.attn_block_epilogue, (ck, cv)
+    else:
+        kc, vc = rn(nl, rows, h, t, d), rn(nl, rows, h, t, d)
+        stp = torch.tensor(step, dtype=torch.int32, device=dev)
+        anc = torch.randint(0, beams, (rows, t), generator=gen, device=dev, dtype=torch.int32)
+
+        def call(p, partial, k, v, nh, mod=dk, sfx=""):
+            if kind == "self":
+                return getattr(mod, "self_attn_block" + sfx)(p, x, qpos, k, v, stp, num_heads=nh, partial=partial)
+            return getattr(mod, "self_attn_block_beam" + sfx)(p, x, anc, qpos, k, v, stp, num_heads=nh,
+                                                              num_beams=beams, partial=partial)
+
+        lk_p, lv_p = heads(kc, 0), heads(vc, 0)
+        plain = lambda li: call(local[li], True, lk_p[li], lv_p[li], hl, dk, "_plain")  # noqa: E731
+        epilogue, caches = dk.attn_block_epilogue, (kc, vc)
+    lk, lv = (None, None) if caches is None else (heads(caches[0], 0), heads(caches[1], 0))
+    wk, wv = (None, None) if caches is None else (caches[0].clone(), caches[1].clone())
+    kern = lambda li: call(local[li], True, *((lk[li], lv[li], hl) if caches else ()))  # noqa: E731
+    whole = lambda li: call(blocks[li], False, *((wk[li], wv[li], h) if caches else ()))  # noqa: E731
+
+    def sum_of_slices():
+        total = None
+        for r in range(mp):
+            kv = () if caches is None else (heads(caches[0][0], r), heads(caches[1][0], r), hl)
+            y = call(ranks[r], True, *kv)
+            y = y[0] if isinstance(y, tuple) else y
+            total = y if total is None else total + y
+        got = epilogue(blocks[0], x, total)
+        outs = []
+        for partial in (False, True):
+            kv = () if caches is None else (caches[0][0].clone(), caches[1][0].clone(), h)
+            y = call(blocks[0], partial, *kv)
+            outs.append(y[0] if isinstance(y, tuple) else y)
+        return got, outs[0], epilogue(blocks[0], x, outs[1])
+
+    return kern, plain, whole, sum_of_slices
+
+
+def check_tp_kernels(dev):
+    """Phase 3b: each partial block, f32 and bf16, at mp = 2 and 4, at
+    BLOCK_ROWS rows (the beam block at 160 and 2560), the self blocks at
+    steps 0, 63 and 127: rank 0's partial kernel against its plain version
+    (each output, the self blocks' caches too, at its own magnitude), and the sum over the mp slices finished by the epilogue against the
+    whole-head kernel on the same inputs, both within TOL of max(1,
+    max|reference|) (in bf16 the attention blocks' sum against the
+    whole-head kernel's partial and epilogue, whose rounding it shares: the
+    whole kernel's per-head rounding is recorded beside it, as
+    ``whole_err``); at step 63 timed over the six layers' slices as the
+    decode loop cycles them, with the cluster plan and the profiled device
+    time beside the whole-head kernel's at the same rows. Returns
+    {(name, dtype, rows, mp): record} of the timed cases; the others go to
+    one ``tp_edges`` line."""
+    import torch
+
+    from retr_tpu_torch.ops import decoder_kernels as dk
+    from retr_tpu_torch.precision import matmul_precision
+
+    out, edges = {}, []
+    for name, (kind, _, _) in TP_KERNELS.items():
+        whole_name = name.removesuffix("_partial")
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            for mp in TP_MPS:
+                for rows in ((160, 2560) if kind == "beam" else BLOCK_ROWS):
+                    for step in (TP_STEPS if kind in ("self", "beam") else (CHECK_STEP,)):
+                        timed = step == CHECK_STEP
+                        kern, plain, whole, sum_of_slices = tp_case(dev, rows + mp + step, dtype, kind, rows, mp, step,
+                                                                    nl=L if timed else 1)
+                        got, want, want_partial = sum_of_slices()
+                        torch.cuda.synchronize()
+                        sum_err, sum_tol = _tensor_err(got, want_partial, dname)
+                        whole_err, whole_tol = _tensor_err(got, want, dname)
+                        if not (sum_err <= sum_tol and (whole_err <= whole_tol or dname == "bfloat16")):
+                            raise AssertionError(f"{name} {dname} mp={mp} rows={rows} step={step}: the slices' sum "
+                                                 f"and epilogue {sum_err} from the whole-head kernel's partial "
+                                                 f"(tol {sum_tol}), {whole_err} from its output (tol {whole_tol})")
+                        if not timed:
+                            with matmul_precision(torch.float32):   # the plain version in full f32
+                                err, tol = _each_err(kern(0), plain(0), dname)
+                            if not err <= tol:
+                                raise AssertionError(f"{name} {dname} mp={mp} rows={rows} step={step}: {err} > {tol}")
+                            edges.append({"name": name, "dtype": dname, "mp": mp, "rows": rows, "step": step,
+                                          "max_abs_err": err, "tol": tol, "sum_err": sum_err, "sum_tol": sum_tol,
+                                          "whole_err": whole_err, "whole_tol": whole_tol})
+                            continue
+                        plan = dk.block_plan(whole_name, dtype, rows, S, F // mp if kind == "ff" else F, T,
+                                             BEAM if kind == "beam" else 1, num_heads=H // mp, partial=True)
+                        cuda_name = TP_CUDA_NAME[kind]
+                        extra = {"mp": mp, "local_heads": H // mp, "ff_width": F // mp, "plan": plan,
+                                 "device_ms": device_ms(lambda: [kern(li) for li in range(L)], cuda_name),
+                                 "whole_device_ms": device_ms(lambda: [whole(li) for li in range(L)], cuda_name),
+                                 "sum_err": sum_err, "sum_tol": sum_tol, "whole_err": whole_err, "whole_tol": whole_tol,
+                                 "library": "none: no one PyTorch call computes a block's partial sum"}
+                        out[(name, dname, rows, mp)] = measure(name, dname, rows, kern, plain, None, L, _each_err,
+                                                               extra=extra, mp=mp)
+                        del kern, plain, whole
+                        torch.cuda.empty_cache()
+    log("tp_edges", json.dumps({"cases": len(edges), "max_err_over_tol": max(e["max_abs_err"] / e["tol"] for e in edges),
+                                "max_sum_err_over_tol": max(e["sum_err"] / e["sum_tol"] for e in edges),
+                                "max_whole_err_over_tol": max(e["whole_err"] / e["whole_tol"] for e in edges),
+                                "cases_detail": edges}))
     return out
 
 
@@ -2408,7 +2633,49 @@ PAR_BATCH = 16                                              # the global batch o
 # world -> (dp, mp, backend): NCCL refuses two ranks on one device; gloo carries
 # the port's collectives (all_reduce alone on tensors) on CUDA tensors
 PAR_WORLDS = {"mp2": (1, 2, "gloo"), "dp2": (2, 1, "gloo"), "one": (1, 1, "nccl")}
-PAR_KERNELS = ("fused_stack_step", "cross_attn_block", "ff_block", "self_attn_block_beam", "fused_attention")
+# world -> the kernels every rank must launch: the whole blocks on the whole
+# tree, the partial blocks of phase 3b under mp (its decode is tensor-parallel)
+PAR_KERNELS = {"dp2": ("fused_stack_step", "cross_attn_block", "ff_block", "self_attn_block_beam", "fused_attention"),
+               "mp2": tuple(TP_KERNELS) + ("fused_attention",)}
+PAR_KERNELS["one"] = PAR_KERNELS["dp2"]
+PAR_COUNTED = tuple(dict.fromkeys(PAR_KERNELS["dp2"] + PAR_KERNELS["mp2"]))
+
+
+def _decode_step_ms(params, cfg, mesh, batch):
+    """One decode step's time per application (``utils.timing.time_chained``,
+    k = 8, median of 3 rounds) at position CHECK_STEP on ``batch``'s rows:
+    on this rank's mp slices, tensor-parallel under the mesh (``tp``), and on
+    the tree gathered from them, whole (``gathered``, the decode before the partial blocks: the
+    stacked kernel). Every rank of the mesh must call it."""
+    import torch
+
+    from retr_tpu_torch import decode
+    from retr_tpu_torch.masking import Masked
+    from retr_tpu_torch.models import transformer
+    from retr_tpu_torch.parallel import mesh as pmesh
+    from retr_tpu_torch.precision import dtype_of, matmul_precision
+    from retr_tpu_torch.utils.timing import time_chained
+
+    specs = pmesh.param_shardings(params, mesh, cfg.nheads)
+    trees = {"tp": pmesh.shard_params(params, mesh, specs)}
+    trees["gathered"] = pmesh.gather_params(trees["tp"], mesh, specs)
+    samples, out = Masked(batch.images, batch.image_masks), {}
+    with torch.no_grad(), pmesh.active(mesh):
+        for label, tree in trees.items():
+            p, memory, mem_mask, pos = decode._encode_for_decode(tree, cfg, samples, None, None,
+                                                                 dtype_of(cfg.compute_dtype), None)
+            tp = transformer.prepare_decoder(p["transformer"])
+            cache, cross = transformer.init_decode_state(tp, memory, mem_mask, pos, cfg, cfg.max_position_embeddings)
+            ids = torch.full((memory.shape[0],), 101, dtype=torch.int32, device=memory.device)
+            step = torch.tensor(CHECK_STEP, dtype=torch.int32, device=memory.device)
+
+            def fn(x):   # x = (ids, key bias): the bias carries the chain's dependency
+                ctx = transformer.CrossContext(cross.cross_k, cross.cross_v, x[1])
+                return transformer.decode_step(tp, cache, ctx, x[0], step, cfg)[0]
+
+            with matmul_precision(memory.dtype):
+                out[label] = time_chained(fn, (ids, cross.mem_bias), k=8, rounds=3) * 1e3
+    return out
 
 
 def _row_min_margins(params, cfg, loader, decoder):
@@ -2509,7 +2776,7 @@ def parallel_rank(kind, rank, world, store, workdir) -> int:
     from retr_tpu_torch.data import dataset
     from retr_tpu_torch.data.pipeline import device_batch
     from retr_tpu_torch.data.tokenizer import prepare_tokenizer
-    from retr_tpu_torch.models import caption
+    from retr_tpu_torch.models import caption, transformer
     from retr_tpu_torch.ops import decoder_kernels as dk
     from retr_tpu_torch.parallel import mesh as pmesh
     from retr_tpu_torch.parallel.sweep import eval_model_sharded
@@ -2595,19 +2862,37 @@ def parallel_rank(kind, rank, world, store, workdir) -> int:
                                                 mesh=mesh)
         del st
 
-        for dt, cfg in cfgs.items():
-            # this rank's slices: the sweep gathers them (an all_reduce over mp) and decodes the whole tree
-            specs = pmesh.param_shardings(fresh[dt], mesh, cfg.nheads)
-            local = pmesh.shard_params(fresh[dt], mesh, specs)
-            for decoder in ("greedy", "beam"):
-                t0 = time.perf_counter()
-                metrics, hyps = eval_model_sharded(local, cfg.replace(use_pallas_attention=True),
-                                                   loader(unique_val), tok, mesh, decoder=decoder,
-                                                   return_hypotheses=True, specs=specs)
-                out[f"sweep_{dt}_{decoder}"] = hyps
-                out[f"sweep_{dt}_{decoder}_s"] = time.perf_counter() - t0
-                if not all(math.isfinite(v) for v in metrics.values()):
-                    raise AssertionError(f"{kind}: metrics {metrics}")
+        # the sweep on this rank's slices (under mp decoded tensor-parallel, never
+        # gathered): every gather of the tree counted, the self caches' heads recorded
+        out["sweep_gather_calls"], heads = 0, set()
+        real_gather, real_init = pmesh.gather_params, transformer.init_decode_state
+
+        def counted_gather(*a, **k):
+            out["sweep_gather_calls"] += 1
+            return real_gather(*a, **k)
+
+        def recorded_init(*a, **k):
+            cache, cross = real_init(*a, **k)
+            heads.add(cache.self_k.shape[2])
+            return cache, cross
+
+        pmesh.gather_params, transformer.init_decode_state = counted_gather, recorded_init
+        try:
+            for dt, cfg in cfgs.items():
+                specs = pmesh.param_shardings(fresh[dt], mesh, cfg.nheads)
+                local = pmesh.shard_params(fresh[dt], mesh, specs)
+                for decoder in ("greedy", "beam"):
+                    t0 = time.perf_counter()
+                    metrics, hyps = eval_model_sharded(local, cfg.replace(use_pallas_attention=True),
+                                                       loader(unique_val), tok, mesh, decoder=decoder,
+                                                       return_hypotheses=True, specs=specs)
+                    out[f"sweep_{dt}_{decoder}"] = hyps
+                    out[f"sweep_{dt}_{decoder}_s"] = time.perf_counter() - t0
+                    if not all(math.isfinite(v) for v in metrics.values()):
+                        raise AssertionError(f"{kind}: metrics {metrics}")
+        finally:
+            pmesh.gather_params, transformer.init_decode_state = real_gather, real_init
+        out["self_cache_heads"] = sorted(heads)
         if kind == "one":   # main through an explicit 1x1 mesh: its collectives run over NCCL
             mcfg = Config(**{**served_config("bfloat16").to_dict(), **data, "device": "cuda", "dropout": 0.1,
                              "epochs": 1, "dp_size": 1, "mp_size": 1, "async_checkpoints": False,
@@ -2622,9 +2907,11 @@ def parallel_rank(kind, rank, world, store, workdir) -> int:
                                      for k, v in e.items() if k in ("train_loss", "val_loss", "cider")}
         torch.cuda.synchronize()
         out["seconds"] = time.perf_counter() - t_start
-        out["launches"] = {k: dk.LAUNCHES[k] for k in PAR_KERNELS}
+        out["launches"] = {k: dk.LAUNCHES[k] for k in PAR_COUNTED}
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         host = next(iter(loader(unique_val)))
+        if mp > 1:   # a decode step tensor-parallel, and whole on the gathered tree (two ranks on one card)
+            out["decode_step_ms"] = _decode_step_ms(fresh["bfloat16"], cfgs["bfloat16"], mesh, device_batch(host, dev))
         out["digests"] = _stage_digests(fresh, cfgs, device_batch(host, dev))
         # this rank's rows as the sweep uploads them; the world of one: each half alone
         out["digests_local"] = _stage_digests(fresh, cfgs, device_batch(pmesh.shard_batch(mesh, host), dev))
@@ -2735,9 +3022,14 @@ def parallel(dev, card, by_run):
                 if not diff <= 1e-4:
                     raise AssertionError(f"{kind} rank {r['rank']}: f32 losses {r['f32_losses']} against "
                                          f"{one['f32_losses']}")
-                for k in PAR_KERNELS:
+                for k in PAR_KERNELS[kind]:
                     if r["launches"][k] <= 0:
                         raise AssertionError(f"{kind} rank {r['rank']}: {k} never launched: {r['launches']}")
+                if r["mp"] > 1 and (r["sweep_gather_calls"] or r["self_cache_heads"] != [H // r["mp"]] or any(
+                        r["launches"][k] for k in PAR_KERNELS["dp2"] if k != "fused_attention")):
+                    raise AssertionError(f"{kind} rank {r['rank']}: the sweep did not decode tensor-parallel: "
+                                         f"{r['sweep_gather_calls']} gathers, cache heads {r['self_cache_heads']}, "
+                                         f"launches {r['launches']}")
                 for decoder in ("greedy", "beam"):
                     want, got = one[f"ref_float32_{decoder}"], r[f"sweep_float32_{decoder}"]
                     bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
@@ -2766,7 +3058,7 @@ def parallel(dev, card, by_run):
                 checks.setdefault("stage_bits_differing_on_same_rows", []).append(
                     {dt: [stage for stage in DIGEST_STAGES if r["digests_local"][dt][stage] != same_rows[dt][stage]]
                      for dt in ("float32", "bfloat16")})
-            for k in PAR_KERNELS:
+            for k in PAR_KERNELS[kind]:
                 counts = by_run.setdefault(k, {})
                 counts["parallel"] = counts.get("parallel", 0) + sum(r["launches"][k] for r in ranks)
             line = {"world": kind, "ranks": len(ranks), "dp": ranks[0]["dp"], "mp": ranks[0]["mp"],
@@ -2779,6 +3071,9 @@ def parallel(dev, card, by_run):
                                 ("float32_greedy", "float32_beam", "bfloat16_greedy", "bfloat16_beam")},
                     "expressions": REFCOCO_VAL, **checks,
                     "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+                    "decode_gathered": any(r["sweep_gather_calls"] for r in ranks),
+                    "self_cache_heads": [r["self_cache_heads"] for r in ranks],
+                    "partial_launches": [{k: r["launches"][k] for k in TP_KERNELS} for r in ranks],
                     "launches": [r["launches"] for r in ranks], "seconds": [r["seconds"] for r in ranks],
                     # engine.eval_model's bf16 greedy, equal to (a)'s reference: ranks at once, each alone
                     "bf16_greedy_equal_together": [sum(a == b for a, b in zip(r["bf16_greedy_together"],
@@ -2790,6 +3085,8 @@ def parallel(dev, card, by_run):
                                                              for r in ranks] for stage in DIGEST_STAGES}
                                                 for dt in ("float32", "bfloat16")},
                     "note": note, "card": card}
+            if ranks[0]["mp"] > 1:
+                line["decode_step_ms"] = [r["decode_step_ms"] for r in ranks]
             if kind == "one":
                 if one["restored_step"] != 3 or not abs(one["f32_step4_loss_restored"] - worlds["mp2"][0][
                         "f32_step4_loss"]) <= 1e-4 * abs(worlds["mp2"][0]["f32_step4_loss"]):
@@ -2990,6 +3287,8 @@ def main(mode=None) -> int:
     check_beam_edges(dev)
     check_self_edges(dev)
     torch.cuda.empty_cache()
+    tp_checks = check_tp_kernels(dev)                                      # phase 3b
+    torch.cuda.empty_cache()
 
     state = random_state(served_config("bfloat16"))                        # phase 4
     params, launches, by_run = serve(dev, state, synthetic_tokenizer())
@@ -3033,6 +3332,23 @@ def main(mode=None) -> int:
             entry["launches_by_run"] = by_run[name]
         if name == "fused_attention":   # launches: eval steps; the serving encoder's beside them
             entry["launches_serving_encoder"] = launches["fused_attention (serving encoder)"]
+        entries.append(entry)
+    for name, (kind, replaces, (dname, rows)) in TP_KERNELS.items():      # phase 6d's mp=2 decode
+        launched = by_run.get(name, {}).get("parallel", 0)
+        if launched <= 0:
+            raise AssertionError(f"{name} was never launched on phase 6d's mp=2 sweep: {by_run.get(name)}")
+        main_rec = tp_checks[(name, dname, rows, 2)]
+        entry = {
+            "name": name, "route": "cuda", "source": BLOCK_SRC, "replaces": replaces, "launches": launched,
+            **{k: main_rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "plan", "device_ms", "whole_device_ms", "ms_events") if k in main_rec},
+            "shape": f"bf16, {rows} rows, mp=2: {H // 2} of {H} heads, FF {F // 2} of {F}, step {CHECK_STEP}",
+            "launches_by_run": by_run[name],
+            "cases": [{k: r[k] for k in ("dtype", "batch", "mp", "max_abs_err", "ms", "ms_events", "plain_ms",
+                                          "bound_ms", "device_ms", "whole_device_ms", "sum_err", "whole_err", "plan")
+                       if k in r}
+                      for (n, _, _, _), r in tp_checks.items() if n == name],
+        }
         entries.append(entry)
     print(card)
     print(json.dumps({"kernels": entries}))

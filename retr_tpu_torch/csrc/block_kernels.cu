@@ -73,11 +73,21 @@
 // row tile R. A second cluster.sync() keeps each block's partial alive until
 // its peers have read it. Only slot `step` of each self cache is written.
 //
-// Fixed widths: C = 256, 8 heads of 32; F a multiple of 256; beam groups of
-// 1..8 rows; T up to the self kernels' shared-memory limit (BeamLayout:
-// scores [8][T] f32 and, with the ancestry, src [32][T] bytes). The wrappers
-// in ops/decoder_kernels.py check every shape; a launch past the limit is
-// refused.
+// Partial mode (a.partial, tensor parallelism): the block's parameters are one
+// rank's mp slice (q/k/v and W1 by column, Wo and W2 by row), so an attention
+// launch has a.H = 8 / mp heads (clusters of 4 at mp = 2, of 2 at mp = 4) and
+// its q/k/v width is a.H * 32, and ff_kernel takes F / mp hidden units. The
+// cluster's reduction then writes the f32 sum of its partials (heads or
+// hidden chunks, in order) to y [B, C] and adds neither the bias nor the
+// residual: the caller all-reduces that sum over the mp group and finishes
+// the block (ops/decoder_kernels.attn_block_epilogue / ff_block_epilogue).
+// Block h of a cluster of H finishes output columns [h C/H, (h+1) C/H).
+//
+// Fixed widths: C = 256, heads of 32 (8, or an mp slice's 1, 2 or 4); F a
+// multiple of 256; beam groups of 1..8 rows; T up to the self kernels'
+// shared-memory limit (BeamLayout: scores [8][T] f32 and, with the ancestry,
+// src [32][T] bytes). The wrappers in ops/decoder_kernels.py check every
+// shape; a launch past the limit is refused.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -91,6 +101,8 @@ struct BlockArgs {
   int B, S, F;
   int rows;              // 0, or the row tile R to use instead of launch's choice
   int T, K;              // self beam: cache length, rows of a beam group
+  int H;                 // attention: heads of the launch, its cluster size (8, or an mp slice's)
+  int partial;           // 1: y is the f32 sum of the partials [B, C], no bias, no residual
   const void* x;
   void* y;
   const void* qpos;                                                 // cross
@@ -312,9 +324,47 @@ __global__ void __launch_bounds__(NT, 1) ff_kernel(const BlockArgs a) {
     for (int k = 1; k < 8; ++k)
       if (k < G) s = s + p[k];                    // chunk order
     const size_t o = (size_t)(row0 + r) * C + c;
-    y[o] = from_f<T>(to_f(x[o]) + rnd<T>(s + to_f(b2[c])));
+    if (a.partial) static_cast<float*>(a.y)[o] = s;
+    else y[o] = from_f<T>(to_f(x[o]) + rnd<T>(s + to_f(b2[c])));
   }
   cluster.sync();                                 // the peers have read this block's partial
+}
+
+// The attention kernels' reduction, after cluster.sync(): block h of the nh
+// finishes output columns [h C/nh, (h+1) C/nh) of its rows from every head's
+// f32 out-projection part [R][C] (read through distributed shared memory):
+// rnd(rnd(x + bo) + part_0), then rnd(acc + rnd(part_k)) for k = 1.., the TPU
+// split kernels' rounding in head order; partial: the f32 sum of the parts in
+// head order, into the f32 y.
+template <typename T>
+__device__ void reduce_heads(cg::cluster_group& cluster, const BlockArgs& a, float* part, int h, int nh, int row0,
+                             int nrows) {
+  const float* parts[NH];
+#pragma unroll
+  for (int k = 0; k < NH; ++k) parts[k] = cluster.map_shared_rank(part, k < nh ? k : 0);
+  const T* x = static_cast<const T*>(a.x);
+  const T* bo = static_cast<const T*>(a.bo);
+  const int nc = C / nh, c0 = h * nc;
+  for (int i = threadIdx.x; i < nrows * nc; i += NT) {
+    const int r = i / nc, c = c0 + i % nc;
+    float p[NH];
+#pragma unroll
+    for (int k = 0; k < NH; ++k) p[k] = k < nh ? parts[k][r * C + c] : 0.f;
+    const size_t o = (size_t)(row0 + r) * C + c;
+    if (a.partial) {
+      float s = p[0];
+#pragma unroll
+      for (int k = 1; k < NH; ++k)
+        if (k < nh) s = s + p[k];                 // head order
+      static_cast<float*>(a.y)[o] = s;
+    } else {
+      float v = rnd<T>(rnd<T>(to_f(x[o]) + to_f(bo[c])) + p[0]);
+#pragma unroll
+      for (int k = 1; k < NH; ++k)
+        if (k < nh) v = rnd<T>(v + rnd<T>(p[k]));   // head order
+      static_cast<T*>(a.y)[o] = from_f<T>(v);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------------
@@ -353,7 +403,7 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1) cross_kernel(const
   using Tl = Tile<T>;
   extern __shared__ float4 smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int h = (int)cluster.block_rank(), row0 = (int)(blockIdx.x / NH) * R;
+  const int h = (int)cluster.block_rank(), nh = a.H, row0 = (int)(blockIdx.x / nh) * R;
   const int nrows = min(R, a.B - row0);
   const CrossLayout<T> lay(R, a.S);
   char* base = reinterpret_cast<char*>(smem_raw);
@@ -376,7 +426,7 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1) cross_kernel(const
   const T* bq = static_cast<const T*>(a.bq) + h * HD;
   for (int m = 0; m < R; m += MT)
     product_unit<T>(
-        sm, static_cast<const T*>(a.wq), C, h * HD, C,
+        sm, static_cast<const T*>(a.wq), nh * HD, h * HD, C,   // Wq [C, nh HD]
         [&](T* A, int lda) {
           fill_ln<T>(A, lda, row0 + nrows, row0 + m, [&](size_t i, int) { return to_f(x[i]); }, nullptr,
                      static_cast<const T*>(a.lns), static_cast<const T*>(a.lnb), static_cast<const T*>(a.qpos));
@@ -389,7 +439,7 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1) cross_kernel(const
   const T* ck = static_cast<const T*>(a.ck);
   const T* cv = static_cast<const T*>(a.cv);
   for (int r = threadIdx.x >> 5; r < nrows; r += NW) {
-    const size_t off = ((size_t)(row0 + r) * NH + h) * a.S * HD;
+    const size_t off = ((size_t)(row0 + r) * nh + h) * a.S * HD;
     const float* kb = a.key_bias + (size_t)(row0 + r) * a.S;
     attend<T>(u, lay.slab, a.S, 1, qs + r * HD, a.S, -1, ck + off, cv + off, nullptr, nullptr,
               [kb](int t) { return fmaxf(__ldg(kb + t), kMaskVal); }, att + r * HD, LdShared{});
@@ -413,22 +463,7 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1) cross_kernel(const
   });
   cluster.sync();                                 // every head's partial is written
 
-  const float* parts[NH];
-#pragma unroll
-  for (int k = 0; k < NH; ++k) parts[k] = cluster.map_shared_rank(part, k);
-  const T* bo = static_cast<const T*>(a.bo);
-  T* y = static_cast<T*>(a.y);
-  for (int i = threadIdx.x; i < nrows * HD; i += NT) {
-    const int r = i / HD, c = h * HD + i % HD;
-    float p[NH];
-#pragma unroll
-    for (int k = 0; k < NH; ++k) p[k] = parts[k][r * C + c];
-    const size_t o = (size_t)(row0 + r) * C + c;
-    float v = rnd<T>(rnd<T>(to_f(x[o]) + to_f(bo[c])) + p[0]);
-#pragma unroll
-    for (int k = 1; k < NH; ++k) v = rnd<T>(v + rnd<T>(p[k]));   // head order
-    y[o] = from_f<T>(v);
-  }
+  reduce_heads<T>(cluster, a, part, h, nh, row0, nrows);
   cluster.sync();                                 // the peers have read this block's partial
 }
 
@@ -473,14 +508,15 @@ template <typename T> struct BeamLayout {
 };
 
 // The bf16 q/k/v product in two calls. qkv_issue: the three 32-column slices
-// of Wq, Wk and Wv of head h into shared memory (one cp.async group).
-__device__ void qkv_issue(char* u, const __nv_bfloat16* wq, const __nv_bfloat16* wk, const __nv_bfloat16* wv, int h) {
+// of Wq, Wk and Wv [C, ldw] of head h into shared memory (one cp.async group).
+__device__ void qkv_issue(char* u, const __nv_bfloat16* wq, const __nv_bfloat16* wk, const __nv_bfloat16* wv, int h,
+                          int ldw) {
   using T = __nv_bfloat16;
   constexpr int SEG = HD / 8;
   T* W = reinterpret_cast<T*>(u) + BR * kQkvLda;
   for (int i = threadIdx.x; i < 3 * C * SEG; i += NT) {
     const int p = i / (C * SEG), r = i / SEG % C, sg = i % SEG;
-    cp_async16(W + (p * C + r) * kQkvLdw + sg * 8, (p == 0 ? wq : p == 1 ? wk : wv) + (size_t)r * C + h * HD + sg * 8);
+    cp_async16(W + (p * C + r) * kQkvLdw + sg * 8, (p == 0 ? wq : p == 1 ? wk : wv) + (size_t)r * ldw + h * HD + sg * 8);
   }
   cp_async_commit();
 }
@@ -531,7 +567,7 @@ __device__ void qkv_compute(char* u, Fill fill, Epi epi) {
 // class ts), eight positions per warp step, VU steps' loads issued before
 // their sums (as attend): 128 bytes a lane in flight in either type.
 template <typename T, bool Anc>
-__device__ void beam_attend(float* sc, const float* q, int step, const T* kc, const T* vc, int tmax, int h,
+__device__ void beam_attend(float* sc, const float* q, int step, const T* kc, const T* vc, int tmax, int nh, int h,
                             const int8_t* src, int r, int row0, const float* kn, const float* vn, float* out) {
   constexpr int VU = sizeof(T) == 2 ? 8 : 4;
   const int lane = threadIdx.x & 31, g = lane & 3, ts = lane >> 2, n = step + 1;
@@ -539,7 +575,7 @@ __device__ void beam_attend(float* sc, const float* q, int step, const T* kc, co
     if constexpr (Anc) return src[t];
     else return r;
   };
-  auto at_pos = [&](int t) { return (((size_t)(row0 + row_of(t)) * NH + h) * tmax + t) * HD + g * 8; };
+  auto at_pos = [&](int t) { return (((size_t)(row0 + row_of(t)) * nh + h) * tmax + t) * HD + g * 8; };
   const int cur = row_of(step);                   // the fresh k/v row in shared memory
   float qv[8];
 #pragma unroll
@@ -629,7 +665,7 @@ __global__ void __launch_bounds__(NT, 2) self_beam_kernel(const BlockArgs a) {
   using Tl = Tile<T>;
   extern __shared__ float4 smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int h = (int)cluster.block_rank(), R = a.rows, row0 = (int)(blockIdx.x / NH) * R;
+  const int h = (int)cluster.block_rank(), nh = a.H, R = a.rows, row0 = (int)(blockIdx.x / nh) * R;
   const int nrows = min(R, a.B - row0), step = *a.step;
   const BeamLayout<T> lay(a.T, Anc);
   char* base = reinterpret_cast<char*>(smem_raw);
@@ -648,7 +684,7 @@ __global__ void __launch_bounds__(NT, 2) self_beam_kernel(const BlockArgs a) {
   const T* wq = static_cast<const T*>(a.wq);
   const T* wk = static_cast<const T*>(a.wk);
   const T* wv = static_cast<const T*>(a.wv);
-  if constexpr (sizeof(T) == 2) qkv_issue(u, wq, wk, wv, h);   // in flight while the ancestry is read
+  if constexpr (sizeof(T) == 2) qkv_issue(u, wq, wk, wv, h, nh * HD);   // in flight while the ancestry is read
 
   // the local source row of each (row, position <= step): the row's group base
   // + its ancestor, clamped into the group so no value of anc reaches outside it
@@ -689,7 +725,7 @@ __global__ void __launch_bounds__(NT, 2) self_beam_kernel(const BlockArgs a) {
     for (int m = 0; m < R; m += MT)
 #pragma unroll
       for (int p = 0; p < 3; ++p)
-        product_unit<T>(sm, p == 0 ? wq : p == 1 ? wk : wv, C, h * HD, C,
+        product_unit<T>(sm, p == 0 ? wq : p == 1 ? wk : wv, nh * HD, h * HD, C,
                         [&](T* A, int lda) { fill16(A, lda, m, p < 2); },
                         [&](int r, int c, float v) { epi(p, m + r, c, v); });
   }
@@ -702,7 +738,7 @@ __global__ void __launch_bounds__(NT, 2) self_beam_kernel(const BlockArgs a) {
   // slot `step` of head h in the rows' caches, rounded to the cache type
   for (int i = threadIdx.x; i < nrows * HD; i += NT) {
     const int r = i / HD, d = i % HD;
-    const size_t off = (((size_t)(row0 + r) * NH + h) * a.T + step) * HD + d;
+    const size_t off = (((size_t)(row0 + r) * nh + h) * a.T + step) * HD + d;
     kc[off] = from_f<T>(kn[i]);
     vc[off] = from_f<T>(vn[i]);
   }
@@ -710,7 +746,7 @@ __global__ void __launch_bounds__(NT, 2) self_beam_kernel(const BlockArgs a) {
   // a warp per row: the attention (gathered by ancestry with Anc)
   float* sc = reinterpret_cast<float*>(u + (threadIdx.x >> 5) * lay.scores);
   for (int r = threadIdx.x >> 5; r < nrows; r += NW)
-    beam_attend<T, Anc>(sc, qs + r * HD, step, kc, vc, a.T, h, src + r * a.T, r, row0, kn, vn, att + r * HD);
+    beam_attend<T, Anc>(sc, qs + r * HD, step, kc, vc, a.T, nh, h, src + r * a.T, r, row0, kn, vn, att + r * HD);
   __syncthreads();
 
   // part_h = rnd(attn_h) Wo[32h:32h+32, :], f32 (rows past the tile zero)
@@ -729,22 +765,7 @@ __global__ void __launch_bounds__(NT, 2) self_beam_kernel(const BlockArgs a) {
   for_each_acc<T, BR>(acc, [&](int r, int c, float v) { part[r * C + c] = v; });
   cluster.sync();                                 // every head's partial is written
 
-  const float* parts[NH];
-#pragma unroll
-  for (int k = 0; k < NH; ++k) parts[k] = cluster.map_shared_rank(part, k);
-  const T* bo = static_cast<const T*>(a.bo);
-  T* y = static_cast<T*>(a.y);
-  for (int i = threadIdx.x; i < nrows * HD; i += NT) {
-    const int r = i / HD, c = h * HD + i % HD;
-    float p[NH];
-#pragma unroll
-    for (int k = 0; k < NH; ++k) p[k] = parts[k][r * C + c];
-    const size_t o = (size_t)(row0 + r) * C + c;
-    float v = rnd<T>(rnd<T>(to_f(x[o]) + to_f(bo[c])) + p[0]);
-#pragma unroll
-    for (int k = 1; k < NH; ++k) v = rnd<T>(v + rnd<T>(p[k]));   // head order
-    y[o] = from_f<T>(v);
-  }
+  reduce_heads<T>(cluster, a, part, h, nh, row0, nrows);
   cluster.sync();                                 // the peers have read this block's partial
 }
 
@@ -830,10 +851,10 @@ int cross_launch(const BlockArgs& a, cudaStream_t st, int* out) {
   const int tiles = (a.B + R - 1) / R;
   if (out != nullptr) {
     out[0] = R;
-    out[1] = NH;
+    out[1] = a.H;
     out[2] = tiles;
   }
-  return launch_clusters((const void*)cross_kernel<T, R>, plan, a, NH, tiles, CrossLayout<T>(R, a.S).total, st,
+  return launch_clusters((const void*)cross_kernel<T, R>, plan, a, a.H, tiles, CrossLayout<T>(R, a.S).total, st,
                          out);
 }
 
@@ -844,10 +865,10 @@ int beam_launch(const BlockArgs& a, cudaStream_t st, int* out) {
   const int tiles = (a.B + a.rows - 1) / a.rows;
   if (out != nullptr) {
     out[0] = a.rows;
-    out[1] = NH;
+    out[1] = a.H;
     out[2] = tiles;
   }
-  return launch_clusters((const void*)self_beam_kernel<T, Anc>, plan, a, NH, tiles, BeamLayout<T>(a.T, Anc).total,
+  return launch_clusters((const void*)self_beam_kernel<T, Anc>, plan, a, a.H, tiles, BeamLayout<T>(a.T, Anc).total,
                          st, out);
 }
 
@@ -859,9 +880,14 @@ int beam_launch(const BlockArgs& a, cudaStream_t st, int* out) {
 // SM: on the H100 at 32 rows 2-row tiles (16 of 30 clusters) took 0.0148 ms
 // in bf16, 4-row tiles 0.0120 and 8-row ones 0.0122; at 512 rows the 32-row
 // tile was the fastest of all (chip_smoke.py --block-rows).
+// An attention launch's heads: 8, or with a.partial an mp slice's 1, 2, 4 or 8.
+inline bool heads_ok(const BlockArgs& a) {
+  return a.partial ? a.H >= 1 && a.H <= NH && NH % a.H == 0 : a.H == NH;
+}
+
 template <typename T, bool Anc>
 int launch_beam(const BlockArgs& a, cudaStream_t st, int* out) {
-  if (a.B < 1 || a.T < 1 || a.K < 1 || a.K > 8 || a.B % a.K != 0 || (!Anc && a.K != 1))
+  if (a.B < 1 || a.T < 1 || a.K < 1 || a.K > 8 || a.B % a.K != 0 || (!Anc && a.K != 1) || !heads_ok(a))
     return (int)cudaErrorInvalidValue;
   BlockArgs b = a;
   if (b.rows <= 0) {
@@ -905,7 +931,7 @@ int launch_rows(const BlockArgs& a, bool cross, int R, cudaStream_t st, int* out
 // row's result does not depend on the tile.
 template <typename T>
 int launch(const BlockArgs& a, bool cross, cudaStream_t st, int* out) {
-  if (a.B < 1 || (cross ? a.S < 1 : (a.F < 256 || a.F % 256 != 0))) return (int)cudaErrorInvalidValue;
+  if (a.B < 1 || (cross ? a.S < 1 || !heads_ok(a) : (a.F < 256 || a.F % 256 != 0))) return (int)cudaErrorInvalidValue;
   int R = a.rows;
   if (R <= 0) {
     const int last = cross ? 32 : 64;

@@ -33,6 +33,13 @@
 // `exact` = 1 (the stacked step): the residual stays f32 across all layers
 // and is rounded once, at the output. No atomics: the same inputs give the
 // same bits.
+//
+// Partial mode (`partial` = 1, tensor parallelism; rt_width_self, _cross and
+// _ff): the parameters are one rank's mp slice, H its heads over the q/k/v
+// width I (= H x the head width, below C), F its hidden units; y, f32, gets
+// the sum of the heads' out-projection parts in head order (FF: the FF2
+// product) with neither the bias nor the residual, which the caller adds
+// after the all-reduce over the mp group.
 
 #include <math.h>
 #include <stdint.h>
@@ -44,6 +51,8 @@ struct WidthArgs {
   int B, C, H, F, T, S, K, L;   // K: rows of a beam group (0: no ancestry)
   int xf32, yf32;               // x / y stored in f32 (else the storage type)
   int exact;                    // 1: no rounding of the residual (stacked step)
+  int I;                        // q/k/v width (0: C; an mp slice's is narrower)
+  int partial;                  // 1: y (f32) = the f32 sum of the partials, no bias, no residual
   const void* x;
   void* y;
   const void* qpos;
@@ -70,7 +79,11 @@ constexpr size_t kSmemMax = 232448;   // a block's shared-memory limit on Hopper
 
 enum Kind { kSelfK = 0, kCrossK = 1, kFfK = 2 };
 
-// Shared floats of one tile of R rows (ints of the ancestry counted as floats).
+// The q/k/v width.
+__host__ __device__ inline int inner_of(const WidthArgs& a) { return a.I > 0 ? a.I : a.C; }
+
+// Shared floats of one tile of R rows (ints of the ancestry counted as floats):
+// the [R][C] arrays also hold the [R][I] ones (I <= C).
 __host__ __device__ inline size_t tile_floats(int kind, const WidthArgs& a, int R) {
   const size_t rc = (size_t)R * a.C;
   if (kind == kSelfK) return 7 * rc + (size_t)R * a.H * a.T + (a.K > 0 ? (size_t)R * a.T : 0);
@@ -151,15 +164,17 @@ __device__ void rows_product(const float* in, int ldi, int R, const T* W, int k0
 
 // xs <- xs + bo + sum_h (att_h Wo[hD:(h+1)D]) with the heads folded in order;
 // not exact: rounded to T after the bias, after each head's part, and each
-// part h > 0 rounded first (the split blocks' _add_heads).
+// part h > 0 rounded first (the split blocks' _add_heads); partial: xs <-
+// sum_h (att_h Wo[hD:(h+1)D]) in f32, head order. att: [R][I].
 template <typename T>
 __device__ void out_proj(float* xs, const float* att, int R, const WidthArgs& a, const T* W, const T* bo) {
-  const int width = a.C, hd = a.C / a.H;
+  const int width = a.C, inner = inner_of(a), hd = inner / a.H;
   for (int n = threadIdx.x; n < width; n += NT) {
     float y[RMAX];
-    const float b = to_f(bo[n]);
+    const float b = a.partial ? 0.f : to_f(bo[n]);
 #pragma unroll
-    for (int r = 0; r < RMAX; ++r) y[r] = r < R ? (a.exact ? xs[r * width + n] + b : rnd<T>(xs[r * width + n] + b)) : 0.f;
+    for (int r = 0; r < RMAX; ++r)
+      y[r] = r >= R || a.partial ? 0.f : a.exact ? xs[r * width + n] + b : rnd<T>(xs[r * width + n] + b);
     for (int h = 0; h < a.H; ++h) {
       float acc[RMAX];
 #pragma unroll
@@ -170,11 +185,11 @@ __device__ void out_proj(float* xs, const float* att, int R, const WidthArgs& a,
         const float wv = to_f(w[(size_t)k * width]);
 #pragma unroll
         for (int r = 0; r < RMAX; ++r)
-          if (r < R) acc[r] = fmaf(att[r * width + h * hd + k], wv, acc[r]);
+          if (r < R) acc[r] = fmaf(att[r * inner + h * hd + k], wv, acc[r]);
       }
 #pragma unroll
       for (int r = 0; r < RMAX; ++r) {
-        if (a.exact) y[r] = y[r] + acc[r];
+        if (a.exact || a.partial) y[r] = y[r] + acc[r];
         else y[r] = rnd<T>(y[r] + (h > 0 ? rnd<T>(acc[r]) : acc[r]));
       }
     }
@@ -207,9 +222,10 @@ __device__ void softmax_rows(float* sc, int rows, int ld, int n) {
 template <typename T>
 __global__ void __launch_bounds__(NT) self_kernel(const WidthArgs a, int R, float scale) {
   extern __shared__ float4 smem_raw[];
-  const int width = a.C, hd = a.C / a.H, rc = R * width, step = *a.step, n = step + 1;
+  const int width = a.C, inner = inner_of(a), hd = inner / a.H, rc = R * width, ri = R * inner;
+  const int step = *a.step, n = step + 1;
   float* xs = reinterpret_cast<float*>(smem_raw);
-  float* q = xs + rc;       // LayerNorm output, then q
+  float* q = xs + rc;       // LayerNorm output, then q [R][I]
   float* in = q + rc;       // rounded (LN + qpos), then the rounded attention output
   float* vin = in + rc;     // rounded LN
   float* kn = vin + rc;
@@ -237,20 +253,20 @@ __global__ void __launch_bounds__(NT) self_kernel(const WidthArgs a, int R, floa
   const T* sbq = static_cast<const T*>(a.sbq);
   const T* sbk = static_cast<const T*>(a.sbk);
   const T* sbv = static_cast<const T*>(a.sbv);
-  rows_product<T>(in, width, R, static_cast<const T*>(a.swq), 0, width, width, [&](int c, const float* acc) {
-    for (int r = 0; r < R; ++r) q[r * width + c] = (acc[r] + to_f(sbq[c])) * scale;
+  rows_product<T>(in, width, R, static_cast<const T*>(a.swq), 0, width, inner, [&](int c, const float* acc) {
+    for (int r = 0; r < R; ++r) q[r * inner + c] = (acc[r] + to_f(sbq[c])) * scale;
   });
-  rows_product<T>(in, width, R, static_cast<const T*>(a.swk), 0, width, width, [&](int c, const float* acc) {
-    for (int r = 0; r < R; ++r) kn[r * width + c] = acc[r] + to_f(sbk[c]);
+  rows_product<T>(in, width, R, static_cast<const T*>(a.swk), 0, width, inner, [&](int c, const float* acc) {
+    for (int r = 0; r < R; ++r) kn[r * inner + c] = acc[r] + to_f(sbk[c]);
   });
-  rows_product<T>(vin, width, R, static_cast<const T*>(a.swv), 0, width, width, [&](int c, const float* acc) {
-    for (int r = 0; r < R; ++r) vn[r * width + c] = acc[r] + to_f(sbv[c]);
+  rows_product<T>(vin, width, R, static_cast<const T*>(a.swv), 0, width, inner, [&](int c, const float* acc) {
+    for (int r = 0; r < R; ++r) vn[r * inner + c] = acc[r] + to_f(sbv[c]);
   });
   __syncthreads();
   T* kc = static_cast<T*>(a.kc);
   T* vc = static_cast<T*>(a.vc);
-  for (int i = threadIdx.x; i < nrows * width; i += NT) {   // the one new slot of each cache
-    const int r = i / width, c = i % width;
+  for (int i = threadIdx.x; i < nrows * inner; i += NT) {   // the one new slot of each cache
+    const int r = i / inner, c = i % inner;
     const size_t off = (((size_t)(row0 + r) * a.H + c / hd) * a.T + step) * hd + c % hd;
     kc[off] = from_f<T>(kn[i]);
     vc[off] = from_f<T>(vn[i]);
@@ -259,11 +275,11 @@ __global__ void __launch_bounds__(NT) self_kernel(const WidthArgs a, int R, floa
   for (int i = threadIdx.x; i < R * a.H * n; i += NT) {
     const int t = i % n, rh = i / n, r = rh / a.H, h = rh % a.H;
     const int s = a.K > 0 ? src[r * a.T + t] : r;
-    const float* qv = q + r * width + h * hd;
+    const float* qv = q + r * inner + h * hd;
     float acc = 0.f;
     if (r < nrows) {
       if (t == step) {
-        const float* kv = kn + s * width + h * hd;
+        const float* kv = kn + s * inner + h * hd;
         for (int d = 0; d < hd; ++d) acc = fmaf(qv[d], kv[d], acc);
       } else {
         const T* kp = kc + (((size_t)(row0 + s) * a.H + h) * a.T + t) * hd;
@@ -275,21 +291,21 @@ __global__ void __launch_bounds__(NT) self_kernel(const WidthArgs a, int R, floa
   __syncthreads();
   softmax_rows(sc, R * a.H, a.T, n);
   __syncthreads();
-  for (int i = threadIdx.x; i < rc; i += NT) {
-    const int r = i / width, c = i % width, h = c / hd, d = c % hd;
+  for (int i = threadIdx.x; i < ri; i += NT) {
+    const int r = i / inner, c = i % inner, h = c / hd, d = c % hd;
     const float* p = sc + ((size_t)r * a.H + h) * a.T;
     float acc = 0.f;
     if (r < nrows) {
       for (int t = 0; t < n; ++t) {
         const int s = a.K > 0 ? src[r * a.T + t] : r;
-        const float v = t == step ? vn[s * width + c] : to_f(vc[(((size_t)(row0 + s) * a.H + h) * a.T + t) * hd + d]);
+        const float v = t == step ? vn[s * inner + c] : to_f(vc[(((size_t)(row0 + s) * a.H + h) * a.T + t) * hd + d]);
         acc = fmaf(p[t], v, acc);
       }
     }
     att[i] = acc;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < rc; i += NT) in[i] = rnd<T>(att[i]);
+  for (int i = threadIdx.x; i < ri; i += NT) in[i] = rnd<T>(att[i]);
   __syncthreads();
   out_proj<T>(xs, in, R, a, static_cast<const T*>(a.swo), static_cast<const T*>(a.sbo));
   __syncthreads();
@@ -300,9 +316,9 @@ __global__ void __launch_bounds__(NT) self_kernel(const WidthArgs a, int R, floa
 template <typename T>
 __global__ void __launch_bounds__(NT) cross_kernel(const WidthArgs a, int R, float scale) {
   extern __shared__ float4 smem_raw[];
-  const int width = a.C, hd = a.C / a.H, rc = R * width;
+  const int width = a.C, inner = inner_of(a), hd = inner / a.H, rc = R * width, ri = R * inner;
   float* xs = reinterpret_cast<float*>(smem_raw);
-  float* q = xs + rc;
+  float* q = xs + rc;       // LayerNorm output, then q [R][I]
   float* in = q + rc;
   float* att = in + rc;
   float* sc = att + rc;     // [R][H][S]
@@ -314,8 +330,8 @@ __global__ void __launch_bounds__(NT) cross_kernel(const WidthArgs a, int R, flo
   for (int i = threadIdx.x; i < rc; i += NT) in[i] = rnd<T>(q[i] + to_f(qpos[i % width]));
   __syncthreads();
   const T* cbq = static_cast<const T*>(a.cbq);
-  rows_product<T>(in, width, R, static_cast<const T*>(a.cwq), 0, width, width, [&](int c, const float* acc) {
-    for (int r = 0; r < R; ++r) q[r * width + c] = (acc[r] + to_f(cbq[c])) * scale;
+  rows_product<T>(in, width, R, static_cast<const T*>(a.cwq), 0, width, inner, [&](int c, const float* acc) {
+    for (int r = 0; r < R; ++r) q[r * inner + c] = (acc[r] + to_f(cbq[c])) * scale;
   });
   __syncthreads();
   const T* ck = static_cast<const T*>(a.ck);
@@ -324,7 +340,7 @@ __global__ void __launch_bounds__(NT) cross_kernel(const WidthArgs a, int R, flo
     const int s = i % a.S, rh = i / a.S, r = rh / a.H, h = rh % a.H;
     float acc = 0.f;
     if (r < nrows) {
-      const float* qv = q + r * width + h * hd;
+      const float* qv = q + r * inner + h * hd;
       const T* kp = ck + (((size_t)(row0 + r) * a.H + h) * a.S + s) * hd;
       for (int d = 0; d < hd; ++d) acc = fmaf(qv[d], to_f(kp[d]), acc);
       acc = acc + fmaxf(a.key_bias[(size_t)(row0 + r) * a.S + s], kMaskVal);
@@ -334,8 +350,8 @@ __global__ void __launch_bounds__(NT) cross_kernel(const WidthArgs a, int R, flo
   __syncthreads();
   softmax_rows(sc, R * a.H, a.S, a.S);
   __syncthreads();
-  for (int i = threadIdx.x; i < rc; i += NT) {
-    const int r = i / width, c = i % width, h = c / hd, d = c % hd;
+  for (int i = threadIdx.x; i < ri; i += NT) {
+    const int r = i / inner, c = i % inner, h = c / hd, d = c % hd;
     const float* p = sc + ((size_t)r * a.H + h) * a.S;
     float acc = 0.f;
     if (r < nrows) {
@@ -345,14 +361,15 @@ __global__ void __launch_bounds__(NT) cross_kernel(const WidthArgs a, int R, flo
     att[i] = acc;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < rc; i += NT) in[i] = rnd<T>(att[i]);
+  for (int i = threadIdx.x; i < ri; i += NT) in[i] = rnd<T>(att[i]);
   __syncthreads();
   out_proj<T>(xs, in, R, a, static_cast<const T*>(a.cwo), static_cast<const T*>(a.cbo));
   __syncthreads();
   store_y<T>(xs, a, row0, nrows);
 }
 
-// FF block: x + (ReLU(LN(x) W1 + b1) W2 + b2), the hidden rounded to T.
+// FF block: x + (ReLU(LN(x) W1 + b1) W2 + b2), the hidden rounded to T;
+// partial: the FF2 product alone.
 template <typename T>
 __global__ void __launch_bounds__(NT) ff_kernel(const WidthArgs a, int R) {
   extern __shared__ float4 smem_raw[];
@@ -374,8 +391,12 @@ __global__ void __launch_bounds__(NT) ff_kernel(const WidthArgs a, int R) {
   __syncthreads();
   rows_product<T>(hid, a.F, R, static_cast<const T*>(a.w2), 0, a.F, width, [&](int c, const float* acc) {
     for (int r = 0; r < R; ++r) {
-      const float ff = acc[r] + to_f(b2[c]);
       float& x = xs[r * width + c];
+      if (a.partial) {
+        x = acc[r];
+        continue;
+      }
+      const float ff = acc[r] + to_f(b2[c]);
       x = a.exact ? x + ff : rnd<T>(x + rnd<T>(ff));
     }
   });
@@ -393,10 +414,12 @@ int grant(Kern kern, size_t bytes, size_t& granted) {
   return 0;
 }
 
-float head_scale(const WidthArgs& a) { return (float)(1.0 / sqrt((double)(a.C / a.H))); }
+float head_scale(const WidthArgs& a) { return (float)(1.0 / sqrt((double)(inner_of(a) / a.H))); }
 
 bool valid(const WidthArgs& a) {
-  return a.B >= 1 && a.C >= 1 && a.H >= 1 && a.C % a.H == 0 && a.F >= 1 && a.K >= 0 && (a.K == 0 || a.B % a.K == 0);
+  const int inner = inner_of(a);
+  return a.B >= 1 && a.C >= 1 && a.H >= 1 && inner <= a.C && inner % a.H == 0 && (a.partial || inner == a.C) &&
+         a.F >= 1 && a.K >= 0 && (a.K == 0 || a.B % a.K == 0);
 }
 
 template <typename T>

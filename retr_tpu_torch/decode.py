@@ -24,6 +24,17 @@ loop's condition, which stays false once false). Unlike the JAX package, no
 rows are padded: the CUDA kernels take any batch. Under the head flags the
 head is packed once per call, as the head kernels read it
 (``ops.decoder_kernels.pack_head``).
+
+Under an active mesh whose mp slices the tree (``parallel/mesh.shard_params``)
+the decoder runs tensor-parallel (``models/transformer.decode_step``) and
+the MLP head's last layer gives this rank's vocabulary columns; the choices
+combine them over the mp group with all-reduces alone, so every rank of the
+group picks the tokens the whole vocabulary gives: greedy the first index
+of the global max (:func:`_argmax_over_mp`), beam the global top-k and
+log-softmax (:func:`_topk_log_softmax_over_mp`), sampling draws on the
+gathered logits (:func:`_gather_vocab`). Under the head flags the head's
+last layer is gathered once per call and the head kernels run on the whole
+vocabulary, as JAX's Pallas head reads its operands whole under GSPMD.
 """
 
 from __future__ import annotations
@@ -94,18 +105,83 @@ def _token_loop(params: Params, cfg: Config, memory, mem_mask, pos, choose, *, m
     return captions
 
 
-def _argmax_head(mlp: Params, hs) -> torch.Tensor:
-    return caption.mlp_head(mlp, hs).argmax(dim=-1).to(torch.int32)
+def _vocab_split(mlp: Params, cfg: Config) -> bool:
+    """Whether the head's last layer is an mp slice of the vocabulary."""
+    return pmesh.is_mp_sharded(mlp["layers"][-1]["w"], 1, cfg.vocab_size)
+
+
+def _gather_vocab(x: torch.Tensor) -> torch.Tensor:
+    """[N, V/mp] vocabulary slices of the mp group -> the whole [N, V], rank order."""
+    parts = pmesh.all_gather(x.contiguous(), pmesh.mp_group())
+    return parts.permute(1, 0, 2).reshape(x.shape[0], -1)
+
+
+def _argmax_over_mp(logits: torch.Tensor) -> torch.Tensor:
+    """argmax over the vocabulary split across the mp group: the global max
+    (all-reduce MAX of the local maxima) and, among the ranks that hold it,
+    the lowest global index (all-reduce MIN), argmax's first max."""
+    group = pmesh.mp_group()
+    idx = logits.argmax(dim=-1)
+    best = logits.gather(-1, idx[:, None])[:, 0].float()
+    top = pmesh.all_reduce(best.clone(), group, "max")
+    own = idx + pmesh.current().mp_rank * logits.shape[-1]
+    cand = torch.where(best == top, own, torch.iinfo(torch.int64).max)
+    return pmesh.all_reduce(cand, group, "min").to(torch.int32)
+
+
+def _topk_log_softmax_over_mp(logits: torch.Tensor, k: int):
+    """``dk.topk_log_softmax`` of f32 logits whose vocabulary is split across
+    the mp group (k at most a slice's width): each rank's top-k of its raw
+    logits and its (max, sum of exp(x - max)); the global logsumexp from
+    those; the candidates of all ranks, gathered in rank order, ranked by
+    ``topk_first``, whose ties then go to the lowest global index as
+    ``lax.top_k``'s do. Values within f32 rounding of the whole row's (the
+    sum of exponentials runs per slice)."""
+    group = pmesh.mp_group()
+    n, v = logits.shape
+    vals, idx = dk.topk_first(logits, k)
+    m = logits.max(dim=-1, keepdim=True).values
+    se = torch.exp(logits - m).sum(dim=-1, keepdim=True)
+    top_m = pmesh.all_reduce(m.clone(), group, "max")
+    log_z = torch.log(pmesh.all_reduce(se * torch.exp(m - top_m), group))
+    cand_v = _gather_vocab(vals)
+    cand_i = _gather_vocab(idx + pmesh.current().mp_rank * v)
+    best, pos = dk.topk_first(cand_v, k)
+    return (best - top_m) - log_z, cand_i.gather(1, pos).to(torch.int32)
+
+
+def _head_logits(mlp: Params, cfg: Config, hs) -> torch.Tensor:
+    """The MLP head's f32 logits over the whole vocabulary (gathered over mp
+    where the last layer is a slice)."""
+    logits = caption.mlp_head(mlp, hs).float()
+    return _gather_vocab(logits) if _vocab_split(mlp, cfg) else logits
+
+
+def _argmax_head(mlp: Params, cfg: Config, hs) -> torch.Tensor:
+    logits = caption.mlp_head(mlp, hs)
+    if _vocab_split(mlp, cfg):
+        return _argmax_over_mp(logits)
+    return logits.argmax(dim=-1).to(torch.int32)
+
+
+def _packed_head(mlp: Params, cfg: Config) -> Params:
+    """The head as the head kernels read it (``pack_head``), its last layer
+    first gathered over mp where it is a vocabulary slice."""
+    if _vocab_split(mlp, cfg):
+        l3 = mlp["layers"][-1]
+        w, b = pmesh.gather_leaves([l3["w"], l3["b"]], [(None, "mp"), ("mp",)], pmesh.current())
+        mlp = {**mlp, "layers": [*mlp["layers"][:-1], {"w": w, "b": b}]}
+    return dk.pack_head(mlp)
 
 
 def greedy_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, *,
                        max_len: int, bos_token: int, eos_token: int) -> torch.Tensor:
     """Greedy decode given the encoder output; returns the [B, max_len] int32
     token buffer (on memory's device)."""
-    head_p = dk.pack_head(params["mlp"]) if dk.HEAD_KERNEL else None
+    head_p = _packed_head(params["mlp"], cfg) if dk.HEAD_KERNEL else None
 
     def choose(i, hs, captions):
-        return dk.mlp_head_argmax(head_p, hs) if head_p is not None else _argmax_head(params["mlp"], hs)
+        return dk.mlp_head_argmax(head_p, hs) if head_p is not None else _argmax_head(params["mlp"], cfg, hs)
 
     return _token_loop(params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
                        eos_token=eos_token)
@@ -153,7 +229,7 @@ def greedy_with_prefix(params: Params, cfg: Config, samples: Masked, prefix: tor
 
     def choose(i, hs, captions):
         forced = i + 1 <= prefix_lens                 # position i+1 is in the prefix
-        return torch.where(forced, captions[:, i + 1], _argmax_head(params["mlp"], hs))
+        return torch.where(forced, captions[:, i + 1], _argmax_head(params["mlp"], cfg, hs))
 
     return _token_loop(params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
                        eos_token=eos_token, captions=captions)
@@ -235,9 +311,8 @@ def sample(params: Params, cfg: Config, samples: Masked, generator: torch.Genera
                                                        compute_dtype, filler_idx)
 
     def choose(i, hs, captions):
-        logits = caption.mlp_head(params["mlp"], hs).float()
-        return sample_tokens(logits, generator, temperature=temperature, top_k=top_k, top_p=top_p,
-                             noise_rows=noise_rows)
+        return sample_tokens(_head_logits(params["mlp"], cfg, hs), generator, temperature=temperature, top_k=top_k,
+                             top_p=top_p, noise_rows=noise_rows)
 
     return _token_loop(params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
                        eos_token=eos_token)
@@ -348,7 +423,8 @@ def beam_search_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, 
     step = torch.zeros((), dtype=torch.int32, device=dev)
     running = pmesh.any_over_dp(_beam_active(scores, finished, fin_len, 0, length_penalty=length_penalty,
                                              early_stop=early_stop))
-    head_p = dk.pack_head(params["mlp"]) if dk.BEAM_TOPK_KERNEL else None
+    head_p = _packed_head(params["mlp"], cfg) if dk.BEAM_TOPK_KERNEL else None
+    split = _vocab_split(params["mlp"], cfg)
     with matmul_precision(memory.dtype):
         for i in range(max_len - 1):
             if i % CHECK_EVERY == 0 and not bool(running):
@@ -364,7 +440,8 @@ def beam_search_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, 
             if dk.BEAM_TOPK_KERNEL:
                 row_scores, row_tokens = dk.mlp_head_topk(head_p, hs, k)
             else:
-                row_scores, row_tokens = dk.topk_log_softmax(caption.mlp_head(params["mlp"], hs).float(), k)
+                logits = caption.mlp_head(params["mlp"], hs).float()
+                row_scores, row_tokens = (_topk_log_softmax_over_mp if split else dk.topk_log_softmax)(logits, k)
             row_scores, row_tokens = row_scores.view(b, k, k), row_tokens.view(b, k, k)
 
             # finished beams: one EOS continuation at no cost

@@ -26,7 +26,8 @@ model, so they must jitter alike); an evaluation batch, alike on every rank,
 is cut to this dp rank's rows (``parallel.mesh.shard_batch``) and the loss is
 the dp mean of the equal slices, or computed whole on every rank where the
 batch does not split; ``eval_model`` decodes each dp rank's rows of the
-batch padded to a multiple of dp and gathers the ids on every rank.
+batch padded to a multiple of dp, tensor-parallel on this rank's mp slices,
+and gathers the ids on every rank.
 """
 
 from __future__ import annotations
@@ -328,15 +329,18 @@ def eval_model(
     multiple of dp, each dp rank uploads and decodes its rows, and the ids
     come back to every rank (``all_gather_object`` over dp), so every rank
     scores the whole split alike. ``params`` are the whole tree, or this
-    rank's slices with the ``specs`` they were cut by (``TrainState.specs``),
-    gathered here once: the decode kernels fuse the residual add into each
-    block, and a tensor-parallel decode step would have to put it after the
-    all-reduce of the partial sums. "sample" draws batch i's noise over the
-    loader's batch and keeps each rank's rows, so a row draws alike whatever
-    dp is."""
+    rank's slices with the ``specs`` they were cut by (``TrainState.specs``;
+    slices need a mesh with mp > 1). Slices are decoded as they are, never
+    gathered: the encoder, the decode step (``transformer.decode_step``: the
+    local heads, FF columns and caches of H/mp heads, an all-reduce of the
+    partial sums per block) and the vocabulary head (the choices combined
+    over mp, ``decode``) run on this rank's share, as JAX's XLA path
+    partitions the sharded tree; a block ``param_shardings`` kept whole runs
+    whole. "sample" draws batch i's noise over the loader's batch and keeps
+    each rank's rows, so a row draws alike whatever dp is."""
     mesh = _check_mesh(mesh)
-    if specs is not None:
-        params = pmesh.gather_params(params, mesh, specs)
+    if specs is not None and (mesh is None or mesh.mp == 1) and any("mp" in s for s in pmesh.leaves(specs)):
+        raise ValueError("eval_model: mp-sliced parameters (specs) need the mesh they were cut on")
     dp, dp_rank = (1, 0) if mesh is None else (mesh.dp, mesh.dp_rank)
     frame = getattr(loader, "batch_size", 0)
     full = -(-frame // dp) * dp

@@ -18,6 +18,18 @@ The decode step runs the decoder layers through ops/decoder_kernels.py: one
 ``fused_layer_step`` per layer when ``MERGED_LAYER`` is on, else the per-layer
 ``self_attn_block`` / ``cross_attn_block`` / ``ff_block`` trio. The beam step
 runs ``self_attn_block_beam`` / ``cross_attn_block`` / ``ff_block`` per layer.
+
+Tensor-parallel decode: where a decoder block holds an mp slice
+(``parallel/mesh.shard_params``: narrower than ``cfg``'s widths), the step
+runs under the active mesh on this rank's heads and FF columns. The cross K/V
+and the self caches hold the local heads, ``[.., H/mp, .., D]``; each sliced
+block launches its kernel with ``partial=True``, all-reduces the f32 partial
+sum over the mp group and finishes with the block's epilogue (the bias, the
+residual and the unsharded block's rounding); a replicated block runs whole,
+as without a mesh. The stacked and merged kernels cannot all-reduce between
+blocks, so such a step runs the trio whatever ``LAYER_GRID`` and
+``MERGED_LAYER`` say. The encoder is tensor-parallel in ``encode`` already
+(``layers.multi_head_attention``, :func:`_ff_block`).
 """
 
 from __future__ import annotations
@@ -257,19 +269,28 @@ def prepare_decoder(params: Params) -> Params:
     return {**params, "decoder": {**dec, "layers": views, "stacked": stacked}}
 
 
+def local_heads(mha: Params, cfg: Config) -> int:
+    """The heads an attention block's q/k/v hold: ``cfg.nheads``, or the
+    share of an mp slice (q/k/v cut by column)."""
+    return cfg.nheads * mha["q"]["w"].shape[1] // cfg.hidden_dim
+
+
 def init_decode_state(params: Params, memory: torch.Tensor, mem_pad_mask: torch.Tensor,
                       pos: torch.Tensor, cfg: Config, max_len: int) -> Tuple[DecodeCache, CrossContext]:
     """Precompute the cross-attention K (from memory + pos) and V (from memory)
-    of every decoder layer once, and allocate zeroed self caches."""
+    of every decoder layer once, and allocate zeroed self caches: the heads
+    each block holds (:func:`local_heads`; an mp slice's own, whose k/v
+    weights are its columns)."""
     b = memory.shape[0]
-    h, dh = cfg.nheads, cfg.head_dim
+    dh = cfg.head_dim
     kp = _with_pos(memory, pos[None, :, :])
     cross_k, cross_v = [], []
     for lp in params["decoder"]["layers"]:
         mha = lp["cross_attn"]["mha"]
+        h = local_heads(mha, cfg)
         cross_k.append(layers.split_heads(layers.linear(mha["k"], kp), h))
         cross_v.append(layers.split_heads(layers.linear(mha["v"], memory), h))
-    shape = (cfg.dec_layers, b, h, max_len, dh)
+    shape = (cfg.dec_layers, b, local_heads(params["decoder"]["layers"][0]["self_attn"]["mha"], cfg), max_len, dh)
     cache = DecodeCache(torch.zeros(shape, dtype=memory.dtype, device=memory.device),
                         torch.zeros(shape, dtype=memory.dtype, device=memory.device))
     cross = CrossContext(torch.stack(cross_k).contiguous(), torch.stack(cross_v).contiguous(),
@@ -277,33 +298,75 @@ def init_decode_state(params: Params, memory: torch.Tensor, mem_pad_mask: torch.
     return cache, cross
 
 
+def _mp_reduce(s: torch.Tensor) -> torch.Tensor:
+    """A sliced block's f32 partial sum, all-reduced over the mp group in place."""
+    return pmesh.all_reduce(s, pmesh.mp_group())
+
+
+def _self_block(p, x, qpos, k_cache, v_cache, step, cfg, anc=None, num_beams=1):
+    """The self-attention block (the beam block with ``anc``): whole, or this
+    rank's heads with the all-reduce and the epilogue."""
+    h = local_heads(p["mha"], cfg)
+    partial = h != cfg.nheads
+    if anc is None:
+        y, _, _ = dk.self_attn_block(p, x, qpos, k_cache, v_cache, step, num_heads=h, partial=partial)
+    else:
+        y, _, _ = dk.self_attn_block_beam(p, x, anc, qpos, k_cache, v_cache, step, num_heads=h,
+                                          num_beams=num_beams, partial=partial)
+    return dk.attn_block_epilogue(p, x, _mp_reduce(y)) if partial else y
+
+
+def _cross_block(p, x, qpos, cross_k, cross_v, mem_bias, cfg):
+    h = local_heads(p["mha"], cfg)
+    partial = h != cfg.nheads
+    y = dk.cross_attn_block(p, x, qpos, cross_k, cross_v, mem_bias, num_heads=h, partial=partial)
+    return dk.attn_block_epilogue(p, x, _mp_reduce(y)) if partial else y
+
+
+def _ff_sliced(p, cfg) -> bool:
+    return pmesh.is_mp_sharded(p["lin1"]["w"], 1, cfg.dim_feedforward)
+
+
+def _ff_decode_block(p, x, cfg):
+    partial = _ff_sliced(p, cfg)
+    y = dk.ff_block(p, x, partial=partial)
+    return dk.ff_block_epilogue(p, x, _mp_reduce(y)) if partial else y
+
+
+def tensor_parallel(params: Params, cfg: Config) -> bool:
+    """Whether a decoder block of the transformer ``params`` is an mp slice."""
+    return any(local_heads(lp["self_attn"]["mha"], cfg) != cfg.nheads
+               or local_heads(lp["cross_attn"]["mha"], cfg) != cfg.nheads or _ff_sliced(lp["ff"], cfg)
+               for lp in params["decoder"]["layers"])
+
+
 def decode_step(params: Params, state: DecodeCache, cross: CrossContext,
                 token_ids: torch.Tensor, step: torch.Tensor, cfg: Config):
     """One autoregressive step: embed position ``step`` (0-d int32 tensor on the
     device), run all decoder layers against the KV caches (written in place at
     ``step``), return the final-normed hidden state [B, C]. ``params`` come from
-    :func:`prepare_decoder`."""
+    :func:`prepare_decoder`; where a block is an mp slice, the trio on this
+    rank's slices under the active mesh (the module's docstring)."""
     emb = params["embeddings"]
     x = decoder_embed(emb, token_ids, cfg, step)
     qpos = emb["pos"]["table"].index_select(0, step.reshape(1))[0]
     dec = params["decoder"]
-    if dk.LAYER_GRID:
+    tp = tensor_parallel(params, cfg)
+    if dk.LAYER_GRID and not tp:
         x, _, _ = dk.fused_stack_step(
             dec["stacked"], x, qpos, state.self_k, state.self_v, cross.cross_k, cross.cross_v,
             cross.mem_bias, step, num_heads=cfg.nheads,
         )
-    elif dk.MERGED_LAYER:
+    elif dk.MERGED_LAYER and not tp:
         for li, lp in enumerate(dec["layers"]):
             x, _, _ = dk.fused_layer_step(lp, x, qpos, state.self_k[li], state.self_v[li],
                                           cross.cross_k[li], cross.cross_v[li], cross.mem_bias, step,
                                           num_heads=cfg.nheads)
-    else:
+    else:   # the trio: whole blocks, or this rank's slices
         for li, lp in enumerate(dec["layers"]):
-            x, _, _ = dk.self_attn_block(lp["self_attn"], x, qpos, state.self_k[li],
-                                         state.self_v[li], step, num_heads=cfg.nheads)
-            x = dk.cross_attn_block(lp["cross_attn"], x, qpos, cross.cross_k[li],
-                                    cross.cross_v[li], cross.mem_bias, num_heads=cfg.nheads)
-            x = dk.ff_block(lp["ff"], x)
+            x = _self_block(lp["self_attn"], x, qpos, state.self_k[li], state.self_v[li], step, cfg)
+            x = _cross_block(lp["cross_attn"], x, qpos, cross.cross_k[li], cross.cross_v[li], cross.mem_bias, cfg)
+            x = _ff_decode_block(lp["ff"], x, cfg)
     return layers.layer_norm(dec["norm"], x), state
 
 
@@ -317,7 +380,8 @@ def decode_step_beam(params: Params, state: DecodeCache, cross: CrossContext,
     cache slot at ``step`` and reads position t from row ``anc[b, k, t]`` of its
     group, so beam reorders never move the caches ([L, B*K, H, T, D], written in
     place). Cross K/V are tiled over the beams and FF is per row, so both run
-    the greedy blocks. Returns (final-normed hidden [B*K, C], state).
+    the greedy blocks; an mp slice as in :func:`decode_step`. Returns
+    (final-normed hidden [B*K, C], state).
     """
     emb = params["embeddings"]
     x = decoder_embed(emb, token_ids, cfg, step)
@@ -325,10 +389,8 @@ def decode_step_beam(params: Params, state: DecodeCache, cross: CrossContext,
     anc_rows = anc.reshape(token_ids.shape[0], -1)
     dec = params["decoder"]
     for li, lp in enumerate(dec["layers"]):
-        x, _, _ = dk.self_attn_block_beam(lp["self_attn"], x, anc_rows, qpos, state.self_k[li],
-                                          state.self_v[li], step, num_heads=cfg.nheads,
-                                          num_beams=num_beams)
-        x = dk.cross_attn_block(lp["cross_attn"], x, qpos, cross.cross_k[li], cross.cross_v[li],
-                                cross.mem_bias, num_heads=cfg.nheads)
-        x = dk.ff_block(lp["ff"], x)
+        x = _self_block(lp["self_attn"], x, qpos, state.self_k[li], state.self_v[li], step, cfg, anc_rows,
+                        num_beams)
+        x = _cross_block(lp["cross_attn"], x, qpos, cross.cross_k[li], cross.cross_v[li], cross.mem_bias, cfg)
+        x = _ff_decode_block(lp["ff"], x, cfg)
     return layers.layer_norm(dec["norm"], x), state

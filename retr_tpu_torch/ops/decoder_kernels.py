@@ -45,6 +45,18 @@ step carries the residual in f32 across all layers.
 
 The self-attention functions update the caches IN PLACE (only the slot at
 ``step`` is written) and return them, where the JAX functions return new arrays.
+
+Tensor parallelism (``partial=True`` on the four split blocks): ``p`` holds one
+rank's slice of the block as ``parallel/mesh.param_specs`` cuts it (q/k/v and
+FF1 by column, the out-projection and FF2 by row), ``num_heads`` is the slice's
+head count and the caches and cross K/V hold those heads only; ``x`` and the
+LayerNorm are whole. The block then returns the f32 sum of its heads'
+out-projection parts (FF: of FF2) ``[B, C]``, without the bias and without the
+residual, and the self blocks write their heads' cache slot at ``step``. The
+caller all-reduces that sum over the mp group and finishes the block with
+:func:`attn_block_epilogue` or :func:`ff_block_epilogue`, which repeat the
+unsharded block's rounding on the sum, so in f32 the sharded block equals the
+unsharded one up to the order of the head sum.
 """
 
 from __future__ import annotations
@@ -70,10 +82,13 @@ HEAD_KERNEL = False
 BEAM_TOPK_KERNEL = False
 # The three flags default to False, as in the JAX package.
 
-# Kernel launches per wrapper since the last reset_launches().
+# Kernel launches per wrapper since the last reset_launches(); a split block's
+# launches with partial=True count under "<wrapper>_partial".
 LAUNCHES = {"fused_stack_step": 0, "self_attn_block": 0, "cross_attn_block": 0, "ff_block": 0,
             "self_attn_block_beam": 0, "mlp_head_argmax": 0, "mlp_head_topk": 0,
-            "fused_layer_step": 0, "fused_attention": 0}  # the last: ops/attention.py
+            "fused_layer_step": 0, "fused_attention": 0,   # the last: ops/attention.py
+            "self_attn_block_partial": 0, "cross_attn_block_partial": 0, "ff_block_partial": 0,
+            "self_attn_block_beam_partial": 0}
 
 WIDTH, HEADS = 256, 8  # the widths the tuned decoder-layer kernels are written for
 MAX_BEAMS = 8          # the largest beam group the tuned self_attn_block_beam takes
@@ -88,11 +103,15 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def decode_kernels_fit(c: int, num_heads: int, f: int = 256, num_beams: int = 1) -> bool:
+def decode_kernels_fit(c: int, num_heads: int, f: int = 256, num_beams: int = 1, inner=None) -> bool:
     """Whether the tuned decoder-layer kernels take a model of width ``c`` with
-    ``num_heads`` heads, FF width ``f`` and beam groups of ``num_beams``; the
-    wrappers launch csrc/width_kernels.cu elsewhere."""
-    return c == WIDTH and num_heads == HEADS and f >= 256 and f % 256 == 0 and 1 <= num_beams <= MAX_BEAMS
+    ``num_heads`` heads over a q/k/v width ``inner`` (default ``c``; an mp
+    slice's is narrower: its heads are whole, of the model's head width), FF
+    width ``f`` and beam groups of ``num_beams``; the wrappers launch
+    csrc/width_kernels.cu elsewhere."""
+    inner = c if inner is None else inner
+    return (c == WIDTH and inner == num_heads * (WIDTH // HEADS) and HEADS % num_heads == 0 and f >= 256
+            and f % 256 == 0 and 1 <= num_beams <= MAX_BEAMS)
 
 
 def head_kernels_fit(p: Params, k: int = 1) -> bool:
@@ -152,42 +171,65 @@ def _scale(d: int) -> float:
     return float(np.float32(d) ** np.float32(-0.5))
 
 
-def _add_heads(x, out_p, attn):
-    """x + bo + sum_h attn_h @ Wo[h], accumulated head by head in x's type."""
+def _add_heads(x, out_p, attn, partial=False):
+    """x + bo + sum_h attn_h @ Wo[h], accumulated head by head in x's type;
+    ``partial``: sum_h attn_h @ Wo[h] alone, head by head in f32."""
     h, d = attn.shape[1], attn.shape[2]
     w = out_p["w"]
     out = None
     for hi in range(h):
         part = _dot(attn[:, hi], w[hi * d:(hi + 1) * d])
-        out = (x + out_p["b"] + part).to(x.dtype) if hi == 0 else out + part.to(x.dtype)
+        if partial:
+            out = part if hi == 0 else out + part
+        else:
+            out = (x + out_p["b"] + part).to(x.dtype) if hi == 0 else out + part.to(x.dtype)
     return out
 
 
-def ff_block_plain(p: Params, x: torch.Tensor) -> torch.Tensor:
+def attn_block_epilogue(p: Params, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """An attention block from the all-reduced f32 sum ``s`` of its heads'
+    out-projection parts: rnd(rnd(x + bo) + s), rnd the rounding to x's type
+    (the unsharded block's first head step, :func:`_add_heads`)."""
+    return (x + p["mha"]["out"]["b"] + s).to(x.dtype)
+
+
+def ff_block_epilogue(p: Params, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The FF block from the all-reduced f32 FF2 sum ``s``: x + rnd(s + b2)."""
+    return x + (s + p["lin2"]["b"].float()).to(x.dtype)
+
+
+def ff_block_plain(p: Params, x: torch.Tensor, *, partial: bool = False) -> torch.Tensor:
     nx = _ln(x, p["norm"]["scale"], p["norm"]["bias"])
     hmid = torch.relu(_dot(nx, p["lin1"]["w"]) + p["lin1"]["b"].float())
+    if partial:
+        return _dot(hmid, p["lin2"]["w"])
     return x + (_dot(hmid, p["lin2"]["w"]) + p["lin2"]["b"].float()).to(x.dtype)
 
 
-def cross_attn_block_plain(p: Params, x, qpos, k, v, key_bias, *, num_heads: int):
+def _head_dim(m: Params, num_heads: int) -> int:
+    """The head width: q's output width (the model's, or an mp slice's) over the heads."""
+    return m["q"]["w"].shape[1] // num_heads
+
+
+def cross_attn_block_plain(p: Params, x, qpos, k, v, key_bias, *, num_heads: int, partial: bool = False):
     b, c = x.shape
     h = num_heads
-    d = c // h
     m = p["mha"]
+    d = _head_dim(m, h)
     nx = _ln(x, p["norm"]["scale"], p["norm"]["bias"])
     q = (_dot(nx + qpos.float(), m["q"]["w"]) + m["q"]["b"].float()) * _scale(d)
     scores = torch.einsum("bhd,bhsd->bhs", q.view(b, h, d), k.float())
     scores = scores + key_bias.clamp_min(-1e30)[:, None, :]
     attn = torch.einsum("bhs,bhsd->bhd", torch.softmax(scores, dim=-1), v.float())
-    return _add_heads(x, m["out"], attn)
+    return _add_heads(x, m["out"], attn, partial)
 
 
-def self_attn_block_plain(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: int):
+def self_attn_block_plain(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: int, partial: bool = False):
     b, c = x.shape
     h = num_heads
-    d = c // h
     t = k_cache.shape[2]
     m = p["mha"]
+    d = _head_dim(m, h)
     nx = _ln(x, p["norm"]["scale"], p["norm"]["bias"])
     qk_in = nx + qpos.float()
     q = (_dot(qk_in, m["q"]["w"]) + m["q"]["b"].float()) * _scale(d)
@@ -204,20 +246,20 @@ def self_attn_block_plain(p: Params, x, qpos, k_cache, v_cache, step, *, num_hea
     scores = torch.einsum("bhd,bhtd->bht", q.view(b, h, d), kc)
     scores = torch.where(pos <= step, scores, -1e30)
     attn = torch.einsum("bht,bhtd->bhd", torch.softmax(scores, dim=-1), vc)
-    return _add_heads(x, m["out"], attn), k_cache, v_cache
+    return _add_heads(x, m["out"], attn, partial), k_cache, v_cache
 
 
 def self_attn_block_beam_plain(p: Params, x, anc, qpos, k_cache, v_cache, step, *, num_heads: int,
-                              num_beams: int):
+                              num_beams: int, partial: bool = False):
     """As self_attn_block_plain, but row i reads position t from row
     ``anc[i, t]`` of its beam group (rows ``(i // K) * K ..``); the slot at
     ``step`` of any row holds that row's unrounded f32 k/v, as the TPU kernel
     updated the whole group's cache before reading it."""
     bk, c = x.shape
     h = num_heads
-    d = c // h
     t = k_cache.shape[2]
     m = p["mha"]
+    d = _head_dim(m, h)
     nx = _ln(x, p["norm"]["scale"], p["norm"]["bias"])
     qk_in = nx + qpos.float()
     q = (_dot(qk_in, m["q"]["w"]) + m["q"]["b"].float()) * _scale(d)
@@ -238,7 +280,7 @@ def self_attn_block_beam_plain(p: Params, x, anc, qpos, k_cache, v_cache, step, 
     scores = torch.einsum("bhd,bhtd->bht", q.view(bk, h, d), kc.gather(0, src))
     scores = torch.where(pos <= step, scores, -1e30)
     attn = torch.einsum("bht,bhtd->bhd", torch.softmax(scores, dim=-1), vc.gather(0, src))
-    return _add_heads(x, m["out"], attn), k_cache, v_cache
+    return _add_heads(x, m["out"], attn, partial), k_cache, v_cache
 
 
 def topk_first(values: torch.Tensor, k: int):
@@ -353,7 +395,7 @@ class _StackArgs(ctypes.Structure):
 class _BlockArgs(ctypes.Structure):
     """Mirror of ``struct BlockArgs`` in csrc/block_kernels.cu (same field order)."""
 
-    _fields_ = [(n, ctypes.c_int) for n in ("B", "S", "F", "rows", "T", "K")] + [
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "S", "F", "rows", "T", "K", "H", "partial")] + [
         (n, ctypes.c_void_p) for n in ("x", "y", "qpos", "lns", "lnb", "wq", "bq", "wo", "bo",
                                        "w1", "b1", "w2", "b2", "ck", "cv", "key_bias",
                                        "wk", "bk", "wv", "bv", "kc", "vc", "step", "anc")
@@ -384,7 +426,8 @@ _WIDTH_PTRS = _SELF_PTRS + ("ln2s", "ln2b", "cwq", "cbq", "cwo", "cbo", "ln3s", 
 class _WidthArgs(ctypes.Structure):
     """Mirror of ``struct WidthArgs`` in csrc/width_kernels.cu (same field order)."""
 
-    _fields_ = [(n, ctypes.c_int) for n in ("B", "C", "H", "F", "T", "S", "K", "L", "xf32", "yf32", "exact")] + [
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "C", "H", "F", "T", "S", "K", "L", "xf32", "yf32", "exact",
+                                            "I", "partial")] + [
         (n, ctypes.c_void_p) for n in _WIDTH_PTRS
     ]
 
@@ -435,16 +478,20 @@ def build() -> None:
         _lib(name)
 
 
-def _param_shapes(f: int = WIDTH, nl=None, c: int = WIDTH) -> Dict[str, tuple]:
-    """Shapes of the Args parameter fields (a leading layer axis when ``nl``)."""
+def _param_shapes(f: int = WIDTH, nl=None, c: int = WIDTH, inner=None) -> Dict[str, tuple]:
+    """Shapes of the Args parameter fields (a leading layer axis when ``nl``);
+    ``inner``: the q/k/v width (default ``c``; an mp slice's is narrower)."""
     lead = () if nl is None else (nl,)
-    vec, sq = lead + (c,), lead + (c, c)
+    i = c if inner is None else inner
     shapes = {"qpos": (c,), "w1": lead + (c, f), "b1": lead + (f,), "w2": lead + (f, c)}
-    for n in ("ln1s", "ln1b", "sbq", "sbk", "sbv", "sbo", "ln2s", "ln2b", "cbq", "cbo", "ln3s", "ln3b",
-              "b2", "lns", "lnb", "bq", "bo", "bk", "bv"):
-        shapes[n] = vec
-    for n in ("swq", "swk", "swv", "swo", "cwq", "cwo", "wq", "wo", "wk", "wv"):
-        shapes[n] = sq
+    for n in ("ln1s", "ln1b", "sbo", "ln2s", "ln2b", "cbo", "ln3s", "ln3b", "b2", "lns", "lnb", "bo"):
+        shapes[n] = lead + (c,)
+    for n in ("sbq", "sbk", "sbv", "cbq", "bq", "bk", "bv"):
+        shapes[n] = lead + (i,)
+    for n in ("swq", "swk", "swv", "cwq", "wq", "wk", "wv"):
+        shapes[n] = lead + (c, i)
+    for n in ("swo", "cwo", "wo"):
+        shapes[n] = lead + (i, c)
     return shapes
 
 
@@ -454,6 +501,8 @@ def _check(kernel: str, dtype: torch.dtype, shapes: Dict[str, tuple], align: int
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{kernel}: storage type {dtype} (float32 or bfloat16 only)")
     for name, t in tensors.items():
+        if t is None:                     # a field the launch does not read (a partial block's bias)
+            continue
         if not t.is_cuda:
             raise ValueError(f"{kernel}: {name} is on {t.device}, the kernel needs CUDA tensors")
         if not t.is_contiguous() or t.data_ptr() % align:
@@ -472,14 +521,30 @@ def _check_width(kernel: str, c: int, num_heads: int, f: int = 256) -> None:
                          f"or the FF width {f} is empty")
 
 
+def _attn_inner(kernel: str, m: Params, c: int, num_heads: int, partial: bool) -> int:
+    """The q/k/v width of attention parameters ``m``, checked: ``c`` for a
+    whole block; with ``partial`` an mp slice's, at most ``c``."""
+    inner = m["q"]["w"].shape[1]
+    _check_width(kernel, inner, num_heads)
+    if inner != c and not (partial and inner < c):
+        raise ValueError(f"{kernel}: q/k/v width {inner} against the model's {c}: an mp slice of the block "
+                         f"runs with partial=True")
+    return inner
+
+
+def _count(kernel: str, partial) -> None:
+    LAUNCHES[kernel + "_partial" if partial else kernel] += 1
+
+
 def _width_launch(kernel: str, entry: str, ref: torch.Tensor, /, **fields) -> None:
     """Check (element alignment: the width kernels load single elements) and
     launch an entry of csrc/width_kernels.cu for wrapper ``kernel``; count it."""
     tensors = {k: v for k, v in fields.items() if isinstance(v, torch.Tensor) and k not in ("y", "res")}
-    shapes = _param_shapes(fields.get("F", 1), fields.get("L") if entry == "rt_width_stack" else None, fields["C"])
+    shapes = _param_shapes(fields.get("F", 1), fields.get("L") if entry == "rt_width_stack" else None, fields["C"],
+                           fields.get("I"))
     _check(kernel, ref.dtype, shapes, align=ref.element_size(), **tensors)
     _run("width_kernels", entry, ref, **fields)
-    LAUNCHES[kernel] += 1
+    _count(kernel, fields.get("partial"))
 
 
 def _run(lib_name: str, entry: str, ref: torch.Tensor, /, **fields) -> None:
@@ -499,7 +564,7 @@ def _run(lib_name: str, entry: str, ref: torch.Tensor, /, **fields) -> None:
 def _launch(kernel: str, ref: torch.Tensor, /, **fields) -> None:
     """Launch the decoder-layer kernel behind wrapper ``kernel`` and count it."""
     _run(*_ENTRY[kernel], ref, **fields)
-    LAUNCHES[kernel] += 1
+    _count(kernel, fields.get("partial"))
 
 
 # ---------------------------------------------------------------------------------
@@ -517,8 +582,10 @@ _block_rows = 0
 _beam_rows = 0
 
 
-def ff_block(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: [B, C] -> x + Linear(F, C)(ReLU(Linear(C, F)(LN(x)))), in x's type.
+def ff_block(p: Params, x: torch.Tensor, *, partial: bool = False) -> torch.Tensor:
+    """x: [B, C] -> x + Linear(F, C)(ReLU(Linear(C, F)(LN(x)))), in x's type;
+    ``partial`` (``p`` an mp slice: FF1's columns and FF2's rows of F/mp
+    hidden units): the f32 FF2 product alone, for :func:`ff_block_epilogue`.
 
     Replaces retr_tpu/ops/decoder_kernels.py ``ff_block`` (``_ff_kernel``). Bound
     on the card: bytes below ~300 rows (the two [256, F] weights, 2.1 MB in bf16
@@ -530,28 +597,33 @@ def ff_block(p: Params, x: torch.Tensor) -> torch.Tensor:
     LN tile and hidden slice in shared memory, multiplies on tensor cores (bf16)
     and hands its f32 FF2 partial to its peers through distributed shared
     memory, which sum them in slice order. Nothing goes to device memory but y.
-    At other widths: rt_width_ff (csrc/width_kernels.cu).
+    With ``partial`` the same launch over the slice's F/mp hidden units
+    writes the f32 sum and skips b2 and the residual. At other widths:
+    rt_width_ff (csrc/width_kernels.cu).
     """
     if x.device.type == "cpu":
-        return ff_block_plain(p, x)
+        return ff_block_plain(p, x, partial=partial)
     b, c = x.shape
     f = p["lin1"]["w"].shape[1]
-    y = torch.empty_like(x)
+    y = torch.empty((b, c), dtype=torch.float32 if partial else x.dtype, device=x.device)
+    b2 = None if partial else p["lin2"]["b"]
     if not decode_kernels_fit(c, HEADS, f):
         _check_width("ff_block", c, 1, f)
-        _width_launch("ff_block", "rt_width_ff", x, B=b, C=c, H=1, F=f, x=x, y=y, ln3s=p["norm"]["scale"],
-                      ln3b=p["norm"]["bias"], w1=p["lin1"]["w"], b1=p["lin1"]["b"], w2=p["lin2"]["w"],
-                      b2=p["lin2"]["b"])
+        _width_launch("ff_block", "rt_width_ff", x, B=b, C=c, H=1, I=c, F=f, yf32=int(partial),
+                      partial=int(partial), x=x, y=y, ln3s=p["norm"]["scale"], ln3b=p["norm"]["bias"],
+                      w1=p["lin1"]["w"], b1=p["lin1"]["b"], w2=p["lin2"]["w"], b2=b2)
         return y
     t = dict(lns=p["norm"]["scale"], lnb=p["norm"]["bias"], w1=p["lin1"]["w"],
-             b1=p["lin1"]["b"], w2=p["lin2"]["w"], b2=p["lin2"]["b"])
+             b1=p["lin1"]["b"], w2=p["lin2"]["w"], b2=b2)
     _check("ff_block", x.dtype, _param_shapes(f), x=x, **t)
-    _launch("ff_block", x, B=b, F=f, rows=_block_rows, x=x, y=y, **t)
+    _launch("ff_block", x, B=b, F=f, H=HEADS, partial=int(partial), rows=_block_rows, x=x, y=y, **t)
     return y
 
 
-def cross_attn_block(p: Params, x, qpos, k, v, key_bias, *, num_heads: int) -> torch.Tensor:
+def cross_attn_block(p: Params, x, qpos, k, v, key_bias, *, num_heads: int, partial: bool = False) -> torch.Tensor:
     """x: [B, C]; k, v: [B, H, S, D] memory keys/values; key_bias: [B, S] f32.
+    ``partial`` (``p`` an mp slice of ``num_heads`` heads, k/v its heads):
+    the f32 sum of its heads' out-projection parts, for :func:`attn_block_epilogue`.
 
     Replaces retr_tpu/ops/decoder_kernels.py ``cross_attn_block``
     (``_cross_kernel``), whose sequential grid walks the heads. Bound on the
@@ -562,29 +634,33 @@ def cross_attn_block(p: Params, x, qpos, k, v, key_bias, *, num_heads: int) -> t
     (bf16), attends each row (a warp per row) with 16-byte K loads and V rows
     staged into shared memory during the score pass, and hands its f32
     out-projection part to its peers through distributed shared memory, which
-    add the heads in order, rounding after each as the TPU kernel does. At
-    other widths: rt_width_cross (csrc/width_kernels.cu).
+    add the heads in order, rounding after each as the TPU kernel does. With
+    ``partial`` the cluster has one block per head of the slice (4 at mp=2, 2
+    at mp=4) and its reduction writes the f32 sum of their parts, in head
+    order, with neither bo nor the residual. At other widths: rt_width_cross
+    (csrc/width_kernels.cu).
     """
     if x.device.type == "cpu":
-        return cross_attn_block_plain(p, x, qpos, k, v, key_bias, num_heads=num_heads)
+        return cross_attn_block_plain(p, x, qpos, k, v, key_bias, num_heads=num_heads, partial=partial)
     b, c = x.shape
-    _check_width("cross_attn_block", c, num_heads)
-    s = k.shape[2]
-    if k.shape != (b, num_heads, s, c // num_heads) or v.shape != k.shape or key_bias.shape != (b, s):
-        raise ValueError(f"cross_attn_block: k/v {tuple(k.shape)} / key_bias {tuple(key_bias.shape)} "
-                         f"do not match x {tuple(x.shape)}")
     m = p["mha"]
-    if not decode_kernels_fit(c, num_heads):
-        y = torch.empty_like(x)
-        _width_launch("cross_attn_block", "rt_width_cross", x, B=b, C=c, H=num_heads, F=1, S=s, x=x, y=y,
-                      qpos=qpos, ln2s=p["norm"]["scale"], ln2b=p["norm"]["bias"], cwq=m["q"]["w"],
-                      cbq=m["q"]["b"], cwo=m["out"]["w"], cbo=m["out"]["b"], ck=k, cv=v, key_bias=key_bias)
+    inner = _attn_inner("cross_attn_block", m, c, num_heads, partial)
+    s = k.shape[2]
+    if k.shape != (b, num_heads, s, inner // num_heads) or v.shape != k.shape or key_bias.shape != (b, s):
+        raise ValueError(f"cross_attn_block: k/v {tuple(k.shape)} / key_bias {tuple(key_bias.shape)} "
+                         f"do not match x {tuple(x.shape)} and {num_heads} heads of width {inner // num_heads}")
+    y = torch.empty((b, c), dtype=torch.float32 if partial else x.dtype, device=x.device)
+    bo = None if partial else m["out"]["b"]
+    if not decode_kernels_fit(c, num_heads, inner=inner):
+        _width_launch("cross_attn_block", "rt_width_cross", x, B=b, C=c, H=num_heads, I=inner, F=1, S=s,
+                      yf32=int(partial), partial=int(partial), x=x, y=y, qpos=qpos, ln2s=p["norm"]["scale"],
+                      ln2b=p["norm"]["bias"], cwq=m["q"]["w"], cbq=m["q"]["b"], cwo=m["out"]["w"], cbo=bo,
+                      ck=k, cv=v, key_bias=key_bias)
         return y
     t = dict(qpos=qpos, lns=p["norm"]["scale"], lnb=p["norm"]["bias"], wq=m["q"]["w"],
-             bq=m["q"]["b"], wo=m["out"]["w"], bo=m["out"]["b"], ck=k, cv=v, key_bias=key_bias)
-    _check("cross_attn_block", x.dtype, _param_shapes(), x=x, **t)
-    y = torch.empty_like(x)
-    _launch("cross_attn_block", x, B=b, S=s, rows=_block_rows, x=x, y=y, **t)
+             bq=m["q"]["b"], wo=m["out"]["w"], bo=bo, ck=k, cv=v, key_bias=key_bias)
+    _check("cross_attn_block", x.dtype, _param_shapes(inner=inner), x=x, **t)
+    _launch("cross_attn_block", x, B=b, S=s, H=num_heads, partial=int(partial), rows=_block_rows, x=x, y=y, **t)
     return y
 
 
@@ -592,11 +668,12 @@ _PLAN_KIND = {"ff_block": 0, "cross_attn_block": 1, "self_attn_block_beam": 2, "
 
 
 def block_plan(kernel: str, dtype: torch.dtype, b: int, s: int = 1, f: int = 256, t: int = 1,
-               num_beams: int = 1) -> Dict[str, int]:
+               num_beams: int = 1, num_heads: int = HEADS, partial: bool = False) -> Dict[str, int]:
     """The launch ``kernel`` ("ff_block", "cross_attn_block",
     "self_attn_block_beam" or "self_attn_block", whose caches hold ``t``
     positions and whose beam groups have ``num_beams`` rows, one for
-    self_attn_block) makes on the current CUDA device for these shapes: rows
+    self_attn_block) makes on the current CUDA device for these shapes, over
+    ``num_heads`` heads (an attention block's mp slice: ``partial``): rows
     per tile, blocks per cluster, clusters, clusters co-resident on the card,
     shared bytes per block. Raises where the kernel does not take the shapes
     (past the self kernels' longest ``t``)."""
@@ -606,16 +683,19 @@ def block_plan(kernel: str, dtype: torch.dtype, b: int, s: int = 1, f: int = 256
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 5)()
     self_kind = kernel in ("self_attn_block", "self_attn_block_beam")
-    args = _BlockArgs(B=b, S=s, F=f, rows=_beam_rows if self_kind else _block_rows, T=t, K=num_beams)
+    args = _BlockArgs(B=b, S=s, F=f, rows=_beam_rows if self_kind else _block_rows, T=t, K=num_beams,
+                      H=num_heads, partial=int(partial))
     rc = fn(ctypes.byref(args), _PLAN_KIND[kernel], int(dtype == torch.bfloat16), out)
     if rc != 0:
         raise RuntimeError(f"rt_block_plan: {lib.rt_block_error_string(rc).decode()}")
     return dict(zip(("rows", "cluster", "clusters", "resident_clusters", "smem_bytes"), out))
 
 
-def self_attn_block(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: int):
+def self_attn_block(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: int, partial: bool = False):
     """x: [B, C]; caches [B, H, T, D] updated in place at ``step`` (int32 tensor on
-    the device). Returns (x_out, k_cache, v_cache).
+    the device). Returns (x_out, k_cache, v_cache); ``partial`` (``p`` an mp
+    slice of ``num_heads`` heads, the caches its heads): x_out is the f32 sum
+    of its heads' out-projection parts, for :func:`attn_block_epilogue`.
 
     Replaces retr_tpu/ops/decoder_kernels.py ``self_attn_block``
     (``_self_kernel``). Bound on the card: bytes — the four [C, C] weights and
@@ -625,45 +705,50 @@ def self_attn_block(p: Params, x, qpos, k_cache, v_cache, step, *, num_heads: in
     of up to 32 rows (:func:`block_plan`), each row reading its own cache row,
     only the new cache slot written (the TPU kernel rewrote whole cache
     blocks). Caches longer than the block's shared memory takes for the
-    scores (on the H100 T past 6144 in bf16, 5568 in f32) are refused. At
-    other widths: rt_width_self (csrc/width_kernels.cu).
+    scores (on the H100 T past 6144 in bf16, 5568 in f32) are refused. With
+    ``partial``: clusters of one block per head of the slice, the reduction
+    as cross_attn_block's. At other widths: rt_width_self
+    (csrc/width_kernels.cu).
     """
     if x.device.type == "cpu":
-        return self_attn_block_plain(p, x, qpos, k_cache, v_cache, step, num_heads=num_heads)
+        return self_attn_block_plain(p, x, qpos, k_cache, v_cache, step, num_heads=num_heads, partial=partial)
     b, c = x.shape
-    _check_width("self_attn_block", c, num_heads)
+    inner = _attn_inner("self_attn_block", p["mha"], c, num_heads, partial)
     tmax = k_cache.shape[2]
-    if k_cache.shape != (b, num_heads, tmax, c // num_heads) or v_cache.shape != k_cache.shape:
-        raise ValueError(f"self_attn_block: caches {tuple(k_cache.shape)} do not match x {tuple(x.shape)}")
-    if not decode_kernels_fit(c, num_heads):
-        return _width_self("self_attn_block", p, x, qpos, k_cache, v_cache, step, num_heads, 0, None)
-    return _self_cluster("self_attn_block", p, x, qpos, k_cache, v_cache, step, 1, None)
+    if k_cache.shape != (b, num_heads, tmax, inner // num_heads) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"self_attn_block: caches {tuple(k_cache.shape)} do not match x {tuple(x.shape)} "
+                         f"and {num_heads} heads of width {inner // num_heads}")
+    if not decode_kernels_fit(c, num_heads, inner=inner):
+        return _width_self("self_attn_block", p, x, qpos, k_cache, v_cache, step, num_heads, 0, None, partial)
+    return _self_cluster("self_attn_block", p, x, qpos, k_cache, v_cache, step, num_heads, 1, None, partial)
 
 
-def _self_cluster(kernel, p, x, qpos, k_cache, v_cache, step, num_beams, anc):
+def _self_cluster(kernel, p, x, qpos, k_cache, v_cache, step, num_heads, num_beams, anc, partial):
     """Check and launch the self-attention cluster kernel behind ``kernel``:
     rt_self_attn_block (``anc`` None), or rt_self_attn_block_beam."""
     m = p["mha"]
     t = dict(qpos=qpos, lns=p["norm"]["scale"], lnb=p["norm"]["bias"],
              wq=m["q"]["w"], bq=m["q"]["b"], wk=m["k"]["w"], bk=m["k"]["b"],
-             wv=m["v"]["w"], bv=m["v"]["b"], wo=m["out"]["w"], bo=m["out"]["b"],
+             wv=m["v"]["w"], bv=m["v"]["b"], wo=m["out"]["w"], bo=None if partial else m["out"]["b"],
              kc=k_cache, vc=v_cache, step=step, **({} if anc is None else {"anc": anc}))
-    _check(kernel, x.dtype, _param_shapes(), x=x, **t)
-    y = torch.empty_like(x)
-    _launch(kernel, x, B=x.shape[0], T=k_cache.shape[2], K=num_beams, rows=_beam_rows, x=x, y=y, **t)
+    _check(kernel, x.dtype, _param_shapes(inner=m["q"]["w"].shape[1]), x=x, **t)
+    y = torch.empty(x.shape, dtype=torch.float32 if partial else x.dtype, device=x.device)
+    _launch(kernel, x, B=x.shape[0], T=k_cache.shape[2], K=num_beams, H=num_heads, partial=int(partial),
+            rows=_beam_rows, x=x, y=y, **t)
     return y, k_cache, v_cache
 
 
-def _width_self(kernel, p, x, qpos, k_cache, v_cache, step, num_heads, num_beams, anc):
+def _width_self(kernel, p, x, qpos, k_cache, v_cache, step, num_heads, num_beams, anc, partial):
     """rt_width_self for self_attn_block (``num_beams`` 0) and self_attn_block_beam."""
     m = p["mha"]
     b, c = x.shape
-    y = torch.empty_like(x)
+    y = torch.empty((b, c), dtype=torch.float32 if partial else x.dtype, device=x.device)
     extra = {} if anc is None else {"anc": anc}
-    _width_launch(kernel, "rt_width_self", x, B=b, C=c, H=num_heads, F=1, T=k_cache.shape[2], K=num_beams,
-                  x=x, y=y, qpos=qpos, ln1s=p["norm"]["scale"], ln1b=p["norm"]["bias"], swq=m["q"]["w"],
-                  sbq=m["q"]["b"], swk=m["k"]["w"], sbk=m["k"]["b"], swv=m["v"]["w"], sbv=m["v"]["b"],
-                  swo=m["out"]["w"], sbo=m["out"]["b"], kc=k_cache, vc=v_cache, step=step, **extra)
+    _width_launch(kernel, "rt_width_self", x, B=b, C=c, H=num_heads, I=m["q"]["w"].shape[1], F=1,
+                  T=k_cache.shape[2], K=num_beams, yf32=int(partial), partial=int(partial), x=x, y=y, qpos=qpos,
+                  ln1s=p["norm"]["scale"], ln1b=p["norm"]["bias"], swq=m["q"]["w"], sbq=m["q"]["b"],
+                  swk=m["k"]["w"], sbk=m["k"]["b"], swv=m["v"]["w"], sbv=m["v"]["b"], swo=m["out"]["w"],
+                  sbo=None if partial else m["out"]["b"], kc=k_cache, vc=v_cache, step=step, **extra)
     return y, k_cache, v_cache
 
 
@@ -798,12 +883,12 @@ def fused_layer_step(lp: Params, x, qpos, k_cache, v_cache, cross_k, cross_v, ke
 
 
 def self_attn_block_beam(p: Params, x, anc, qpos, k_cache, v_cache, step, *, num_heads: int,
-                         num_beams: int):
+                         num_beams: int, partial: bool = False):
     """x: [B*K, C], rows beam-major within each batch element's group of K;
     anc: [B*K, T] int32, the row within the group that wrote each position
     (entries at positions <= ``step`` must lie in [0, K)); caches [B*K, H, T, D]
     updated in place at ``step`` (each row writes its own slot only). Returns
-    (x_out, k_cache, v_cache).
+    (x_out, k_cache, v_cache); ``partial`` as :func:`self_attn_block`'s.
 
     Replaces retr_tpu/ops/decoder_kernels.py ``self_attn_block_beam``
     (``_make_self_beam_kernel``). Bound on the card: bytes — the four [C, C]
@@ -817,25 +902,28 @@ def self_attn_block_beam(p: Params, x, anc, qpos, k_cache, v_cache, step, *, num
     reading each earlier position from the ancestor's cache row only (the TPU
     kernel formed q.K against all K rows and selected one), and hands its f32
     out-projection part to its peers through distributed shared memory, which
-    add the heads in order with the TPU kernel's rounding. At other widths, or
-    beam groups of 9..16: rt_width_self (csrc/width_kernels.cu).
+    add the heads in order with the TPU kernel's rounding (``partial``: as
+    self_attn_block's). At other widths, or beam groups of 9..16:
+    rt_width_self (csrc/width_kernels.cu).
     """
     if x.device.type == "cpu":
         return self_attn_block_beam_plain(p, x, anc, qpos, k_cache, v_cache, step,
-                                          num_heads=num_heads, num_beams=num_beams)
+                                          num_heads=num_heads, num_beams=num_beams, partial=partial)
     bk, c = x.shape
-    _check_width("self_attn_block_beam", c, num_heads)
+    inner = _attn_inner("self_attn_block_beam", p["mha"], c, num_heads, partial)
     tmax = k_cache.shape[2]
     if not 1 <= num_beams <= WIDTH_MAX_BEAMS or bk % num_beams:
         raise ValueError(f"self_attn_block_beam: {bk} rows are not whole groups of {num_beams} "
                          f"beams, or the beam is outside 1..{WIDTH_MAX_BEAMS}")
-    if (k_cache.shape != (bk, num_heads, tmax, c // num_heads) or v_cache.shape != k_cache.shape
+    if (k_cache.shape != (bk, num_heads, tmax, inner // num_heads) or v_cache.shape != k_cache.shape
             or anc.shape != (bk, tmax)):
         raise ValueError(f"self_attn_block_beam: caches {tuple(k_cache.shape)} / anc "
-                         f"{tuple(anc.shape)} do not match x {tuple(x.shape)}")
-    if not decode_kernels_fit(c, num_heads, 256, num_beams):
-        return _width_self("self_attn_block_beam", p, x, qpos, k_cache, v_cache, step, num_heads, num_beams, anc)
-    return _self_cluster("self_attn_block_beam", p, x, qpos, k_cache, v_cache, step, num_beams, anc)
+                         f"{tuple(anc.shape)} do not match x {tuple(x.shape)} and {num_heads} heads")
+    if not decode_kernels_fit(c, num_heads, 256, num_beams, inner):
+        return _width_self("self_attn_block_beam", p, x, qpos, k_cache, v_cache, step, num_heads, num_beams, anc,
+                           partial)
+    return _self_cluster("self_attn_block_beam", p, x, qpos, k_cache, v_cache, step, num_heads, num_beams, anc,
+                         partial)
 
 
 _SLAB = 128  # vocab columns per block of csrc/head_kernels.cu

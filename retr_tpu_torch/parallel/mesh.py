@@ -161,11 +161,34 @@ def mp_group():
 # -- collectives ----------------------------------------------------------------
 
 
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    """In place over ``group`` (None: this rank alone, nothing to do); returns t."""
+    """In place over ``group`` (None: this rank alone, nothing to do); ``op``
+    "sum", "max" or "min"; returns t."""
     if group is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(t, op=_OPS[op], group=group)
     return t
+
+
+_BITS = {8: torch.int64, 4: torch.int32}
+
+
+def all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` (one shape and type on all) stacked in rank order
+    over ``group``, [group size, *t.shape], built on ``all_reduce``: each rank
+    writes its slot of a zero-filled buffer and the buffers are summed. A
+    4- or 8-byte tensor travels as the integers of its bits, so every value
+    (-0.0 and NaN included) comes back as it was sent."""
+    if group is None:
+        return t[None].clone()
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    bits = _BITS.get(t.element_size()) if t.is_floating_point() else None
+    buf = torch.zeros((n, *t.shape), dtype=bits or t.dtype, device=t.device)
+    buf[r] = t.view(bits) if bits else t
+    all_reduce(buf, group)
+    return buf.view(t.dtype) if bits else buf
 
 
 def all_gather_object(obj: Any, group) -> List[Any]:
@@ -226,6 +249,13 @@ def reduce_from_mp(x: torch.Tensor) -> torch.Tensor:
     """The output of a row-sharded product: the partial sums added over the
     mp group; the gradient passes through."""
     return _ReduceFromMp.apply(x, mp_group())
+
+
+def is_mp_sharded(leaf: torch.Tensor, dim: int, full: int) -> bool:
+    """Whether ``leaf`` is an mp slice along ``dim`` of a dimension of ``full``
+    entries: narrower there, as :func:`shard_params` cuts it (a whole leaf, or
+    one its block kept replicated, is ``full`` wide)."""
+    return leaf.shape[dim] != full
 
 
 def mp_slice(n_local: int) -> slice:

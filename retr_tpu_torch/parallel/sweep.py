@@ -7,11 +7,12 @@ rows with greedy, beam or sampling through the decode kernels, and the token
 ids come back to every rank (``all_gather_object`` over the dp group), so
 every rank scores the whole split and returns the same metrics.
 
-Decode under mp > 1 runs on the whole parameter tree, gathered once per call
-(``parallel.mesh.gather_params``): the decode kernels fuse the residual add
-into each block, and a tensor-parallel decode step must put that add after
-the all-reduce of the partial sums. The tokens are the same function; the
-ranks of one mp group decode the same rows.
+Under mp > 1 each rank decodes on its own slices of the tree, as
+``parallel.mesh.shard_params`` cut them, never gathered: the encoder and the
+decode step run on its heads, FF columns and vocabulary columns (the caches
+hold H/mp heads), with an all-reduce over the mp group where JAX's specs put
+a psum (``models/transformer.decode_step``, ``decode``); the ranks of one mp
+group decode the same rows together.
 """
 
 from __future__ import annotations
@@ -37,16 +38,17 @@ def eval_model_sharded(params, cfg: Config, loader: DataLoader, tokenizer, mesh:
 
 
 def full_eval_sweep(params, base_cfg: Config, tokenizer, mesh: Optional[pmesh.Mesh], *,
-                    datasets: Dict[str, DataLoader], decoder: str = "greedy", return_hypotheses: bool = False):
-    """:func:`eval_model_sharded` of the whole tree ``params`` over every
-    loader of ``datasets`` (label, e.g. "refcoco/val", -> loader); returns
-    ``{label: metrics}``, or ``({label: metrics}, {label: hypotheses})`` with
-    ``return_hypotheses``."""
+                    datasets: Dict[str, DataLoader], decoder: str = "greedy", return_hypotheses: bool = False,
+                    specs: Optional[dict] = None):
+    """:func:`eval_model_sharded` of ``params`` (the whole tree, or this
+    rank's slices with their ``specs``) over every loader of ``datasets``
+    (label, e.g. "refcoco/val", -> loader); returns ``{label: metrics}``, or
+    ``({label: metrics}, {label: hypotheses})`` with ``return_hypotheses``."""
     metrics: Dict[str, Dict[str, float]] = {}
     hyps: Dict[str, list] = {}
     for label, loader in datasets.items():
         out = eval_model_sharded(params, base_cfg, loader, tokenizer, mesh, decoder=decoder,
-                                 return_hypotheses=return_hypotheses)
+                                 return_hypotheses=return_hypotheses, specs=specs)
         if return_hypotheses:
             metrics[label], hyps[label] = out
         else:

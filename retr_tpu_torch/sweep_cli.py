@@ -8,7 +8,10 @@
 ``PATH`` is a checkpoint directory of ``retr_tpu_torch.main`` or a reference
 ``.pth``. Under torchrun (``RANK``/``WORLD_SIZE`` set) every process is one
 rank of a ``(dp, mp)`` mesh with ``dp * mp`` = the world; without it the
-sweep runs as a world of one. Each prefix's annotations are under
+sweep runs as a world of one. Under ``--mp`` > 1 the tree is cut into each
+rank's mp slices once, after the load (heads, FF columns and the vocabulary
+head, ``parallel.mesh.shard_params``), and every rank decodes on its own.
+Each prefix's annotations are under
 ``<ref_base>/<prefix>``; splits follow the reference's names (testa/testb for
 refcoco and refcoco+, test for refcocog). Every rank prints the same results;
 rank 0 alone writes ``--out`` and ``--store-generations``.
@@ -59,6 +62,10 @@ def main(args, config: Config):
     mesh = pmesh.make_mesh(dp=dp, mp=mp, device=dev) if dist.is_initialized() else None
     params, config = prepare_model(args, config, device=dev)
     config = config.replace(device=dev.type)
+    specs = None
+    if mesh is not None and mesh.mp > 1:   # tensor-parallel eval: this rank's slices, cut once
+        specs = pmesh.param_shardings(params, mesh, config.nheads)
+        params = pmesh.shard_params(params, mesh, specs)
     tokenizer, _, _ = prepare_tokenizer(config.vocab_file)
 
     batch = args.batch or config.batch_size
@@ -70,7 +77,7 @@ def main(args, config: Config):
 
     store = args.store_generations
     out = full_eval_sweep(params, config, tokenizer, mesh, datasets=loaders, decoder=args.decoder,
-                          return_hypotheses=bool(store))
+                          return_hypotheses=bool(store), specs=specs)
     results, hyps = out if store else (out, None)
     print(json.dumps(results, indent=2))
     if mesh is None or mesh.rank == 0:
@@ -91,8 +98,8 @@ def build_argparser():
     ap.add_argument("--datasets", nargs="+", default=["refcoco:val"], help="prefix:split[,split...] per entry")
     ap.add_argument("--dp", type=int, default=0, help="dp mesh size (default: the world size / mp)")
     ap.add_argument("--mp", type=int, default=1,
-                    help="tensor-parallel size, a divisor of the world size; the decode runs on the "
-                    "whole tree, so the ranks of one mp group decode the same rows")
+                    help="tensor-parallel size, a divisor of the world size: each rank of an mp group "
+                    "holds and decodes its slices of the heads, the FF and the vocabulary head")
     ap.add_argument("--decoder", default="greedy", choices=["greedy", "beam", "sample"])
     ap.add_argument("--batch", type=int, default=0,
                     help="evaluation batch size, split over dp (0: config.batch_size, the reference's)")

@@ -9,7 +9,9 @@ serving surface (sampling at temperature 0 equal to greedy, a seed's
 determinism, f32 prefix and sample-greedy buffers against the CPU's under
 the f32_parity rule, ``score`` through the attention kernel and
 ``predict_with_attention`` without it); a dp=2 world of two processes on
-the one card over gloo, whose two f32 train steps equal the world of one's.
+the one card over gloo, whose two f32 train steps equal the world of one's;
+the split blocks' partial (tensor-parallel) mode at the tiny and the served
+width.
 Run on the card with
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -510,6 +512,36 @@ def test_width_kernels_match_plain_versions(dev, widths, dtype, tol):
         for i in (0, 1):                                 # only the slot at `step` is written
             assert torch.equal(runs[0][i].view(torch.uint8), runs[1][i].view(torch.uint8)), wrapper
             _close_to_plain(runs[0][i][..., 9, :], runs[2][i][..., 9, :], tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)])
+@pytest.mark.parametrize("mp", [2, 4])
+@pytest.mark.parametrize("kind", ["ff", "cross", "self", "beam"])
+@pytest.mark.parametrize("widths", [(64, 4, 128), (C, H, 2048)])
+def test_partial_kernels_match_plain_versions(dev, widths, kind, mp, dtype, tol):
+    """Each split block's partial mode on rank 0's mp slice against its plain
+    version, and the sum over the slices finished by the epilogue against the
+    whole-head kernel's partial finished by it (and, in f32, against the
+    whole-head kernel's output): at the tiny width (4 heads, FF 128) through
+    csrc/width_kernels.cu, at the served one through csrc/block_kernels.cu's
+    clusters of 8 / mp blocks (chip_smoke.tp_case, shared with phase 3b)."""
+    c, h, f = widths
+    kern, plain, _, sum_of_slices = chip_smoke.tp_case(dev, c + mp, dtype, kind, 33 if kind != "beam" else 15, mp,
+                                                       step=9, nl=1, c=c, h=h, f=f, t=T, s=S, beams=3)
+    name = {"ff": "ff_block", "cross": "cross_attn_block", "self": "self_attn_block",
+            "beam": "self_attn_block_beam"}[kind] + "_partial"
+    dk.reset_launches()
+    got = kern(0)
+    with matmul_precision(torch.float32):
+        want = plain(0)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES[name] == 1 and sum(dk.LAUNCHES.values()) == 1, dk.LAUNCHES
+    for g, w in (zip(got, want) if isinstance(got, tuple) else [(got, want)]):   # each at its own magnitude
+        _close_to_plain(g, w, tol)
+    summed, whole, whole_partial = sum_of_slices()
+    _close_to_plain(summed, whole_partial, tol)
+    if dtype == torch.float32:   # bf16: the whole attention kernel rounds after each head, the epilogue once
+        _close_to_plain(summed, whole, tol)
 
 
 @pytest.mark.parametrize("decoder", ["greedy", "greedy trio", "greedy merged", "beam", "beam 11"])

@@ -16,7 +16,9 @@ read what its ranks wrote.
   bit for bit; the rank layout is JAX's ``make_mesh(dp, mp).devices``;
 - ``validate_multihost_launch`` raises as JAX's, with its message;
 - ``caption.forward`` logits under mp=2 (kernel flag off and on) within
-  1e-5 of max(1, max|logit|) of JAX's;
+  1e-5 of max(1, max|logit|) of JAX's; three tensor-parallel decode steps
+  on mp=2's slices (caches of 2 heads a rank) within 1e-5 of JAX's XLA
+  ``decode_step`` on the tree ``shard_params`` cuts for its mp=2 mesh;
 - two train steps on each world: losses within 1e-5 relative and
   parameters within 1e-5 of max(1, max|leaf|) of the world of one at the
   global batch and of retr_tpu's ``make_train_step``, ``grad_norm`` within
@@ -51,6 +53,7 @@ from retr_tpu.data import pipeline as jpipeline
 from retr_tpu.data.tokenizer import prepare_tokenizer as jax_prepare_tokenizer
 from retr_tpu.masking import Masked as JMasked
 from retr_tpu.models import caption as jcaption
+from retr_tpu.models import transformer as jtransformer
 from retr_tpu.parallel import mesh as jmesh
 from retr_tpu.train import state as jstate
 from retr_tpu_torch import main as tmain
@@ -64,7 +67,7 @@ from retr_tpu_torch.parallel import mesh as pmesh
 from retr_tpu_torch.train import checkpoints as ckpt
 from retr_tpu_torch.train import state as tstate
 from tests.synth_refcoco import make_synth_refcoco
-from tests.torch_parallel_worker import neutral_jitter, run_world
+from tests.torch_parallel_worker import decode_step_inputs, neutral_jitter, run_world
 
 VOCAB = 342
 GLOBAL_BATCH = 4
@@ -227,6 +230,24 @@ def test_forward_logits_under_mp2_match_jax(env, pallas):
     assert env.worlds["1x2"][0][f"logits_pallas_{pallas}"].shape[-1] == VOCAB // 2    # the head is split
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
+
+
+def test_tensor_parallel_decode_steps_under_mp2_match_jax(env):
+    """The trio on each rank's 2 heads and 64 FF columns, an all-reduce of
+    the f32 partials per block, against XLA's partition of the same step."""
+    jm = jmesh.make_mesh(1, 2)
+    jp = jmesh.shard_params(env.params, jm)["transformer"]
+    mem, mask, pos, tokens = decode_step_inputs(env.cfg)
+    cache, cross = jtransformer.init_decode_state(jp, jnp.asarray(mem), jnp.asarray(mask), jnp.asarray(pos),
+                                                  env.jcfg, 8)
+    for i in range(tokens.shape[1]):
+        want, cache = jtransformer.decode_step(jp, cache, cross, jnp.asarray(tokens[:, i]), jnp.int32(i), env.jcfg)
+        want = np.asarray(want)
+        for r in env.worlds["1x2"]:
+            assert r["tp_decode_heads"] == (2, 2)
+            got = r["tp_decode_hs"][i].numpy()
+            assert got.shape == want.shape
+            assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max()), i
 
 
 @pytest.fixture(scope="module")

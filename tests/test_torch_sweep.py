@@ -5,8 +5,12 @@ port's world of one, on tests/test_torch_parallel.py's config and synthetic
 RefCOCO (4 unique validation annotations at batch 3: a batch of 3 padded to
 4, and a ragged 1).
 
-- greedy and beam hypotheses on every rank equal ``retr_tpu.engine.eval_model``'s
-  (under mp=2 the sweep gathers the slices it is given);
+- greedy and beam hypotheses on every rank equal ``retr_tpu.engine.eval_model``'s;
+  under mp=2 each rank decodes tensor-parallel on the slices it is given
+  (caches of 4/2 heads, ``gather_params`` never called), and its hypotheses
+  equal ``retr_tpu.parallel.sweep.eval_model_sharded``'s on the tree
+  ``retr_tpu.parallel.mesh.shard_params`` cuts for JAX's dp=2 x mp=2 mesh
+  (8 virtual CPU devices);
 - ``decoder="sample"`` equals the world of one's with the same seed, which
   equals ``engine.eval_model``'s;
 - every rank returns the same metrics, equal to the world of one's;
@@ -23,6 +27,8 @@ import pytest
 
 from retr_tpu import engine as jengine
 from retr_tpu.data import dataset as jdataset
+from retr_tpu.parallel import mesh as jmesh
+from retr_tpu.parallel import sweep as jsweep
 from retr_tpu_torch import engine, sweep_cli
 from retr_tpu_torch.data import dataset
 from retr_tpu_torch.parallel.sweep import eval_model_sharded
@@ -73,6 +79,27 @@ def test_hypotheses_equal_retr_tpu_eval_model(env, shape, decoder):
         metrics, hyps = r[decoder]
         assert hyps == env.jax[decoder] == env.one[decoder][1], (shape, decoder)
         assert metrics == env.one[decoder][0]
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_mp_ranks_decode_on_local_caches_without_gathering(env, shape):
+    """4 heads: each rank's self caches and cross K/V hold 4 / mp of them."""
+    heads = env.cfg.nheads // (2 if shape == "2x2" else 1)
+    for r in env.worlds[shape]:
+        assert r["gather_calls"] == 0
+        assert r["cache_heads"] == {(heads, heads)}, r["cache_heads"]
+
+
+@pytest.mark.parametrize("decoder", ["greedy", "beam"])
+def test_mp2_hypotheses_equal_jax_sharded_sweep(env, decoder):
+    jm = jmesh.make_mesh(2, 2)
+    jds = jdataset.build_dataset(env.jcfg, "validation", tokenizer=env.jtok, return_unique=True)
+    _, want = jsweep.eval_model_sharded(jmesh.shard_params(env.params, jm), env.jcfg,
+                                        jdataset.DataLoader(jds, env.setup["sweep_batch"], num_workers=1), env.jtok,
+                                        jm, decoder=decoder, return_hypotheses=True)
+    assert len(want) == 4
+    for r in env.worlds["2x2"]:
+        assert r[decoder][1] == want, (decoder, r[decoder][1], want)
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))

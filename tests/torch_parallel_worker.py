@@ -20,6 +20,7 @@ import sys
 import time
 import traceback
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -30,10 +31,21 @@ from retr_tpu_torch.data import dataset  # noqa: E402
 from retr_tpu_torch.data.pipeline import device_batch  # noqa: E402
 from retr_tpu_torch.data.tokenizer import prepare_tokenizer  # noqa: E402
 from retr_tpu_torch.masking import Masked  # noqa: E402
-from retr_tpu_torch.models import caption, weights  # noqa: E402
+from retr_tpu_torch.models import caption, transformer, weights  # noqa: E402
 from retr_tpu_torch.ops import image as imops  # noqa: E402
 from retr_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from retr_tpu_torch.train import state as tstate  # noqa: E402
+
+
+def decode_step_inputs(cfg, b=4, s=9, seed=21):
+    """Seeded numpy inputs of a few decode steps: memory [b, s, C], its pad
+    mask [b, s], positions [s, C] and tokens [b, 3]."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((b, s)) < 0.3
+    mask[:, 0] = False
+    return (rng.standard_normal((b, s, cfg.hidden_dim)).astype(np.float32), mask,
+            rng.standard_normal((s, cfg.hidden_dim)).astype(np.float32),
+            rng.integers(1, cfg.vocab_size, (b, 3)).astype(np.int32))
 
 
 def neutral_jitter(gen, n, dev):
@@ -89,6 +101,18 @@ def parallel(setup, cfg, sd, mesh, out):
                 out[f"logits_pallas_{pallas}"] = caption.forward(
                     local, cfg.replace(use_pallas_attention=pallas), Masked(batch.images, batch.image_masks),
                     batch.caps[:, :-1], batch.cap_masks[:, :-1])
+        # three tensor-parallel decode steps on this rank's slices: the hidden states and the cache heads
+        mem, mask, pos, tokens = decode_step_inputs(cfg)
+        with pmesh.active(mesh), torch.no_grad():
+            tparams = transformer.prepare_decoder(local["transformer"])
+            cache, cross = transformer.init_decode_state(tparams, torch.from_numpy(mem), torch.from_numpy(mask),
+                                                         torch.from_numpy(pos), cfg, 8)
+            step, out["tp_decode_hs"] = torch.zeros((), dtype=torch.int32), []
+            for i in range(tokens.shape[1]):
+                hs, cache = transformer.decode_step(tparams, cache, cross, torch.from_numpy(tokens[:, i]), step, cfg)
+                out["tp_decode_hs"].append(hs)
+                step += 1
+        out["tp_decode_heads"] = (cache.self_k.shape[2], cross.cross_k.shape[2])
         # a step at dropout 0.1: the attention masks of all heads cut to this rank's
         _, out["dropout_losses"], _ = train_steps(cfg.replace(dropout=0.1), sd, batch, mesh, steps=1)
         # a checkpoint saved under this mesh, restored by the world of one in the test
@@ -154,12 +178,29 @@ def sweep(setup, cfg, sd, mesh, out):
     tok = prepare_tokenizer(cfg.vocab_file)[0]
     params = weights.to_params(sd, cfg, device="cpu")
     specs = pmesh.param_shardings(params, mesh, cfg.nheads)
-    local = pmesh.shard_params(params, mesh, specs)   # mp > 1: the sweep gathers them
+    local = pmesh.shard_params(params, mesh, specs)   # mp > 1: decoded as they are, tensor-parallel
     loader = dataset.DataLoader(dataset.build_dataset(cfg, "validation", tokenizer=tok, return_unique=True),
                                 setup["sweep_batch"], num_workers=1)
-    for decoder in ("greedy", "beam", "sample"):
-        out[decoder] = eval_model_sharded(local, cfg, loader, tok, mesh, decoder=decoder, return_hypotheses=True,
-                                          specs=specs)
+    # record every gather of the tree and the heads of every decode's caches
+    out["gather_calls"], out["cache_heads"] = 0, set()
+    real_gather, real_init = pmesh.gather_params, transformer.init_decode_state
+
+    def counted_gather(*a, **k):
+        out["gather_calls"] += 1
+        return real_gather(*a, **k)
+
+    def recorded_init(*a, **k):
+        cache, cross = real_init(*a, **k)
+        out["cache_heads"].add((cache.self_k.shape[2], cross.cross_k.shape[2]))
+        return cache, cross
+
+    pmesh.gather_params, transformer.init_decode_state = counted_gather, recorded_init
+    try:
+        for decoder in ("greedy", "beam", "sample"):
+            out[decoder] = eval_model_sharded(local, cfg, loader, tok, mesh, decoder=decoder,
+                                              return_hypotheses=True, specs=specs)
+    finally:
+        pmesh.gather_params, transformer.init_decode_state = real_gather, real_init
     if mesh.mp == 1:
         os.environ.update(RANK=str(mesh.rank), WORLD_SIZE=str(mesh.world), LOCAL_RANK=str(mesh.rank))
         argv = ["--checkpoint", setup["checkpoint"], "--override_config", "--device", "cpu", "--dp", str(mesh.dp),
