@@ -61,13 +61,19 @@ Phases (any failure raises, exits non-zero and prints no result line):
      with the one-launch stacked kernel, with the per-layer trio, with
      HEAD_KERNEL, and with MERGED_LAYER (LAYER_GRID off); beam search (beam 5)
      with BEAM_TOPK_KERNEL off and on; the launch counts are reset before and
-     read after each run, and each kernel a run lists must have launched.
-     Then time greedy at batch 32 and 512 and beam at batch 32 x 5 and 512 x 5
-     (top-k head kernel off and on) for all 127 steps with EOS out of range,
-     and trace 32 steps of greedy at 32 and 512 and beam at 32 x 5 and 512 x 5
-     with torch.profiler (device time by kernel, idle share); then greedy with
-     use_pallas_attention on, whose encoder launches fused_attention (6
-     launches per batch);
+     read after each run, and each kernel a run lists must have launched;
+     then greedy with use_pallas_attention on, whose encoder launches
+     fused_attention (6 launches per batch). Then phase 4c, and 32 steps of
+     greedy at 32 and 512 and beam at 32 x 5 and 512 x 5 traced with
+     torch.profiler (device time by kernel, idle share);
+  4c. graphs: greedy at batch 32 and 512 (stacked kernel and trio), beam at
+     batch 32 x 5 and 512 x 5 (top-k head kernel off and on) and sampling at
+     batch 32 (cfg's defaults and top_k=50, top_p=0.9), all 127 steps with
+     EOS out of range, each with the decode loop eager (decode.CUDA_GRAPHS
+     off) and as CUDA graphs (ops/graphs.py): ms/step, the idle share of a
+     profiled call, launch counts, capture seconds and the graphs' pool
+     bytes on one ``graphs`` line; the token buffers (and beam scores) of the
+     two paths must be equal bit for bit and their launch counts equal;
   4b. serve_apis, the rest of the serving surface at the served width in bf16:
      the native host core must load, and its host seconds per request are
      logged beside the numpy spec's (outputs bit-equal); sampling at batch 32
@@ -81,7 +87,7 @@ Phases (any failure raises, exits non-zero and prints no result line):
      predict_with_attention (rows sum to 1 within 1e-3, no fused_attention
      launch); 256 requests from 8 threads through a ServingQueue (captions
      equal to predict_batch's; requests/s beside sequential predict_batch,
-     p50/p99 latency); the HTTP server on an ephemeral port (/predict,
+     p50/p99 latency), with the decode loop eager and as CUDA graphs; the HTTP server on an ephemeral port (/predict,
      /healthz naming the card, 503 with Retry-After under a forced
      overload); `python -m retr_tpu_torch.serve --checkpoint X.pth` on a
      reference .pth of Config()'s model, one request, then SIGTERM (exit 0);
@@ -168,6 +174,10 @@ off and on) where the tree has it, 127 steps, EOS out of range, encode outside t
 timing, median of 5 runs after one warm-up) with this file's measuring code,
 and prints a digest of the tree's stacked step on seeded inputs
 (`stack_digest`: equal digests, equal bits).
+
+    python3 chip_smoke.py --graphs
+
+runs phase 4c alone (after the build), at the served width.
 
     python3 chip_smoke.py --block-rows
 
@@ -1648,8 +1658,8 @@ def sample_throughput(dev, params, card, by_run):
     p, memory, mask, pos = encode_for_decode(params, cfg, samples)
     for label, fl in SAMPLE_RUNS.items():
         def loop(fl=fl):
-            return decode._token_loop(p, cfg, memory, mask, pos, lambda i, hs, c: decode.sample_tokens(
-                decode.caption.mlp_head(p["mlp"], hs).float(), gen, **fl), max_len=33, bos_token=101, eos_token=V)
+            return decode.sample_from_memory(p, cfg, memory, mask, pos, gen, max_len=33, bos_token=101, eos_token=V,
+                                             **fl)
 
         loop()
         torch.cuda.synchronize()
@@ -1660,14 +1670,35 @@ def sample_throughput(dev, params, card, by_run):
 def serving_queue(pred, imgs, boxes, card, by_run):
     """256 requests from 8 client threads through a ServingQueue (max_batch 32,
     admission sized for the burst): the captions must equal predict_batch's.
-    Requests/s and latency percentiles beside sequential predict_batch."""
+    Requests/s and latency percentiles beside sequential predict_batch, with
+    the decode loop eager and as CUDA graphs (decode.CUDA_GRAPHS off, then
+    on; a batch first, so the graph session exists): one ``serving_queue``
+    line each; the two paths' captions must be equal."""
+    from retr_tpu_torch import decode
+
+    captions = []
+    for on in (False, True):
+        decode.CUDA_GRAPHS = on
+        try:
+            pred.predict_batch(imgs[:pred.max_batch], boxes[:pred.max_batch])
+            captions.append(serving_queue_run(pred, imgs, boxes, card, by_run, f"{'graphs' if on else 'eager'}, "))
+        finally:
+            decode.CUDA_GRAPHS = True
+    if captions[0] != captions[1]:
+        raise AssertionError("predict_batch's captions differ between the eager loop and the graphs")
+
+
+def serving_queue_run(pred, imgs, boxes, card, by_run, path):
+    """One serving_queue run (``path`` prefixes its labels); returns the
+    sequential predict_batch's captions."""
     import threading
 
     import torch
 
+    from retr_tpu_torch import decode
     from retr_tpu_torch.predictor import ServingQueue
 
-    want, seq_s, _ = counted("predict_batch, 256 requests", by_run, lambda: pred.predict_batch(imgs, boxes),
+    want, seq_s, _ = counted(f"predict_batch, {path}256 requests", by_run, lambda: pred.predict_batch(imgs, boxes),
                              {"fused_stack_step": None})
     got, lat = [None] * len(imgs), [0.0] * len(imgs)
 
@@ -1691,12 +1722,13 @@ def serving_queue(pred, imgs, boxes, card, by_run):
             raise AssertionError("a ServingQueue client did not finish")
 
     try:
-        _, q_s, _ = counted("ServingQueue, 256 requests, 8 threads", by_run, burst, {"fused_stack_step": None})
+        _, q_s, _ = counted(f"ServingQueue, {path}256 requests, 8 threads", by_run, burst,
+                            {"fused_stack_step": None})
     finally:
         q.close()
     torch.cuda.synchronize()
     lat_sorted = sorted(lat)
-    rec = {"requests": len(imgs), "threads": 8, "max_batch": pred.max_batch,
+    rec = {"cuda_graphs": decode.CUDA_GRAPHS, "requests": len(imgs), "threads": 8, "max_batch": pred.max_batch,
            "queue_requests_per_s": len(imgs) / q_s, "sequential_predict_batch_requests_per_s": len(imgs) / seq_s,
            "queue_over_sequential": seq_s / q_s, "p50_s": lat_sorted[len(lat) // 2],
            "p99_s": lat_sorted[int(0.99 * (len(lat) - 1))], "stats": q.stats(),
@@ -1704,6 +1736,7 @@ def serving_queue(pred, imgs, boxes, card, by_run):
     log("serving_queue", json.dumps(rec))
     if rec["captions_equal"] != len(imgs) or q.stats()["rejected"]:
         raise AssertionError(f"ServingQueue captions differ from predict_batch's: {rec}")
+    return want
 
 
 def http_server(pred, imgs, boxes):
@@ -1886,11 +1919,80 @@ def encode_for_decode(params, cfg, samples):
     return p, memory, mask, pos
 
 
+def _bits_equal(a, b) -> bool:
+    """Equal buffers, bit for bit (tuples elementwise)."""
+    import torch
+
+    if isinstance(a, tuple):
+        return all(_bits_equal(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+def decode_paths(label, call, steps, card):
+    """Phase 4c for one decode: ``call()`` (a decode from encoded memory) with
+    decode.CUDA_GRAPHS off and then on, 4 calls each (the first warms up;
+    on the graph path it is the key's eager first call and the capture):
+    ms/step (median of the last 3), the idle share of one more call under
+    torch.profiler, the launch counts, the capture seconds and the graphs'
+    pool bytes. The token buffers (beam: and scores) of the two paths must
+    be equal bit for bit, and their launch counts equal; returns the record
+    and the graph path's output."""
+    import statistics
+
+    import torch
+
+    from retr_tpu_torch import decode
+    from retr_tpu_torch.ops import decoder_kernels as dk
+    from retr_tpu_torch.ops import graphs
+
+    rec, outs = {"run": label, "steps": steps}, {}
+    try:
+        for path, on in (("eager", False), ("graph", True)):
+            decode.CUDA_GRAPHS = on
+            graphs.clear()                                    # the graph path's first call captures
+            times = []
+            for n in range(4):
+                torch.cuda.synchronize()
+                dk.reset_launches()
+                t0 = time.perf_counter()
+                out = call()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            if on:
+                (session,) = graphs.sessions()
+                rec.update(graphs=len(session.graphs), capture_s=session.capture_s, pool_bytes=session.pool_bytes,
+                           session_buffer_bytes=session.buffer_bytes())
+            outs[path] = (out, dict(dk.LAUNCHES))
+            prof = device_profile(call, steps)
+            rec[path] = {"ms_per_step": statistics.median(times[1:]) / steps * 1e3,
+                         "first_call_ms_per_step": times[0] / steps * 1e3,
+                         "idle_share": prof.get("idle_share", prof.get("device_time")),
+                         "device_busy_ms_per_step": prof["device_busy_ms"] / steps if "device_busy_ms" in prof
+                         else "not measured", "launches": {k: v for k, v in outs[path][1].items() if v}}
+    finally:
+        decode.CUDA_GRAPHS = True
+    rec["buffers_equal"] = _bits_equal(outs["eager"][0], outs["graph"][0])
+    rec["launches_equal"] = outs["eager"][1] == outs["graph"][1]
+    rec["graph_over_eager_ms"] = rec["graph"]["ms_per_step"] / rec["eager"]["ms_per_step"]
+    rec["sessions"] = {"max": graphs.MAX_SESSIONS, "held": len(graphs.sessions())}
+    rec["card"] = card
+    log("graphs", json.dumps(rec))
+    if not (rec["buffers_equal"] and rec["launches_equal"]):
+        raise AssertionError(f"{label}: the graph path differs from the eager loop: {rec}")
+    return rec, outs["graph"][0]
+
+
 def throughput(dev, params, card):
-    """Greedy at batch 32 and 512 with the stacked kernel and with the per-layer
-    trio, beam at batch 32 x 5 and 512 x 5 with the top-k head kernel off and on
-    (offline evaluation, other flags at their defaults): all 127 steps (EOS out
-    of range), encode and loop timed apart."""
+    """Phase 4c, graphs: greedy at batch 32 and 512 with the stacked kernel and
+    with the per-layer trio, beam at batch 32 x 5 and 512 x 5 with the top-k
+    head kernel off and on (offline evaluation, other flags at their
+    defaults), and sampling at batch 32 with cfg's defaults and with
+    top_k=50, top_p=0.9: all 127 steps (EOS out of range), each with the
+    loop eager and as CUDA graphs (:func:`decode_paths`, one ``graphs``
+    line); one ``throughput`` line per greedy and beam run for the default
+    path (graphs), encode and loop timed apart."""
+    import statistics
+
     import torch
 
     from retr_tpu_torch import decode
@@ -1902,31 +2004,35 @@ def throughput(dev, params, card):
             (32, "beam", {"BEAM_TOPK_KERNEL": False}), (32, "beam", {"BEAM_TOPK_KERNEL": True}),
             (512, "beam", {"BEAM_TOPK_KERNEL": False}), (512, "beam", {"BEAM_TOPK_KERNEL": True})]
     samples = {b: random_samples(b, gen, dev) for b in (32, 512)}
+    kw = dict(max_len=128, bos_token=101, eos_token=V)
     for b, decoder, fl in runs:
-        times = []
+        enc = []
         for _ in range(4):                                  # first run warms up
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             p, memory, mask, pos = encode_for_decode(params, cfg, samples[b])
             torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            with flags(**fl):
-                if decoder == "greedy":
-                    ids = decode.greedy_from_memory(p, cfg, memory, mask, pos, max_len=128, bos_token=101,
-                                                    eos_token=V)
-                else:
-                    ids, _ = decode.beam_search_from_memory(p, cfg, memory, mask, pos, max_len=128, bos_token=101,
-                                                            eos_token=V, beam_size=BEAM)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            times.append((t2 - t0, t1 - t0, t2 - t1))
+            enc.append(time.perf_counter() - t0)
+        if decoder == "greedy":
+            call = lambda: decode.greedy_from_memory(p, cfg, memory, mask, pos, **kw)  # noqa: E731
+        else:
+            call = lambda: decode.beam_search_from_memory(p, cfg, memory, mask, pos, beam_size=BEAM, **kw)  # noqa: E731
+        with flags(**fl):
+            rec, out = decode_paths(f"{decoder}, batch {b}, {fl}", call, 127, card)
+        ids = out if decoder == "greedy" else out[0]
         want = (b, 128) if decoder == "greedy" else (b, BEAM, 128)
         if tuple(ids.shape) != want or int(ids.min()) < 0 or int(ids.max()) >= V:
             raise AssertionError(f"{decoder} returned a malformed buffer {tuple(ids.shape)}")
-        total, enc, loop = sorted(times[1:])[1]
-        log("throughput", json.dumps({"decoder": decoder, "batch": b, **fl, "steps": 127, "seconds": total,
-                                      "encode_s": enc, "decode_loop_s": loop, "ms_per_step": loop / 127 * 1e3,
-                                      "captions_per_s": b / total, "card": card}))
+        enc_s, loop = statistics.median(enc[1:]), rec["graph"]["ms_per_step"] * 127 / 1e3
+        log("throughput", json.dumps({"decoder": decoder, "batch": b, **fl, "cuda_graphs": True, "steps": 127,
+                                      "seconds": enc_s + loop, "encode_s": enc_s, "decode_loop_s": loop,
+                                      "ms_per_step": rec["graph"]["ms_per_step"],
+                                      "captions_per_s": b / (enc_s + loop), "card": card}))
+    p, memory, mask, pos = encode_for_decode(params, cfg, samples[32])
+    for label, fl in SAMPLE_RUNS.items():
+        call = (lambda fl: lambda: decode.sample_from_memory(  # noqa: E731
+            p, cfg, memory, mask, pos, torch.Generator(device=dev).manual_seed(3), **fl, **kw))(fl)
+        decode_paths(f"sample, batch 32, {label}", call, 127, card)
 
 
 def step_profile(dev, params, steps=32):
@@ -3267,10 +3373,20 @@ def main(mode=None) -> int:
         print(f"chip_smoke: the retr_tpu_torch package is not beside this script ({exc})", file=sys.stderr)
         return 2
 
+    from retr_tpu_torch.ops import graphs
+
     dev = torch.device("cuda")
     card = gpu_line()
     if mode == "--block-rows":
         block_rows(dev, card)
+        return 0
+    if mode == "--graphs":                                                 # phase 4c alone
+        log("card", card)
+        dk.build()
+        from retr_tpu_torch.models import weights
+
+        cfg = served_config("bfloat16")
+        throughput(dev, weights.to_params(random_state(cfg), cfg, device=dev), card)
         return 0
     log("card", card)                                                      # phase 1
 
@@ -3292,16 +3408,19 @@ def main(mode=None) -> int:
 
     state = random_state(served_config("bfloat16"))                        # phase 4
     params, launches, by_run = serve(dev, state, synthetic_tokenizer())
-    throughput(dev, params, card)
+    throughput(dev, params, card)                                          # phase 4c
     step_profile(dev, params)
     del params
+    graphs.clear()
     torch.cuda.empty_cache()
     serve_apis(dev, state, synthetic_tokenizer(), card, by_run)         # phase 4b
+    graphs.clear()
     torch.cuda.empty_cache()
 
     other_width(dev)                                                       # phase 5
     f32_parity(dev, state)
     f32_beam_parity(dev, state)
+    graphs.clear()
     torch.cuda.empty_cache()
 
     launches["fused_attention"] = train(dev, state, card)                 # phase 6

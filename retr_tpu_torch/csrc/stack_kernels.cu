@@ -415,9 +415,21 @@ int launch(const StackArgs& a, cudaStream_t st) {
   size_t bytes = 0;
   const int rc = plan<T>(a, &blocks, &per_sm, &bytes);
   if (rc != 0) return rc;
+  // a cooperative launch (the grid barriers need every block resident) given
+  // as a launch attribute, which a CUDA graph's kernel node carries too, so
+  // the launch can be captured (ops/graphs.py)
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   void* params[] = {const_cast<StackArgs*>(&a)};
-  const cudaError_t e =
-      cudaLaunchCooperativeKernel((const void*)stack_kernel<T>, dim3(blocks), dim3(NT), params, bytes, st);
+  const cudaError_t e = cudaLaunchKernelExC(&cfg, (const void*)stack_kernel<T>, params);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

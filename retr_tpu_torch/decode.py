@@ -6,7 +6,7 @@ of position i are argmaxed into slot i+1; rows that produced EOS keep receiving
 (ignored) tokens; when every row has finished the pending write is skipped and
 the loop stops; at most ``max_len - 1`` steps. The buffer, post-EOS junk
 included, equals retr_tpu.decode.greedy's. ``greedy_with_prefix`` and ``sample``
-run the same loop (``_token_loop``) and differ only in how a step's token is
+run the same loop (:class:`_TokenLoop`) and differ only in how a step's token is
 chosen.
 
 Beam search is retr_tpu.decode.beam_search's: memory tiled across the beams,
@@ -17,13 +17,42 @@ ranking. Every top-k and sort breaks ties to the lowest index, as
 
 On the GPU neither loop waits for the host each step: the stop condition stays
 on the device, the step index the kernels read is a device int32, and the host
-looks at it only every ``CHECK_EVERY`` steps. Greedy steps run after every row
-finished are no-ops (the write is skipped). A beam step is not a no-op, so each
-beam step's carry update is gated by the device bool ``running`` (the JAX
-loop's condition, which stays false once false). Unlike the JAX package, no
-rows are padded: the CUDA kernels take any batch. Under the head flags the
-head is packed once per call, as the head kernels read it
+looks at it only every ``CHECK_EVERY`` steps, between two chunks of the loop.
+Greedy steps run after every row finished are no-ops (the write is skipped). A
+beam step is not a no-op, so each beam step's carry update is gated by the
+device bool ``running`` (the JAX loop's condition, which stays false once
+false). Unlike the JAX package, no rows are padded: the CUDA kernels take any
+batch. Under the head flags the head is packed as the head kernels read it
 (``ops.decoder_kernels.pack_head``).
+
+The decode tree (the bf16 cast of the transformer and head, the stacked
+decoder layers, the packed head) is kept across calls (:class:`_Memo`,
+rebuilt when a source leaf's ``data_ptr()`` or ``_version`` changes). The
+loops are objects whose carries are buffers that each step updates in place
+(:class:`_TokenLoop` for greedy, ``greedy_with_prefix`` and ``sample``,
+:class:`_BeamLoop`); ``chunk(i0, n)`` runs steps i0 .. i0+n-1 with ``i`` a
+Python int, as the eager loop always did.
+
+On a CUDA device the chunks are the counterpart of JAX's ``jax.jit`` +
+``lax.while_loop``: each key's session (ops/graphs.py) owns the carries,
+runs its first call eagerly, captures one CUDA graph per chunk start and
+replays them after, so the host dispatches one replay per CHECK_EVERY steps.
+Each call writes its inputs into the carries first (the cross K/V, BOS, the
+flags, step 0); the self caches are not cleared, since a step reads only
+slots that earlier steps of the same call wrote. The result is a copy, never
+the session's buffer. The kernels, the arithmetic and the tokens are the
+eager loop's. The loop stays eager:
+
+- on CPU tensors;
+- under an active mesh whose world is larger than one (its gloo or NCCL
+  collectives, ``_argmax_over_mp``, ``_topk_log_softmax_over_mp``,
+  ``_gather_vocab``, ``pmesh.any_over_dp``, are not captured), and for beam
+  under any active mesh (its dp check runs a collective in a world of one
+  too);
+- for beam's ``margins`` diagnostic, which reads every step on the host;
+- in ``greedy_with_attention``, a diagnostic at batch 1;
+- with the module flag ``CUDA_GRAPHS`` off, so that the two paths can be
+  compared on one card.
 
 Under an active mesh whose mp slices the tree (``parallel/mesh.shard_params``)
 the decoder runs tensor-parallel (``models/transformer.decode_step``) and
@@ -39,7 +68,11 @@ vocabulary, as JAX's Pallas head reads its operands whole under GSPMD.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import functools
+import threading
+import weakref
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,12 +80,55 @@ from retr_tpu_torch.config import Config
 from retr_tpu_torch.masking import Masked
 from retr_tpu_torch.models import caption, transformer
 from retr_tpu_torch.ops import decoder_kernels as dk
+from retr_tpu_torch.ops import graphs
 from retr_tpu_torch.parallel import mesh as pmesh
 from retr_tpu_torch.precision import dtype_of, matmul_precision
 
 Params = Dict[str, Any]
 
 CHECK_EVERY = 16  # steps between host checks of the loop's stop condition
+# On a CUDA device the loop's chunks run as captured CUDA graphs (the module's
+# docstring); False runs them eagerly, so the two can be compared on one card.
+CUDA_GRAPHS = True
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+class _Memo:
+    """A function of a parameter tree kept across decode calls: the entry of a
+    tree is found by its leaves' identities, and is valid while every leaf
+    is alive (weak references) with the ``data_ptr()`` and ``_version`` it
+    had when the entry was built. An in-place update (the trainer's AdamW
+    step, a checkpoint load) bumps ``_version``, so the entry is rebuilt and
+    a stale copy is never read. At most ``size`` entries, least recently used
+    first out. Built without autograd: the decode reads them only."""
+
+    size = 4
+
+    def __init__(self, build: Callable):
+        self.build = build
+        self.entries: OrderedDict = OrderedDict()
+        self.lock = threading.Lock()
+
+    def __call__(self, tree, *args):
+        leaves = _leaves(tree)
+        ident = (tuple(map(id, leaves)), args)
+        stamp = tuple((t.data_ptr(), t._version) for t in leaves)
+        with self.lock:
+            hit = self.entries.pop(ident, None)
+            if hit is None or hit[1] != stamp or any(r() is not t for r, t in zip(hit[0], leaves)):
+                with torch.no_grad():
+                    hit = (tuple(map(weakref.ref, leaves)), stamp, self.build(tree, *args))
+            self.entries[ident] = hit
+            while len(self.entries) > self.size:
+                self.entries.popitem(last=False)
+        return hit[2]
 
 
 def _cast_tree(tree, dtype):
@@ -63,46 +139,179 @@ def _cast_tree(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
+# The decode tree: the storage-type cast of the transformer and the head, the
+# decoder layers stacked as the kernels read them, the packed head. Kept
+# across calls, so the graphs of ops/graphs.py find their weights where they
+# were captured, and no call pays for the copies again.
+_cast = _Memo(_cast_tree)
+_decoder_tree = _Memo(transformer.prepare_decoder)
+_packed = _Memo(dk.pack_head)
+
+
 def _cast_for_decode(params: Params, memory, pos, compute_dtype):
     """Storage type of the decode loop: in bf16 mode the transformer and head
-    weights, the encoder memory and (allocated from it) the cross K/V and self
-    caches are bf16; f32 parity mode returns everything unchanged. LayerNorm and
-    softmax still compute in f32 inside the kernels."""
+    weights (kept across calls, ``_cast``), the encoder memory and (allocated
+    from it) the cross K/V and self caches are bf16; f32 parity mode returns
+    everything unchanged. LayerNorm and softmax still compute in f32 inside
+    the kernels."""
     dt = dtype_of(compute_dtype)
     if dt == torch.float32:
         return params, memory, pos
-    params = {**params, "transformer": _cast_tree(params["transformer"], dt),
-              "mlp": _cast_tree(params["mlp"], dt)}
+    params = {**params, "transformer": _cast(params["transformer"], dt), "mlp": _cast(params["mlp"], dt)}
     return params, memory.to(dt), pos.to(dt)
 
 
-def _token_loop(params: Params, cfg: Config, memory, mem_mask, pos, choose, *, max_len: int,
-                bos_token: int, eos_token: int, captions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The KV-cached loop of greedy, prefix completion and sampling: each step
-    decodes position i, ``choose(i, hs, captions)`` gives the [B] int32 tokens
-    of slot i+1, and the reference's write and stop rules apply to them.
-    ``captions``: a preset [B, max_len] buffer (forced tokens); slot 0 is set to
-    BOS here."""
-    b = memory.shape[0]
-    dev = memory.device
-    tparams = transformer.prepare_decoder(params["transformer"])
-    cache, cross = transformer.init_decode_state(tparams, memory, mem_mask, pos, cfg, max_len)
-    if captions is None:
-        captions = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
-    captions[:, 0] = bos_token
-    finished = torch.zeros(b, dtype=torch.bool, device=dev)
-    step = torch.zeros((), dtype=torch.int32, device=dev)
-    with matmul_precision(memory.dtype):
-        for i in range(max_len - 1):
-            if i and i % CHECK_EVERY == 0 and bool(finished.all()):
-                break
-            hs, cache = transformer.decode_step(tparams, cache, cross, captions[:, i], step, cfg)
-            tok = choose(i, hs, captions)
-            finished |= tok == eos_token
-            write = ~finished.all()  # all just finished: the reference skips this write
-            captions[:, i + 1] = torch.where(write, tok, captions[:, i + 1])
-            step += 1
-    return captions
+def _chunks(max_len: int) -> List[Tuple[int, int]]:
+    """(first step, steps) of each chunk between two host checks: the loop's
+    ``max_len - 1`` steps cut every CHECK_EVERY."""
+    return [(i0, min(CHECK_EVERY, max_len - 1 - i0)) for i0 in range(0, max_len - 1, CHECK_EVERY)]
+
+
+def _graphed(device: torch.device, collectives: bool = False) -> bool:
+    """Whether the loop runs as CUDA graphs: on a CUDA device with
+    ``CUDA_GRAPHS`` on, and no active mesh whose collectives the loop would
+    run (a world larger than one; ``collectives``: in a world of one too)."""
+    if not CUDA_GRAPHS or device.type != "cuda":
+        return False
+    mesh = pmesh.current()
+    return mesh is None or (mesh.world == 1 and not collectives)
+
+
+def _session_trees(tparams: Params, mlp: Params, head_p: Optional[Params]) -> list:
+    """What a session's graphs read of the decode tree, named in its key and
+    kept alive by it: the prepared decoder and the packed head (kept
+    across calls), and the head's leaves (a dict around them may be new on
+    every call)."""
+    return [t for t in (tparams, head_p) if t is not None] + _leaves(mlp)
+
+
+def _drive(loop, max_len: int, replay: Optional[Callable[[int], None]] = None) -> None:
+    """Run the loop's chunks, the host checking the stop condition before
+    each: eagerly, or by ``replay(first step)`` of the captured chunk."""
+    for i0, n in _chunks(max_len):
+        if loop.stopped(i0):
+            break
+        if replay is None:
+            loop.chunk(i0, n)
+        else:
+            replay(i0)
+
+
+def _run(new_loop: Callable, start: Callable, *, max_len: int, key: Optional[tuple] = None,
+         trees: Sequence = (), generator: Optional[torch.Generator] = None):
+    """Run a decode loop to its end and return its result. Without ``key``:
+    ``new_loop(generator)``, started by ``start(loop)`` and run eagerly.
+    With ``key``: the loop of the key's graph session (made on its first
+    call, its first run eager and then captured; replayed after). A sampling
+    session draws from a generator of its own, set to ``generator``'s state
+    before the run; ``generator`` takes its state after, as after an eager
+    run."""
+    if key is None:
+        loop = new_loop(generator)
+        start(loop)
+        _drive(loop, max_len)
+        return loop.result(owned=True)
+
+    def make():
+        own = None if generator is None else torch.Generator(device=generator.device)
+        loop = new_loop(own)
+        return graphs.Session(loop, trees, loop.step.device, own)
+
+    session = graphs.session(key, make)
+    with session.lock:
+        loop = session.loop
+        if generator is not None:
+            loop.generator.set_state(generator.get_state())
+        start(loop)
+        if session.graphs:
+            _drive(loop, max_len, session.replay)
+        else:
+            session.warm_up(functools.partial(_drive, loop, max_len))
+            session.capture([(i0, functools.partial(loop.chunk, i0, n)) for i0, n in _chunks(max_len)])
+        if generator is not None:
+            generator.set_state(loop.generator.get_state())
+        return loop.result(owned=False)
+
+
+class _TokenLoop:
+    """The carries of greedy, prefix completion and sampling, which
+    :meth:`chunk` updates in place: the [B, max_len] token buffer, the self
+    caches and cross K/V, the finished flags, the prefix lengths and the
+    step index the kernels read. ``choose(loop, i, hs)`` gives the [B] int32
+    tokens of slot i+1 from the hidden states of position i (and
+    ``loop.captions``, ``loop.prefix_lens``, ``loop.generator``)."""
+
+    def __init__(self, tparams: Params, cfg: Config, choose: Callable, *, rows: int, mem_len: int, max_len: int,
+                 eos_token: int, dtype, device, generator=None):
+        self.tparams, self.cfg, self.choose, self.eos = tparams, cfg, choose, eos_token
+        self.max_len, self.dtype, self.generator = max_len, dtype, generator
+        self.cache, self.cross = transformer.alloc_decode_state(tparams, cfg, rows, mem_len, max_len, dtype, device)
+        self.captions = torch.zeros((rows, max_len), dtype=torch.int32, device=device)
+        self.prefix_lens = torch.zeros(rows, dtype=torch.int32, device=device)
+        self.finished = torch.zeros(rows, dtype=torch.bool, device=device)
+        self.step = torch.zeros((), dtype=torch.int32, device=device)
+
+    def buffers(self) -> List[torch.Tensor]:
+        return [*self.cache, *self.cross, self.captions, self.prefix_lens, self.finished, self.step]
+
+    def start(self, memory, mem_mask, pos, bos_token: int, captions=None, prefix_lens=None) -> None:
+        """The prologue: the cross K/V of this memory, BOS in slot 0 of the
+        token buffer (or of ``captions``, a preset buffer of forced tokens),
+        no row finished, step 0."""
+        transformer.init_decode_state(self.tparams, memory, mem_mask, pos, self.cfg, self.max_len,
+                                      out=(self.cache, self.cross))
+        if captions is None:
+            self.captions.zero_()
+        else:
+            self.captions.copy_(captions)
+        self.captions[:, 0] = bos_token
+        if prefix_lens is not None:
+            self.prefix_lens.copy_(prefix_lens)
+        self.finished.zero_()
+        self.step.zero_()
+
+    def stopped(self, i0: int) -> bool:
+        """The host check before step ``i0``: every row finished."""
+        return i0 > 0 and bool(self.finished.all())
+
+    def chunk(self, i0: int, n: int) -> None:
+        """Steps i0 .. i0+n-1: each decodes position i, and the reference's
+        write and stop rules apply to the chosen tokens."""
+        with matmul_precision(self.dtype):
+            for i in range(i0, i0 + n):
+                hs, _ = transformer.decode_step(self.tparams, self.cache, self.cross, self.captions[:, i], self.step,
+                                                self.cfg)
+                tok = self.choose(self, i, hs)
+                self.finished |= tok == self.eos
+                write = ~self.finished.all()  # all just finished: the reference skips this write
+                self.captions[:, i + 1] = torch.where(write, tok, self.captions[:, i + 1])
+                self.step += 1
+
+    def result(self, owned: bool) -> torch.Tensor:
+        """The token buffer; a copy where the buffer is a session's."""
+        return self.captions if owned else self.captions.clone()
+
+
+def _token_run(kind: str, params: Params, cfg: Config, memory, mem_mask, pos, choose: Callable, *, max_len: int,
+               bos_token: int, eos_token: int, captions=None, prefix_lens=None, generator=None,
+               head_p: Optional[Params] = None, extra: tuple = (), cuda_graphs: bool = True) -> torch.Tensor:
+    """Greedy, prefix completion or sampling (``kind``) on the token loop:
+    eager, or the graphs of the session of its key (the module's docstring)."""
+    b, s = memory.shape[:2]
+    tparams = _decoder_tree(params["transformer"])
+
+    def new_loop(gen):
+        return _TokenLoop(tparams, cfg, choose, rows=b, mem_len=s, max_len=max_len, eos_token=eos_token,
+                          dtype=memory.dtype, device=memory.device, generator=gen)
+
+    def start(loop):
+        loop.start(memory, mem_mask, pos, bos_token, captions, prefix_lens)
+
+    key, trees = None, _session_trees(tparams, params["mlp"], head_p)
+    if cuda_graphs and _graphed(memory.device):
+        key = graphs.session_key(kind, memory, rows=b, beams=1, max_len=max_len, trees=trees,
+                                 extra=(cfg, eos_token, CHECK_EVERY, *extra))
+    return _run(new_loop, start, max_len=max_len, key=key, trees=trees, generator=generator)
 
 
 def _vocab_split(mlp: Params, cfg: Config) -> bool:
@@ -165,26 +374,29 @@ def _argmax_head(mlp: Params, cfg: Config, hs) -> torch.Tensor:
 
 
 def _packed_head(mlp: Params, cfg: Config) -> Params:
-    """The head as the head kernels read it (``pack_head``), its last layer
-    first gathered over mp where it is a vocabulary slice."""
+    """The head as the head kernels read it (``pack_head``, kept across calls),
+    its last layer first gathered over mp where it is a vocabulary slice
+    (then packed anew on every call: the gather is a collective)."""
     if _vocab_split(mlp, cfg):
         l3 = mlp["layers"][-1]
         w, b = pmesh.gather_leaves([l3["w"], l3["b"]], [(None, "mp"), ("mp",)], pmesh.current())
-        mlp = {**mlp, "layers": [*mlp["layers"][:-1], {"w": w, "b": b}]}
-    return dk.pack_head(mlp)
+        return dk.pack_head({**mlp, "layers": [*mlp["layers"][:-1], {"w": w, "b": b}]})
+    return _packed(mlp)
 
 
 def greedy_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, *,
-                       max_len: int, bos_token: int, eos_token: int) -> torch.Tensor:
+                       max_len: int, bos_token: int, eos_token: int, cuda_graphs: bool = True) -> torch.Tensor:
     """Greedy decode given the encoder output; returns the [B, max_len] int32
-    token buffer (on memory's device)."""
-    head_p = _packed_head(params["mlp"], cfg) if dk.HEAD_KERNEL else None
+    token buffer (on memory's device). ``cuda_graphs=False`` keeps the loop
+    eager (``greedy_with_attention``)."""
+    mlp = params["mlp"]
+    head_p = _packed_head(mlp, cfg) if dk.HEAD_KERNEL else None
 
-    def choose(i, hs, captions):
-        return dk.mlp_head_argmax(head_p, hs) if head_p is not None else _argmax_head(params["mlp"], cfg, hs)
+    def choose(loop, i, hs):
+        return dk.mlp_head_argmax(head_p, hs) if head_p is not None else _argmax_head(mlp, cfg, hs)
 
-    return _token_loop(params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
-                       eos_token=eos_token)
+    return _token_run("greedy", params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
+                      eos_token=eos_token, head_p=head_p, cuda_graphs=cuda_graphs)
 
 
 def _encode_for_decode(params, cfg, samples, global_samples, loc_feats, compute_dtype, filler_idx):
@@ -226,13 +438,14 @@ def greedy_with_prefix(params: Params, cfg: Config, samples: Masked, prefix: tor
     captions = torch.zeros((b, max_len), dtype=torch.int32, device=memory.device)
     cols = torch.arange(p, device=memory.device)[None, :]
     captions[:, 1:p + 1] = torch.where(cols < prefix_lens[:, None], prefix.to(torch.int32), 0)
+    mlp = params["mlp"]
 
-    def choose(i, hs, captions):
-        forced = i + 1 <= prefix_lens                 # position i+1 is in the prefix
-        return torch.where(forced, captions[:, i + 1], _argmax_head(params["mlp"], cfg, hs))
+    def choose(loop, i, hs):
+        forced = i + 1 <= loop.prefix_lens            # position i+1 is in the prefix
+        return torch.where(forced, loop.captions[:, i + 1], _argmax_head(mlp, cfg, hs))
 
-    return _token_loop(params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
-                       eos_token=eos_token, captions=captions)
+    return _token_run("prefix", params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
+                      eos_token=eos_token, captions=captions, prefix_lens=prefix_lens)
 
 
 def gumbel_argmax(logits: torch.Tensor, generator: torch.Generator,
@@ -306,16 +519,31 @@ def sample(params: Params, cfg: Config, samples: Masked, generator: torch.Genera
     distribution, and exactly where sampling reduces to argmax.
     ``noise_rows=(start, frame)``: the samples are rows start.. of a batch
     of ``frame`` rows, which each step's noise is drawn for (the sharded
-    sweep's dp ranks; :func:`gumbel_argmax`)."""
+    sweep's dp ranks; :func:`gumbel_argmax`). As CUDA graphs the session
+    draws from a generator of its own, registered with its graphs
+    (``CUDAGraph.register_generator_state``), given ``generator``'s state
+    before the decode and handing it back after: each replay draws fresh
+    noise, at the Philox offsets of the eager loop, so a seed gives the
+    eager loop's tokens."""
     params, memory, mem_mask, pos = _encode_for_decode(params, cfg, samples, global_samples, loc_feats,
                                                        compute_dtype, filler_idx)
+    return sample_from_memory(params, cfg, memory, mem_mask, pos, generator, max_len=max_len, bos_token=bos_token,
+                              eos_token=eos_token, temperature=temperature, top_k=top_k, top_p=top_p,
+                              noise_rows=noise_rows)
 
-    def choose(i, hs, captions):
-        return sample_tokens(_head_logits(params["mlp"], cfg, hs), generator, temperature=temperature, top_k=top_k,
+
+def sample_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, generator: torch.Generator, *,
+                       max_len: int, bos_token: int, eos_token: int, temperature: float = 1.0, top_k: int = 0,
+                       top_p: float = 1.0, noise_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """:func:`sample` given the encoder output."""
+    mlp = params["mlp"]
+
+    def choose(loop, i, hs):
+        return sample_tokens(_head_logits(mlp, cfg, hs), loop.generator, temperature=temperature, top_k=top_k,
                              top_p=top_p, noise_rows=noise_rows)
 
-    return _token_loop(params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
-                       eos_token=eos_token)
+    return _token_run("sample", params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
+                      eos_token=eos_token, generator=generator, extra=(temperature, top_k, top_p, noise_rows))
 
 
 def sequence_scores(params: Params, cfg: Config, samples: Masked, caps: torch.Tensor, cap_masks: torch.Tensor,
@@ -350,9 +578,10 @@ def greedy_with_attention(params: Params, cfg: Config, samples: Masked, *,
     so the ids and the maps come from one computation and the fused attention
     kernel is never launched."""
     cfg = cfg.replace(use_pallas_attention=False)
-    ids = greedy(params, cfg, samples, global_samples=global_samples, loc_feats=loc_feats,
-                 max_len=max_len, bos_token=bos_token, eos_token=eos_token, compute_dtype=compute_dtype,
-                 filler_idx=filler_idx)
+    dparams, memory, mem_mask, pos = _encode_for_decode(params, cfg, samples, global_samples, loc_feats,
+                                                        compute_dtype, filler_idx)
+    ids = greedy_from_memory(dparams, cfg, memory, mem_mask, pos, max_len=max_len, bos_token=bos_token,
+                             eos_token=eos_token, cuda_graphs=False)
     _, atts = caption.forward(params, cfg, samples, ids, ids == 0, global_samples=global_samples,
                               loc_feats=loc_feats, return_attention=True, compute_dtype=compute_dtype,
                               filler_idx=filler_idx)
@@ -380,6 +609,128 @@ def _beam_active(scores, finished, fin_len, step: int, *, length_penalty: float,
     return (~all_fin & (~any_fin | can_win | can_evict)).any()
 
 
+_NEG_INF = -1e9   # the score of a beam slot that is not live
+
+
+class _BeamLoop:
+    """The carries of beam search, which :meth:`chunk` updates in place: the
+    [B, K, max_len] token buffer, scores, finished flags and lengths, the
+    ancestry matrix (and its per-step scratch), the self caches and tiled
+    cross K/V, the device bool ``running`` (the JAX loop's condition) and
+    the step index the kernels read."""
+
+    def __init__(self, tparams: Params, mlp: Params, head_p: Optional[Params], cfg: Config, *, rows: int,
+                 beams: int, mem_len: int, max_len: int, eos_token: int, length_penalty: float, early_stop: bool,
+                 dtype, device, margins: Optional[list] = None):
+        self.tparams, self.mlp, self.head_p, self.cfg = tparams, mlp, head_p, cfg
+        self.k, self.max_len, self.eos, self.dtype = beams, max_len, eos_token, dtype
+        self.length_penalty, self.early_stop, self.margins = length_penalty, early_stop, margins
+        self.split = _vocab_split(mlp, cfg)
+        # beams share their element's memory, so the cross K/V are tiled and never
+        # reordered; the self caches use ancestry addressing instead of reordering
+        self.cache, self.cross = transformer.alloc_decode_state(tparams, cfg, rows * beams, mem_len, max_len,
+                                                                dtype, device)
+        shape = (rows, beams)
+        self.tokens = torch.zeros((*shape, max_len), dtype=torch.int32, device=device)
+        self.scores = torch.zeros(shape, dtype=torch.float32, device=device)
+        self.finished = torch.zeros(shape, dtype=torch.bool, device=device)
+        self.fin_len = torch.zeros(shape, dtype=torch.float32, device=device)
+        self.anc = torch.zeros((*shape, max_len), dtype=torch.int32, device=device)
+        self.anc_i = torch.zeros_like(self.anc)
+        self.running = torch.zeros((), dtype=torch.bool, device=device)
+        self.step = torch.zeros((), dtype=torch.int32, device=device)
+        self.beams = torch.arange(beams, dtype=torch.int32, device=device)
+        self.first_slot = self.beams == 0
+
+    def buffers(self) -> List[torch.Tensor]:
+        return [*self.cache, *self.cross, self.tokens, self.scores, self.finished, self.fin_len, self.anc,
+                self.anc_i, self.running, self.step, self.beams, self.first_slot]
+
+    def _active(self, step: int) -> torch.Tensor:
+        return pmesh.any_over_dp(_beam_active(self.scores, self.finished, self.fin_len, step,
+                                               length_penalty=self.length_penalty, early_stop=self.early_stop))
+
+    def start(self, memory, mem_mask, pos, bos_token: int) -> None:
+        """The prologue: the tiled cross K/V of this memory, BOS in slot 0 of
+        every beam, beam 0 of each element the only live score."""
+        k = self.k
+        transformer.init_decode_state(self.tparams, memory.repeat_interleave(k, dim=0),
+                                      mem_mask.repeat_interleave(k, dim=0), pos, self.cfg, self.max_len,
+                                      out=(self.cache, self.cross))
+        self.tokens.zero_()
+        self.tokens[:, :, 0] = bos_token
+        self.scores.copy_(torch.where(self.first_slot, 0.0, _NEG_INF).float().expand_as(self.scores))
+        self.finished.zero_()
+        self.fin_len.zero_()
+        self.anc.zero_()
+        self.step.zero_()
+        self.running.copy_(self._active(0))
+
+    def stopped(self, i0: int) -> bool:
+        """The host check before step ``i0``: the JAX loop's condition is false."""
+        return not bool(self.running)
+
+    def chunk(self, i0: int, n: int) -> None:
+        """Steps i0 .. i0+n-1 of the beam loop. Steps past the JAX loop's stop
+        still run until the next host check: their carry updates are gated off
+        by ``running``, and the cache slots they write (at positions no kept
+        token reaches) are never read by a step whose result is kept."""
+        b, k, t = self.tokens.shape
+        eos = self.eos
+        with matmul_precision(self.dtype):
+            for i in range(i0, i0 + n):
+                self.anc_i.copy_(self.anc)
+                self.anc_i[:, :, i] = self.beams      # position i is written by each beam's own row
+                hs, _ = transformer.decode_step_beam(self.tparams, self.cache, self.cross,
+                                                     self.tokens[:, :, i].reshape(b * k), self.step, self.cfg,
+                                                     self.anc_i, k)
+                if self.head_p is not None:
+                    row_scores, row_tokens = dk.mlp_head_topk(self.head_p, hs, k)
+                else:
+                    logits = caption.mlp_head(self.mlp, hs).float()
+                    row_scores, row_tokens = (_topk_log_softmax_over_mp if self.split else dk.topk_log_softmax)(
+                        logits, k)
+                row_scores, row_tokens = row_scores.view(b, k, k), row_tokens.view(b, k, k)
+
+                # finished beams: one EOS continuation at no cost
+                fin = self.finished[:, :, None]
+                row_scores = torch.where(fin, torch.where(self.first_slot, 0.0, _NEG_INF), row_scores)
+                row_tokens = torch.where(fin, eos, row_tokens)
+
+                cand = (self.scores[:, :, None] + row_scores).view(b, k * k)
+                if self.margins is not None:
+                    top = dk.topk_first(cand, min(k + 1, k * k))[0]
+                    self.margins.append(top[:, k - 1] - top[:, -1])
+                top_scores, top_idx = dk.topk_first(cand, k)
+                beam_idx = top_idx // k
+                tok = row_tokens.view(b, k * k).gather(1, top_idx)
+                rows = beam_idx[:, :, None].expand(b, k, t)
+                new_tokens = self.tokens.gather(1, rows)
+                new_tokens[:, :, i + 1] = tok
+                prev_fin = self.finished.gather(1, beam_idx)
+                ends = tok == eos
+                new_fin_len = torch.where(~prev_fin & ends, float(i + 1), self.fin_len.gather(1, beam_idx))
+
+                running = self.running
+                self.tokens.copy_(torch.where(running, new_tokens, self.tokens))
+                self.scores.copy_(torch.where(running, top_scores, self.scores))
+                self.finished.copy_(torch.where(running, prev_fin | ends, self.finished))
+                self.fin_len.copy_(torch.where(running, new_fin_len, self.fin_len))
+                self.anc.copy_(torch.where(running, self.anc_i.gather(1, rows), self.anc))
+                self.running &= self._active(i + 1)
+                self.step += 1
+
+    def result(self, owned: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The length-normalised ranking: tokens after BOS up to and including
+        the first EOS. New tensors, whoever owns the buffers."""
+        b, k, t = self.tokens.shape
+        is_eos = self.tokens == self.eos
+        length = torch.where(is_eos.any(dim=-1), is_eos.int().argmax(dim=-1), t - 1).float()
+        norm = self.scores / length.clamp_min(1.0) ** self.length_penalty
+        norm, order = dk.topk_first(norm, k)
+        return self.tokens.gather(1, order[:, :, None].expand(b, k, t)), norm
+
+
 def beam_search_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, *, max_len: int,
                             bos_token: int, eos_token: int, beam_size: int,
                             length_penalty: float = 1.0, early_stop: bool = True,
@@ -399,86 +750,27 @@ def beam_search_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, 
     the whole batch.
 
     ``margins``: if a list, each step appends the [B] gap between the k-th and
-    (k+1)-th candidate of the k*k shortlist (a diagnostic for parity checks).
+    (k+1)-th candidate of the k*k shortlist (a diagnostic for parity checks;
+    the loop then runs eagerly).
     """
-    b = memory.shape[0]
-    k = beam_size
-    dev = memory.device
-    neg_inf = -1e9
-    # beams share their element's memory, so the cross K/V are tiled and never
-    # reordered; the self caches use ancestry addressing instead of reordering
-    mem_t = memory.repeat_interleave(k, dim=0)
-    mask_t = mem_mask.repeat_interleave(k, dim=0)
-    tparams = transformer.prepare_decoder(params["transformer"])
-    cache, cross = transformer.init_decode_state(tparams, mem_t, mask_t, pos, cfg, max_len)
+    b, s = memory.shape[:2]
+    tparams = _decoder_tree(params["transformer"])
+    mlp = params["mlp"]
+    head_p = _packed_head(mlp, cfg) if dk.BEAM_TOPK_KERNEL else None
 
-    tokens = torch.zeros((b, k, max_len), dtype=torch.int32, device=dev)
-    tokens[:, :, 0] = bos_token
-    beams = torch.arange(k, dtype=torch.int32, device=dev)
-    scores = torch.where(beams == 0, 0.0, neg_inf).float().expand(b, k).contiguous()
-    finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
-    fin_len = torch.zeros((b, k), dtype=torch.float32, device=dev)
-    anc = torch.zeros((b, k, max_len), dtype=torch.int32, device=dev)
-    first_slot = beams == 0
-    step = torch.zeros((), dtype=torch.int32, device=dev)
-    running = pmesh.any_over_dp(_beam_active(scores, finished, fin_len, 0, length_penalty=length_penalty,
-                                             early_stop=early_stop))
-    head_p = _packed_head(params["mlp"], cfg) if dk.BEAM_TOPK_KERNEL else None
-    split = _vocab_split(params["mlp"], cfg)
-    with matmul_precision(memory.dtype):
-        for i in range(max_len - 1):
-            if i % CHECK_EVERY == 0 and not bool(running):
-                break
-            # Steps past the JAX loop's stop still run until the next host check:
-            # their carry updates are gated off below, and the cache slots they
-            # write (at positions no kept token reaches) are never read by a step
-            # whose result is kept.
-            anc_i = anc.clone()
-            anc_i[:, :, i] = beams          # position i is written by each beam's own row
-            hs, cache = transformer.decode_step_beam(tparams, cache, cross, tokens[:, :, i].reshape(b * k),
-                                                     step, cfg, anc_i, k)
-            if dk.BEAM_TOPK_KERNEL:
-                row_scores, row_tokens = dk.mlp_head_topk(head_p, hs, k)
-            else:
-                logits = caption.mlp_head(params["mlp"], hs).float()
-                row_scores, row_tokens = (_topk_log_softmax_over_mp if split else dk.topk_log_softmax)(logits, k)
-            row_scores, row_tokens = row_scores.view(b, k, k), row_tokens.view(b, k, k)
+    def new_loop(gen):
+        return _BeamLoop(tparams, mlp, head_p, cfg, rows=b, beams=beam_size, mem_len=s, max_len=max_len,
+                         eos_token=eos_token, length_penalty=length_penalty, early_stop=early_stop,
+                         dtype=memory.dtype, device=memory.device, margins=margins)
 
-            # finished beams: one EOS continuation at no cost
-            fin = finished[:, :, None]
-            row_scores = torch.where(fin, torch.where(first_slot, 0.0, neg_inf), row_scores)
-            row_tokens = torch.where(fin, eos_token, row_tokens)
+    def start(loop):
+        loop.start(memory, mem_mask, pos, bos_token)
 
-            cand = (scores[:, :, None] + row_scores).view(b, k * k)
-            if margins is not None:
-                top = dk.topk_first(cand, min(k + 1, k * k))[0]
-                margins.append(top[:, k - 1] - top[:, -1])
-            top_scores, top_idx = dk.topk_first(cand, k)
-            beam_idx = top_idx // k
-            tok = row_tokens.view(b, k * k).gather(1, top_idx)
-            rows = beam_idx[:, :, None].expand(b, k, max_len)
-            new_tokens = tokens.gather(1, rows)
-            new_tokens[:, :, i + 1] = tok
-            prev_fin = finished.gather(1, beam_idx)
-            ends = tok == eos_token
-            new_fin_len = torch.where(~prev_fin & ends, float(i + 1), fin_len.gather(1, beam_idx))
-
-            tokens = torch.where(running, new_tokens, tokens)
-            scores = torch.where(running, top_scores, scores)
-            finished = torch.where(running, prev_fin | ends, finished)
-            fin_len = torch.where(running, new_fin_len, fin_len)
-            anc = torch.where(running, anc_i.gather(1, rows), anc)
-            running = running & pmesh.any_over_dp(_beam_active(scores, finished, fin_len, i + 1,
-                                                               length_penalty=length_penalty,
-                                                               early_stop=early_stop))
-            step += 1
-
-    # length-normalised ranking: tokens after BOS up to and including the first EOS
-    is_eos = tokens == eos_token
-    length = torch.where(is_eos.any(dim=-1), is_eos.int().argmax(dim=-1), max_len - 1).float()
-    norm = scores / length.clamp_min(1.0) ** length_penalty
-    norm, order = dk.topk_first(norm, k)
-    return tokens.gather(1, order[:, :, None].expand(b, k, max_len)), norm
+    key, trees = None, _session_trees(tparams, mlp, head_p)
+    if margins is None and _graphed(memory.device, collectives=True):
+        key = graphs.session_key("beam", memory, rows=b, beams=beam_size, max_len=max_len, trees=trees,
+                                 extra=(cfg, eos_token, length_penalty, early_stop, CHECK_EVERY))
+    return _run(new_loop, start, max_len=max_len, key=key, trees=trees)
 
 
 def beam_search(params: Params, cfg: Config, samples: Masked, *,

@@ -262,7 +262,8 @@ class CrossContext(NamedTuple):
 def prepare_decoder(params: Params) -> Params:
     """Decoder parameters in the layout the decode kernels read: the layers
     stacked leaf-wise into contiguous [L, ...] tensors (``stacked``) and
-    ``layers`` as per-layer views into them. Done once per decode call."""
+    ``layers`` as per-layer views into them. The decode entry points keep
+    the result across calls (decode.py's decode tree)."""
     dec = params["decoder"]
     stacked = dk.stack_layer_params(dec["layers"])
     views = [dk.layer_params(stacked, li) for li in range(len(dec["layers"]))]
@@ -275,26 +276,40 @@ def local_heads(mha: Params, cfg: Config) -> int:
     return cfg.nheads * mha["q"]["w"].shape[1] // cfg.hidden_dim
 
 
-def init_decode_state(params: Params, memory: torch.Tensor, mem_pad_mask: torch.Tensor,
-                      pos: torch.Tensor, cfg: Config, max_len: int) -> Tuple[DecodeCache, CrossContext]:
-    """Precompute the cross-attention K (from memory + pos) and V (from memory)
-    of every decoder layer once, and allocate zeroed self caches: the heads
-    each block holds (:func:`local_heads`; an mp slice's own, whose k/v
-    weights are its columns)."""
-    b = memory.shape[0]
+def alloc_decode_state(params: Params, cfg: Config, batch: int, mem_len: int, max_len: int, dtype,
+                       device) -> Tuple[DecodeCache, CrossContext]:
+    """The decode state's buffers for ``batch`` rows and ``mem_len`` memory
+    positions: zeroed self caches, and cross K/V and key bias for
+    :func:`init_decode_state` to fill, of the heads each block holds
+    (:func:`local_heads`; an mp slice's own, whose k/v weights are its
+    columns)."""
     dh = cfg.head_dim
+    lp = params["decoder"]["layers"][0]
+    self_shape = (cfg.dec_layers, batch, local_heads(lp["self_attn"]["mha"], cfg), max_len, dh)
+    cross_shape = (cfg.dec_layers, batch, local_heads(lp["cross_attn"]["mha"], cfg), mem_len, dh)
+    cache = DecodeCache(*(torch.zeros(self_shape, dtype=dtype, device=device) for _ in range(2)))
+    cross = CrossContext(*(torch.empty(cross_shape, dtype=dtype, device=device) for _ in range(2)),
+                         torch.empty((batch, mem_len), dtype=torch.float32, device=device))
+    return cache, cross
+
+
+def init_decode_state(params: Params, memory: torch.Tensor, mem_pad_mask: torch.Tensor,
+                      pos: torch.Tensor, cfg: Config, max_len: int,
+                      out: Optional[Tuple[DecodeCache, CrossContext]] = None) -> Tuple[DecodeCache, CrossContext]:
+    """Compute the cross-attention K (from memory + pos) and V (from memory)
+    of every decoder layer once, into ``out`` (buffers of
+    :func:`alloc_decode_state`, by default new ones); the self caches are
+    left as they are: a decode step reads only the slots that earlier steps
+    of the same decode wrote."""
+    cache, cross = out if out is not None else alloc_decode_state(params, cfg, memory.shape[0], memory.shape[1],
+                                                                   max_len, memory.dtype, memory.device)
     kp = _with_pos(memory, pos[None, :, :])
-    cross_k, cross_v = [], []
-    for lp in params["decoder"]["layers"]:
+    for li, lp in enumerate(params["decoder"]["layers"]):
         mha = lp["cross_attn"]["mha"]
         h = local_heads(mha, cfg)
-        cross_k.append(layers.split_heads(layers.linear(mha["k"], kp), h))
-        cross_v.append(layers.split_heads(layers.linear(mha["v"], memory), h))
-    shape = (cfg.dec_layers, b, local_heads(params["decoder"]["layers"][0]["self_attn"]["mha"], cfg), max_len, dh)
-    cache = DecodeCache(torch.zeros(shape, dtype=memory.dtype, device=memory.device),
-                        torch.zeros(shape, dtype=memory.dtype, device=memory.device))
-    cross = CrossContext(torch.stack(cross_k).contiguous(), torch.stack(cross_v).contiguous(),
-                         key_padding_bias(mem_pad_mask)[:, 0, 0, :].contiguous())
+        cross.cross_k[li].copy_(layers.split_heads(layers.linear(mha["k"], kp), h))
+        cross.cross_v[li].copy_(layers.split_heads(layers.linear(mha["v"], memory), h))
+    cross.mem_bias.copy_(key_padding_bias(mem_pad_mask)[:, 0, 0, :])
     return cache, cross
 
 

@@ -7,7 +7,7 @@ the CPU, and the dispatch between it and the plain attention core
 ``[B, Sk]`` f32 key bias and an optional causal mask. The kernel is
 csrc/attention_kernels.cu, built with the decoder kernels
 (``decoder_kernels.build()``); its launches are counted in
-``LAUNCHES["fused_attention"]`` (the decoder kernels' dict).
+``decoder_kernels.LAUNCHES["fused_attention"]``.
 
 A CPU tensor goes to :func:`fused_attention_plain`, which repeats the TPU
 kernel's arithmetic; a CUDA tensor launches the kernel or raises. The wrapper
@@ -30,7 +30,6 @@ import torch
 from retr_tpu_torch.ops import decoder_kernels as dk
 
 NEG_INF = -1e30  # finite sentinel: an all-masked row stays finite
-LAUNCHES = dk.LAUNCHES
 _SMEM_MAX = 232448  # a block's shared-memory limit on Hopper
 _MMA_DIMS = (16, 32, 64)  # head dims of the tensor-core kernel
 _QT, _KT, _NSTG = 32, 64, 3  # its query rows per block, keys per ring stage, ring stages
@@ -150,7 +149,7 @@ def fused_attention(q, k, v, key_bias: Optional[torch.Tensor] = None, *,
             causal=int(causal), tile=plan["rows"], mma=int(plan["path"] == "mma"), scale=float(d) ** -0.5,
             key_bias=0 if key_bias is None else key_bias,
             q=q, k=k, v=v, out=out)
-    LAUNCHES["fused_attention"] += 1
+    dk._count("fused_attention")
     return out
 
 

@@ -33,7 +33,9 @@ copied: the CUDA kernels take any batch.
 
 Dispatch: a CPU tensor goes to the plain version (``*_plain``), which repeats
 the TPU kernel's arithmetic with torch ops; a CUDA tensor launches a kernel or
-raises. ``LAUNCHES`` counts kernel launches per wrapper (plain calls never count).
+raises. ``LAUNCHES`` counts kernel launches per wrapper (plain calls never
+count); a launch captured into a CUDA graph counts each time the graph is
+replayed (ops/graphs.py).
 
 Numerics shared by both versions (the TPU kernels'): products cast the
 activation to the weight's type and accumulate in f32; LayerNorm (eps 1e-5) and
@@ -62,6 +64,7 @@ unsharded one up to the order of the head sum.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict
 
 import numpy as np
@@ -98,9 +101,21 @@ HEAD_ALIGN = 8         # the head kernels read W3 rows padded to a multiple of 8
 HEAD_HIDDEN_ALIGN = 32  # ... and a hidden width padded to a multiple of 32 (pack_head)
 
 
+# While ops/graphs.py captures a CUDA graph on a thread, that thread's wrappers
+# count into ``_capture.tally`` instead: a captured kernel runs only when the
+# graph is replayed, and each replay adds the tally to LAUNCHES.
+_capture = threading.local()
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add the launches of a replayed graph (its capture's tally) to LAUNCHES."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n
 
 
 def decode_kernels_fit(c: int, num_heads: int, f: int = 256, num_beams: int = 1, inner=None) -> bool:
@@ -532,8 +547,12 @@ def _attn_inner(kernel: str, m: Params, c: int, num_heads: int, partial: bool) -
     return inner
 
 
-def _count(kernel: str, partial) -> None:
-    LAUNCHES[kernel + "_partial" if partial else kernel] += 1
+def _count(kernel: str, partial=False) -> None:
+    name = kernel + "_partial" if partial else kernel
+    counts = getattr(_capture, "tally", None)
+    if counts is None:
+        counts = LAUNCHES
+    counts[name] = counts.get(name, 0) + 1
 
 
 def _width_launch(kernel: str, entry: str, ref: torch.Tensor, /, **fields) -> None:
@@ -986,7 +1005,7 @@ def mlp_head_argmax(p: Params, x: torch.Tensor) -> torch.Tensor:
     _run("head_kernels", "rt_head_trunk", x, B=b, C=c, Hd=hd, x=x, h1=h[0], h2=h[1], **t)
     vals, idx, _, _ = _head_slabs("mlp_head_argmax", p, h[1], 1)
     best = vals[:, :, 0].argmax(dim=1, keepdim=True)       # first slab on ties
-    LAUNCHES["mlp_head_argmax"] += 1
+    _count("mlp_head_argmax")
     return idx[:, :, 0].gather(1, best)[:, 0]
 
 
@@ -1014,5 +1033,5 @@ def mlp_head_topk(p: Params, x: torch.Tensor, k: int):
     # (slab, slot) order is (value desc, id asc) within a slab and ids ascend
     # across slabs, so position ties break as id ties
     top, pos = topk_first(vals.view(n, -1), k)
-    LAUNCHES["mlp_head_topk"] += 1
+    _count("mlp_head_topk")
     return (top - m) - log_z, idx.view(n, -1).gather(1, pos)

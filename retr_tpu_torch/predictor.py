@@ -16,7 +16,9 @@ kernels, then pruning and detokenization.
     pred.predict_with_attention(image, bbox)           # (text, attention maps)
 
 Each chunk of up to ``max_batch`` requests is padded to ``max_batch`` rows by
-repeating its last request, as the JAX package does. Sampling draws from a
+repeating its last request, as the JAX package does, so on a CUDA device each
+decoder has one graph session (decode.py, ops/graphs.py): its first batch
+runs the loop eagerly and captures it, later batches replay it. Sampling draws from a
 ``torch.Generator`` seeded with ``layers.fold_in(seed, chunk)``, the counterpart
 of ``fold_in(key(seed), chunk)``.
 
@@ -273,9 +275,11 @@ class ServingQueue:
     future) and runs the decode; the COLLECTOR waits for each batch's tokens,
     detokenizes and resolves the futures. Up to ``pipeline_depth`` batches wait
     between them; a full pipeline blocks the dispatcher, whose next batch then
-    keeps filling. The decode loop runs on the dispatcher's thread and holds
-    the GIL between torch calls; preprocessing in the C++ core and the
-    collector's wait release it. Both threads run on the predictor's device.
+    keeps filling. The decode loop runs on the dispatcher's thread: on a CUDA
+    device it replays captured graphs, one host call per ``decode.CHECK_EVERY``
+    steps (the first batch of a decoder captures them, under the session's
+    lock), eagerly elsewhere, holding the GIL between torch calls;
+    preprocessing in the C++ core and the collector's wait release it. Both threads run on the predictor's device.
     Batch ``n`` of the queue's life samples with seed ``(0, n)``.
 
         q = ServingQueue(pred)

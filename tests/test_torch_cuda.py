@@ -11,7 +11,10 @@ the f32_parity rule, ``score`` through the attention kernel and
 ``predict_with_attention`` without it); a dp=2 world of two processes on
 the one card over gloo, whose two f32 train steps equal the world of one's;
 the split blocks' partial (tensor-parallel) mode at the tiny and the served
-width.
+width; the decode loop replayed as CUDA graphs against the eager loop
+(greedy stacked and trio, prefix completion, beam with the top-k head off
+and on, sampling; bit-equal buffers and equal launch counts) and sampling's
+replayed draws in distribution.
 Run on the card with
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -28,6 +31,7 @@ from retr_tpu_torch.data.pipeline import Batch
 from retr_tpu_torch.models import weights
 from retr_tpu_torch.ops import attention as fa
 from retr_tpu_torch.ops import decoder_kernels as dk
+from retr_tpu_torch.ops import graphs
 from retr_tpu_torch.precision import matmul_precision
 from retr_tpu_torch.train import state as tstate
 
@@ -1067,3 +1071,140 @@ def test_dp2_world_on_one_card_over_gloo_matches_the_world_of_one(dev, tmp_path)
     for r in ranks:
         assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(r["losses"], want)), (r["losses"], want)
     assert os.path.exists(out_dir / "2x1_train.r1.pt")
+
+
+# ---------------------------------------------------------------------------------
+# The decode loop as CUDA graphs (ops/graphs.py) against the eager loop
+# ---------------------------------------------------------------------------------
+
+GRAPH_WIDTHS = {"tiny": (dict(TINY, max_position_embeddings=40), torch.float32),
+                "served": (dict(SERVE_CFG, max_position_embeddings=40, compute_dtype="bfloat16"), torch.bfloat16)}
+GRAPH_CASES = ["greedy", "greedy trio", "prefix", "beam", "beam topk", "sample"]
+
+
+@pytest.fixture
+def graph_flags():
+    """No session before the test or after it; decode.CUDA_GRAPHS and the
+    kernel flags restored."""
+    old = decode.CUDA_GRAPHS, dk.LAYER_GRID, dk.BEAM_TOPK_KERNEL
+    graphs.clear()
+    yield
+    decode.CUDA_GRAPHS, dk.LAYER_GRID, dk.BEAM_TOPK_KERNEL = old
+    graphs.clear()
+
+
+def _bits_equal(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(_bits_equal(x, y) for x, y in zip(a, b))
+    if a.is_floating_point():
+        return torch.equal(a.view(torch.int32 if a.element_size() == 4 else torch.int16),
+                           b.view(torch.int32 if b.element_size() == 4 else torch.int16))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+@pytest.mark.parametrize("width", list(GRAPH_WIDTHS))
+def test_graph_decode_equals_the_eager_loop(dev, graph_flags, width, case):
+    """On one card, decode.CUDA_GRAPHS on against off, at the tiny width (f32,
+    csrc/width_kernels.cu) and the served one (bf16, the tuned kernels):
+    max_len 40 with EOS out of reach, so all three chunks (16, 16 and 7
+    steps) run. The key's first call (eager on the session's buffers, then
+    the capture) and two replays give the eager loop's buffers bit for bit
+    (sampling: the same seed, and the generator's state after it), each in
+    a buffer of its own, and the replays count the eager loop's launches.
+    Before the second replay the session's self caches are filled with NaN:
+    a step reads only slots written earlier in the same call."""
+    cfg_kw, dtype = GRAPH_WIDTHS[width]
+    cfg = Config(**cfg_kw)
+    torch.manual_seed(0)
+    params = weights.to_params(weights.reference_module(cfg).state_dict(), cfg, device=dev)
+    n = 3 if case.startswith("beam") else 5
+    gen = torch.Generator(device=dev).manual_seed(1)
+    size = cfg.image_size
+    samples = Masked(torch.randn(n, 3, size, size, generator=gen, device=dev),
+                     torch.zeros(n, size, size, dtype=torch.bool, device=dev))
+    prefix = torch.randint(4, cfg.vocab_size, (n, 6), generator=gen, device=dev, dtype=torch.int32)
+    lens = torch.tensor([0, 2, 6, 3, 1], dtype=torch.int32, device=dev)
+    kw = dict(max_len=40, bos_token=1, eos_token=-1, compute_dtype=dtype)
+    dk.LAYER_GRID = case != "greedy trio"
+    dk.BEAM_TOPK_KERNEL = case == "beam topk"
+
+    def run():
+        if case.startswith("greedy"):
+            return decode.greedy(params, cfg, samples, **kw)
+        if case == "prefix":
+            return decode.greedy_with_prefix(params, cfg, samples, prefix, lens, **kw)
+        if case == "sample":
+            g = torch.Generator(device=dev).manual_seed(7)
+            out = decode.sample(params, cfg, samples, g, top_k=50, top_p=0.9, **kw)
+            return out, g.get_state().to(dev)
+        return decode.beam_search(params, cfg, samples, beam_size=3, length_penalty=0.7, **kw)
+
+    def counted():
+        torch.cuda.synchronize()
+        dk.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        return out, dict(dk.LAUNCHES)
+
+    decode.CUDA_GRAPHS = False
+    eager, eager_counts = counted()
+    assert graphs.sessions() == []
+    decode.CUDA_GRAPHS = True
+    outs = [counted()]
+    (session,) = graphs.sessions()
+    assert sorted(session.graphs) == [0, 16, 32] and session.pool_bytes >= 0
+    outs.append(counted())
+    for c in session.loop.cache:
+        c.fill_(float("nan"))
+    outs.append(counted())
+    for out, counts in outs:
+        assert counts == eager_counts, (counts, eager_counts)
+        assert _bits_equal(out, eager)
+    assert len({(o[0] if isinstance(o, tuple) else o).data_ptr() for o, _ in outs}) == len(outs)
+
+
+FIXED_LOGITS = [0.3, 2.0, -1.0, 1.2, 0.8, -2.0, 1.5, 0.0, -0.5, 1.0, -1.5, 0.5]   # tests/test_torch_decode.py's
+
+
+def _kept_probs(temperature, top_k, top_p):
+    """tests/test_torch_decode.py's rule: the renormalised distribution the
+    filters leave on FIXED_LOGITS (the top-k shortlist, then the smallest
+    prefix whose mass reaches top_p, at least one token)."""
+    z = torch.tensor(FIXED_LOGITS, dtype=torch.float64) / temperature
+    order = torch.argsort(-z, stable=True)
+    if 0 < top_k < len(z):
+        order = order[:top_k]
+    p = torch.softmax(z[order], dim=0)
+    keep = torch.cat([torch.ones(1, dtype=torch.bool), torch.cumsum(p, 0)[:-1] < top_p])
+    out = torch.zeros(len(z), dtype=torch.float64)
+    out[order[keep]] = p[keep] / p[keep].sum()
+    return out
+
+
+@pytest.mark.parametrize("temperature,top_k,top_p", [(1.0, 0, 1.0), (0.8, 4, 0.7)])
+def test_graph_sampling_draws_in_distribution(dev, graph_flags, temperature, top_k, top_p):
+    """Sampling through the replayed graphs on fixed logits (vocab 12, a zero
+    last head layer whose bias is FIXED_LOGITS; 400 rows x 50 steps, EOS out
+    of reach): each token's frequency within 0.015 of its renormalised
+    probability, as the CPU test holds retr_tpu's and the port's draws; the
+    replays draw fresh noise (two seeds, two buffers; one seed, one)."""
+    cfg = Config(**{**SERVE_CFG, "vocab_size": 12, "max_position_embeddings": 51})
+    torch.manual_seed(0)
+    params = weights.to_params(weights.reference_module(cfg).state_dict(), cfg, device=dev)
+    last = params["mlp"]["layers"][-1]
+    params["mlp"]["layers"][-1] = {"w": torch.zeros_like(last["w"]),
+                                   "b": torch.tensor(FIXED_LOGITS, device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    samples = Masked(torch.randn(400, 3, 64, 64, generator=gen, device=dev),
+                     torch.zeros(400, 64, 64, dtype=torch.bool, device=dev))
+    kw = dict(max_len=51, bos_token=1, eos_token=-1, temperature=temperature, top_k=top_k, top_p=top_p)
+    runs = [decode.sample(params, cfg, samples, torch.Generator(device=dev).manual_seed(s), **kw)[:, 1:].cpu()
+            for s in (4, 5, 6, 5)]
+    assert len(graphs.sessions()) == 1
+    want = _kept_probs(temperature, top_k, top_p)
+    for draws in runs[1:]:
+        freq = torch.bincount(draws.flatten().long(), minlength=12).double() / draws.numel()
+        assert draws.numel() == 20000 and float((freq - want).abs().max()) <= 0.015, (freq, want)
+        assert set(draws.unique().tolist()) <= set(want.nonzero().flatten().tolist())
+    assert not torch.equal(runs[1], runs[2]) and torch.equal(runs[1], runs[3])
