@@ -100,22 +100,33 @@ Phases (any failure raises, exits non-zero and prints no result line):
      a near-tie (gap below 1e-4 between its k-th and (k+1)-th candidate, or
      between its two best final scores);
   6. training at full width (random seeded weights, dropout 0.1): 3 train
-     steps at batch 32 in bf16 and 3 in f32 (ms per step, losses finite) and
-     a fourth under torch.profiler (device time by kernel, idle share); the
-     bf16 validation loss at batch 32 with use_pallas_attention off and on
-     (equal within 1e-4 relative; fused_attention launched 18 times per eval
-     step: 6 encoder, 6 causal decoder, 6 cross); one f32 step at batch 2,
-     dropout 0, on the GPU and on the CPU (loss within 1e-4 and pre-clip
-     gradient norm within 1e-3 relative);
+     steps at batch 32 in bf16 and 3 in f32 through the step's CUDA graph
+     (the key's eager first call, the capture and its replay, a replay: ms
+     per step, losses finite) and a fourth under torch.profiler (device time
+     by kernel, idle share); per type a ``train_graphs`` line: graph against
+     eager steps (state.CUDA_GRAPHS off), 3 each from the same start with
+     cuDNN's deterministic algorithms, parameters, moments, step counters,
+     losses and grad norms bit-equal (or an AssertionError), whether two
+     default eager runs repeat, and with cuDNN's defaults ms a step over 8
+     chained steps, the idle share of one profiled step, capture seconds and
+     pool MiB for each; the bf16 validation loss at batch 32 with
+     use_pallas_attention off and on (equal within 1e-4 relative;
+     fused_attention launched 18 times per eval step: 6 encoder, 6 causal
+     decoder, 6 cross, and 18 in one replay alone; the graph's losses
+     bit-equal to the eager step's); one f32 step at batch 2, dropout 0, on
+     the GPU and on the CPU (loss within 1e-4 and pre-clip gradient norm
+     within 1e-3 relative);
   6b. train_epoch, the training and evaluation loop (retr_tpu_torch.engine) at
      the served width in bf16, dropout 0.1, on a synthetic RefCOCO written to a
      temporary directory (128 images of 240-640 px saved by np.save under
      COCO's .jpg names, which preprocess.load_image reads without Pillow,
      100 training and 40 validation annotations with 1-3 expressions each): build_dataset and a
      shuffled DataLoader at batch 32 (an epoch of the loader alone first),
-     two epochs of train_one_epoch (staged uploads off, then on; seconds,
-     steps/s, samples/s, loss, peak memory) and four more with the two in
-     turns, the batches of staged and inline uploads bit-equal, an epoch
+     two epochs of train_one_epoch through the step's CUDA graph (staged
+     uploads off, then on; seconds, steps/s, samples/s, loss, peak memory,
+     idle share: 1 - the device busy time of a profiled epoch of the same
+     kind over the epoch's seconds) and four more with the two in turns, the
+     batches of staged and inline uploads bit-equal, an epoch of each kind
      under torch.profiler; the scorer on the references themselves (BLEU-1
      and ROUGE-L 1); evaluate on the validation split with
      use_pallas_attention (18 fused_attention launches a batch); eval_model
@@ -135,7 +146,9 @@ Phases (any failure raises, exits non-zero and prints no result line):
      untrained checkpoint, whose captions are not empty, the CLI's hypotheses
      equal to engine.eval_model's on the same parameters, greedy and beam;
      export_pth, Predictor.from_checkpoint of each directory against its .pth
-     (parameters bit-equal, 8 captions and 8 scores equal); one ``main`` line;
+     (parameters bit-equal, 8 captions and 8 scores equal); the resumed
+     run's step sessions (a captured train step among them); one ``main``
+     line;
   6d. parallel, the (dp, mp) mesh at the served width on 6b's synthetic
      RefCOCO: worlds of processes on the one card, (c) mp=2 and (b) dp=2 over
      gloo (NCCL refuses two ranks on one device), then (a) a world of one over
@@ -178,6 +191,10 @@ and prints a digest of the tree's stacked step on seeded inputs
     python3 chip_smoke.py --graphs
 
 runs phase 4c alone (after the build), at the served width.
+
+    python3 chip_smoke.py --train
+
+runs phases 6 and 6b alone (after the build).
 
     python3 chip_smoke.py --block-rows
 
@@ -2274,35 +2291,144 @@ def _synced(fn):
     return out, time.perf_counter() - t0
 
 
+def state_differences(a, b) -> list:
+    """What differs, bit for bit, between two train states: parameters,
+    AdamW's moments and step counters, update count, grad_norm."""
+    from retr_tpu_torch.train import state as tstate
+
+    out = []
+    for (path, x), (_, y) in zip(tstate.tree_leaves_with_path(a.params), tstate.tree_leaves_with_path(b.params)):
+        if not _bits_equal(x.detach(), y.detach()):
+            out.append(("param",) + path)
+    sa, sb = a.opt_state.state_dict()["state"], b.opt_state.state_dict()["state"]
+    if sa.keys() != sb.keys():
+        out.append(("moments", "keys"))
+    for i in sa.keys() & sb.keys():
+        for k in sa[i]:
+            if not _bits_equal(sa[i][k].reshape(-1).cpu(), sb[i][k].reshape(-1).cpu()):
+                out.append(("moment", i, k))
+    if a.step != b.step or not _bits_equal(a.grad_norm.reshape(1), b.grad_norm.reshape(1)):
+        out.append(("step or grad_norm",))
+    return out
+
+
+def _step_session(kind):
+    """The newest step session of ``kind`` ("train" or "eval")."""
+    from retr_tpu_torch.ops import graphs
+
+    found = [s for s in graphs.sessions() if isinstance(s, graphs.StepSession) and s.kind == kind]
+    return found[-1] if found else None
+
+
+def train_graphs(dev, cfg, params, batch, dname, card):
+    """The train step eager (``state.CUDA_GRAPHS`` off) against the graph
+    session, from the same parameters, seed and batch. Equality: 3 steps
+    each (the graph's warm-up, capture and replay, replay) with cuDNN held to
+    its deterministic algorithms (its default f32 weight-gradient kernels add
+    with atomics, so the eager step alone does not repeat), which must leave
+    states and losses equal bit for bit; whether two default eager runs
+    repeat is recorded. Speed, with cuDNN's defaults: ms a step over 8
+    chained steps each (one synchronize) after 3, the idle share of one
+    profiled step each, the session's capture seconds and pool MiB. One
+    ``train_graphs`` line."""
+    import torch
+
+    from retr_tpu_torch.ops import graphs
+    from retr_tpu_torch.train import state as tstate
+
+    def run(graphed, steps=3):
+        tstate.CUDA_GRAPHS = graphed
+        try:
+            st = tstate.create_train_state(cfg, params, device=dev)
+            step = tstate.make_train_step(cfg)
+            losses = [step(st, batch, 0)[1] for _ in range(steps)]
+            torch.cuda.synchronize()
+            return st, step, losses
+        finally:
+            tstate.CUDA_GRAPHS = True
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager, graph = run(False), run(True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    diff = state_differences(eager[0], graph[0])
+    losses_equal = all(_bits_equal(x, y) for x, y in zip(eager[2], graph[2]))
+    generators = len(_step_session("train").generators)
+    del eager, graph
+    graphs.clear()
+    torch.cuda.empty_cache()
+
+    timed = {}
+    for graphed in (False, True):
+        st, step, _ = run(graphed)
+        if not graphed:
+            repeat = run(False)[0]
+            eager_repeats = not state_differences(st, repeat)
+            del repeat
+        tstate.CUDA_GRAPHS = graphed
+        try:
+            n = 8
+            _, dt = _synced(lambda: [step(st, batch, 0) for _ in range(n)])
+            prof = device_profile(lambda: step(st, batch, 0), 1, top_n=6)
+        finally:
+            tstate.CUDA_GRAPHS = True
+        timed[graphed] = dict(ms=dt / n * 1e3, prof=prof)
+        del st, step
+    session = _step_session("train")
+    rec = {"dtype": dname, "batch": batch.images.shape[0], "dropout": cfg.dropout,
+           "eager_ms_per_step": timed[False]["ms"], "graph_ms_per_step": timed[True]["ms"],
+           "idle_share_eager": timed[False]["prof"].get("idle_share"),
+           "idle_share_graph": timed[True]["prof"].get("idle_share"),
+           "device_busy_ms_eager": timed[False]["prof"].get("device_busy_ms"),
+           "device_busy_ms_graph": timed[True]["prof"].get("device_busy_ms"),
+           "capture_s": session.capture_s, "pool_mib": session.pool_bytes / 2 ** 20, "generators": generators,
+           "bit_equal": not diff and losses_equal, "differences": [list(map(str, d)) for d in diff[:8]],
+           "eager_repeats_with_default_cudnn": eager_repeats, "card": card}
+    log("train_graphs", json.dumps(rec))
+    if not rec["bit_equal"]:
+        raise AssertionError(f"{dname} train step: graph and eager differ ({len(diff)} tensors, losses equal "
+                             f"{losses_equal}): {diff[:8]}")
+    graphs.clear()
+    torch.cuda.empty_cache()
+
+
 def train(dev, state, card):
-    """Train and eval steps at full width. Returns fused_attention's launches
-    on the eval path (reset just before it, read just after)."""
+    """Train and eval steps at full width, through the graph sessions of
+    ops/graphs.py (CUDA graphs, the default). Returns fused_attention's
+    launches on the eval path (reset just before it, read just after)."""
     import math
 
     import torch
 
     from retr_tpu_torch.models import weights
     from retr_tpu_torch.ops import decoder_kernels as dk
+    from retr_tpu_torch.ops import graphs
     from retr_tpu_torch.train import state as tstate
 
     gen = torch.Generator(device=dev).manual_seed(8)
     batch = train_batch(TRAIN_BATCH, gen, dev)
     for dname in ("bfloat16", "float32"):
         cfg = served_config(dname).replace(dropout=0.1)
-        st = tstate.create_train_state(cfg, weights.to_params(state, cfg, device=dev), device=dev)
+        params = weights.to_params(state, cfg, device=dev)
+        st = tstate.create_train_state(cfg, params, device=dev)
         step = tstate.make_train_step(cfg)
         torch.cuda.reset_peak_memory_stats()
+        # the key's first call (eager, the warm-up), the capture and its replay, a replay
         runs = [_synced(lambda: step(st, batch, 0)) for _ in range(3)]
         losses = [float(out[1]) for out, _ in runs]
         log("train", json.dumps({"dtype": dname, "batch": TRAIN_BATCH, "steps": 3,
                                  "ms_per_step": [dt * 1e3 for _, dt in runs], "losses": losses,
                                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card}))
-        log("profile", json.dumps({"train_step": dname, "batch": TRAIN_BATCH, "steps": 1,
+        log("profile", json.dumps({"train_step": dname, "batch": TRAIN_BATCH, "steps": 1, "graph": True,
                                    **device_profile(lambda: step(st, batch, 0), 1, top_n=12)}))
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{dname} train losses not finite: {losses}")
         del st, step, runs
+        graphs.clear()
         torch.cuda.empty_cache()
+        train_graphs(dev, cfg, params, batch, dname, card)
+        del params
 
     cfg = served_config("bfloat16").replace(dropout=0.1)
     params = weights.to_params(state, cfg, device=dev)
@@ -2312,14 +2438,31 @@ def train(dev, state, card):
     dk.reset_launches()
     fused, fused_s = _synced(lambda: [fused_eval(params, batch) for _ in range(EVAL_STEPS)])
     launches = dk.LAUNCHES["fused_attention"]
+    # one more replay: its launches alone, and its loss against the eager step's
+    dk.reset_launches()
+    replayed = fused_eval(params, batch)
+    torch.cuda.synchronize()
+    per_replay = dk.LAUNCHES["fused_attention"]
+    launches += per_replay
+    tstate.CUDA_GRAPHS = False
+    try:
+        eager_fused = fused_eval(params, batch)
+    finally:
+        tstate.CUDA_GRAPHS = True
+    graph_equal = _bits_equal(replayed, eager_fused) and all(_bits_equal(x, eager_fused) for x in fused)
     plain, fused = float(plain[-1]), float(fused[-1])
-    log("eval", json.dumps({"dtype": "bfloat16", "batch": TRAIN_BATCH, "eval_steps": EVAL_STEPS,
+    log("eval", json.dumps({"dtype": "bfloat16", "batch": TRAIN_BATCH, "eval_steps": EVAL_STEPS + 1,
                             "loss_plain": plain, "loss_fused": fused, "ms_per_step_plain": plain_s / EVAL_STEPS * 1e3,
                             "ms_per_step_fused": fused_s / EVAL_STEPS * 1e3, "fused_attention_launches": launches,
+                            "fused_attention_per_replay": per_replay, "graph_bit_equal_to_eager": graph_equal,
                             "card": card}))
-    if launches != (cfg.enc_layers + 2 * cfg.dec_layers) * EVAL_STEPS or not abs(fused - plain) <= 1e-4 * abs(plain):
-        raise AssertionError(f"eval step: losses {plain} / {fused}, fused_attention launches {launches}")
+    per_step = cfg.enc_layers + 2 * cfg.dec_layers
+    if launches != per_step * (EVAL_STEPS + 1) or per_replay != per_step or not graph_equal or \
+            not abs(fused - plain) <= 1e-4 * abs(plain):
+        raise AssertionError(f"eval step: losses {plain} / {fused}, fused_attention launches {launches} "
+                             f"({per_replay} a replay), graph equal to eager {graph_equal}")
     del params
+    graphs.clear()
     torch.cuda.empty_cache()
 
     # one f32 step at batch 2 on the GPU and on the CPU; dropout 0 (the CPU and
@@ -2339,6 +2482,7 @@ def train(dev, state, card):
                                     "cpu_seconds": cs}))
     if not (abs(gl - cl) <= 1e-4 * abs(cl) and abs(gn - cn) <= 1e-3 * abs(cn)):
         raise AssertionError(f"f32 GPU and CPU train steps differ: loss {gl} / {cl}, grad norm {gn} / {cn}")
+    graphs.clear()
     return launches
 
 
@@ -2442,21 +2586,36 @@ def train_epoch(dev, state, card, by_run):
         dt = time.perf_counter() - t0
         log("train_loader", json.dumps({"batches": n_host, "seconds": dt, "samples_per_s": n_host * EPOCH_BATCH / dt,
                                         "num_workers": train_loader.num_workers, "card": card}))
-        losses = []
-        # epochs 0-1: inline then staged uploads; 2-5 the two in turns (epoch 0 pays the set-up)
+        losses, records = [], []
+        # epochs 0-1: inline then staged uploads; 2-5 the two in turns (epoch 0
+        # pays the set-up: the train step's warm-up and capture)
         for epoch, staged in enumerate((False, True, False, True, True, False)):
             torch.cuda.reset_peak_memory_stats()
             (st, loss), dt = _synced(lambda: engine.train_one_epoch(st, step, train_loader, 0, epoch=epoch,
                                                                     stage_uploads=staged))
             losses.append(loss)
             steps = len(train_loader)
-            log("train_epoch", json.dumps({"epoch": epoch, "stage_uploads": staged, "batch": EPOCH_BATCH,
-                                           "steps": steps, "seconds": dt, "steps_per_s": steps / dt,
-                                           "samples_per_s": steps * EPOCH_BATCH / dt, "loss": loss,
-                                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                                           "card": card}))
+            records.append({"epoch": epoch, "stage_uploads": staged, "batch": EPOCH_BATCH,
+                            "steps": steps, "seconds": dt, "steps_per_s": steps / dt,
+                            "samples_per_s": steps * EPOCH_BATCH / dt, "loss": loss,
+                            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"epoch losses not finite: {losses}")
+        # an epoch of each kind under torch.profiler: its device busy time and
+        # idle share; each timed epoch's idle share is 1 - that busy time over
+        # its own seconds
+        busy = {}
+        for epoch, staged in ((6, True), (7, False)):
+            prof = device_profile(lambda: engine.train_one_epoch(st, step, train_loader, 0, epoch=epoch,
+                                                                 stage_uploads=staged),
+                                  len(train_loader), top_n=8)
+            busy[staged] = prof.get("device_busy_ms")
+            log("profile", json.dumps({"train_epoch": epoch, "stage_uploads": staged, "steps": len(train_loader),
+                                       **prof, "card": card}))
+        for rec in records:
+            b = busy[rec["stage_uploads"]]
+            rec["idle_share"] = None if b is None else 1 - b / 1e3 / rec["seconds"]
+            log("train_epoch", json.dumps(rec))
 
         def recorded(staged):   # the batches a step receives, built inline or on the staging thread
             store = []
@@ -2472,10 +2631,6 @@ def train_epoch(dev, state, card, by_run):
         if not equal:
             raise AssertionError("batches built on the staging thread differ from those built inline")
         del inline, staged
-        prof = device_profile(lambda: engine.train_one_epoch(st, step, train_loader, 0, epoch=6, stage_uploads=True),
-                              len(train_loader), top_n=8)
-        log("profile", json.dumps({"train_epoch": 6, "stage_uploads": True, "steps": len(train_loader), **prof,
-                                   "card": card}))
 
         val_loader = loader("val")
         eval_cfg = cfg.replace(use_pallas_attention=True)
@@ -2600,6 +2755,7 @@ def train_main(dev, card, by_run):
     from retr_tpu_torch.config import Config
     from retr_tpu_torch.data.tokenizer import DEFAULT_TEST_WORDS, prepare_tokenizer
     from retr_tpu_torch.models import caption
+    from retr_tpu_torch.ops import graphs
     from retr_tpu_torch.predictor import Predictor
     from retr_tpu_torch.train import checkpoints as ckpt
     from retr_tpu_torch.train import state as tstate
@@ -2629,6 +2785,13 @@ def train_main(dev, card, by_run):
         first = events()
         _, resume_run_s, resume_counts = counted("main, resume to 3 epochs", by_run,
                                                  lambda: tmain.main(cfg.replace(epochs=3), resume=True), path_kernels)
+        # the resumed run's step sessions: the train step and the validation
+        # loss at each batch size, each captured (a graph) after its first call
+        step_sessions = [{"kind": x.kind, "rows": x.inputs[0].shape[0] if x.inputs else None,
+                          "graphs": len(x.graphs), "capture_s": x.capture_s}
+                         for x in graphs.sessions() if isinstance(x, graphs.StepSession)]
+        if not any(x["kind"] == "train" and x["graphs"] == 1 for x in step_sessions):
+            raise AssertionError(f"main trained without a captured train step: {step_sessions}")
         ev = events()
         resumed = ev[len(first):]
         names = [e["event"] for e in resumed]
@@ -2722,7 +2885,7 @@ def train_main(dev, card, by_run):
             "n_parameters": n_params, "build_model_s": build_s, "init_checks": checks, "epochs": epochs,
             "main_2_epochs_s": train_s, "main_resume_s": resume_run_s, "resume_s": resume_s, "load_s": load_s,
             "save_sync_s": save_sync_s, "save_async_submit_s": submit_s, "save_async_wait_s": wait_s,
-            "checkpoint_bytes": ckpt_bytes, "eval_cli": evals,
+            "checkpoint_bytes": ckpt_bytes, "eval_cli": evals, "step_sessions": step_sessions,
             "launches": {"main, 2 epochs": {k: train_counts[k] for k in path_kernels},
                          "main, resume": {k: resume_counts[k] for k in path_kernels}},
             "predictor_dir_vs_pth": predictor_checks, "card": card}))
@@ -3379,6 +3542,13 @@ def main(mode=None) -> int:
     card = gpu_line()
     if mode == "--block-rows":
         block_rows(dev, card)
+        return 0
+    if mode == "--train":                                                  # phases 6 and 6b alone
+        log("card", card)
+        dk.build()
+        state = random_state(served_config("bfloat16"))
+        train(dev, state, card)
+        train_epoch(dev, state, card, {})
         return 0
     if mode == "--graphs":                                                 # phase 4c alone
         log("card", card)

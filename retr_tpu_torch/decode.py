@@ -215,7 +215,7 @@ def _run(new_loop: Callable, start: Callable, *, max_len: int, key: Optional[tup
     def make():
         own = None if generator is None else torch.Generator(device=generator.device)
         loop = new_loop(own)
-        return graphs.Session(loop, trees, loop.step.device, own)
+        return graphs.Session(loop, trees, loop.step.device, () if own is None else (own,))
 
     session = graphs.session(key, make)
     with session.lock:

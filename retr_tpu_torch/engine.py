@@ -16,7 +16,11 @@ Seeds are integers and ``models.layers.fold_in`` derives them, as
 epoch)`` and batch i's augmentation seed ``fold_in(epoch seed, i)``, so a
 batch built on the staging thread equals one built inline. Batches go to the
 device the parameters live on. Loss reads are deferred ``pipeline_depth - 1``
-steps: the read of a loss on the device is the only barrier.
+steps: the read of a loss on the device is the only barrier. On a CUDA
+device with no mesh the steps of ``train/state.py`` replay CUDA graphs
+(``ops/graphs.py``), so only the batch's upload and colour jitter
+(``data/pipeline.device_batch``, which the JAX package compiles apart) are
+dispatched op by op between two steps.
 
 Under a ``parallel.mesh.Mesh`` every rank is a process, as in JAX's
 multi-host runs: a training batch is this rank's own loader rows (``main``

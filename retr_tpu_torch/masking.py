@@ -59,9 +59,12 @@ def ensure_unmasked_values(mask: torch.Tensor, filler_idx) -> torch.Tensor:
     b, h, w = mask.shape
     flat = mask.reshape(b, -1)
     all_masked = flat.all(dim=1)
-    idx = torch.tensor(np.asarray(filler_idx), dtype=torch.long, device=mask.device)
-    filler = torch.ones(flat.shape[1], dtype=torch.bool, device=mask.device)
-    filler[idx] = False
+    if torch.is_tensor(filler_idx):
+        idx = filler_idx.to(device=mask.device, dtype=torch.long)
+    else:
+        idx = torch.tensor(np.asarray(filler_idx), dtype=torch.long, device=mask.device)
+    # index_fill takes the value as a scalar: no host tensor to copy (a CUDA graph cannot)
+    filler = torch.ones(flat.shape[1], dtype=torch.bool, device=mask.device).index_fill(0, idx, False)
     out = torch.where(all_masked[:, None], filler[None, :], flat)
     return out.reshape(b, h, w)
 

@@ -84,10 +84,19 @@ def _project(params: Params, feats: torch.Tensor) -> torch.Tensor:
     return layers.linear(params["input_proj"], x).transpose(1, 2)
 
 
+# (positions, seed, device) -> filler_indices on that device, uploaded once: a
+# forward then copies nothing from the host (a captured train step cannot)
+_FILLERS: Dict[tuple, torch.Tensor] = {}
+
+
 def _guarded(mask: torch.Tensor, filler_idx, cfg: Config) -> torch.Tensor:
     n = mask.shape[-2] * mask.shape[-1]
-    idx = filler_indices(n, cfg.seed) if filler_idx is None else filler_idx
-    return ensure_unmasked_values(mask, idx)
+    if filler_idx is None:
+        key = (n, cfg.seed, str(mask.device))
+        filler_idx = _FILLERS.get(key)
+        if filler_idx is None:
+            filler_idx = _FILLERS[key] = torch.as_tensor(filler_indices(n, cfg.seed), device=mask.device)
+    return ensure_unmasked_values(mask, filler_idx)
 
 
 class EncoderInput(NamedTuple):

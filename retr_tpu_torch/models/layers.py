@@ -8,12 +8,23 @@ Dropout draws from an explicit ``torch.Generator``. Its streams are not
 distribution with it on. Callers derive each generator from an integer seed
 (:func:`fold_in`, :func:`make_generator`), the counterpart of JAX's key folding, so
 a recomputation under ``torch.utils.checkpoint`` draws the same masks.
+
+A captured train step (ops/graphs.py) cannot make generators: a graph replays
+the draws of the generators registered with it before the capture. So while a
+step runs under a seed hook (:func:`seed_hook`), :class:`SeedRecorder` notes,
+for each ``make_generator`` call of the step in call order (remat's
+recomputations in the backward included), the chain of ``fold_in`` data that
+leads from the step's root seed to the call's seed, and :class:`StepGenerators`
+hands the capture's calls the session's registered generators, seeded from
+that plan (:func:`plan_seeds`) for each replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,14 +43,109 @@ def fold_in(seed: int, data: int) -> int:
     z = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _MASK64
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) >> 1
+    out = (z ^ (z >> 31)) >> 1
+    hook = _seed_hook
+    if hook is not None:
+        hook.fold(seed, data, out)
+    return out
 
 
 def make_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
-    """A generator on ``device`` seeded with ``seed`` (None: no dropout)."""
+    """A generator on ``device`` seeded with ``seed`` (None: no dropout); under
+    a :class:`StepGenerators` hook, the session's generator of that seed."""
     if seed is None:
         return None
+    hook = _seed_hook
+    if hook is not None:
+        gen = hook.generator(seed)
+        if gen is not None:
+            return gen
     return torch.Generator(device=device).manual_seed(seed)
+
+
+# ---------------------------------------------------------------------------------
+# Seed plans of a captured step. The hook is one for the process, not for a
+# thread: a checkpointed layer is recomputed on autograd's own thread. A
+# thread that makes generators meanwhile (the engine's staging thread) asks for
+# seeds not derived from the step's root, which neither hook touches.
+# ---------------------------------------------------------------------------------
+
+_seed_hook = None
+
+
+class SeedRecorder:
+    """The seed plan of a step run eagerly under it: ``chains[k]`` is the
+    ``fold_in`` data from ``root`` to the seed of the step's k-th
+    ``make_generator`` call."""
+
+    def __init__(self, root: int):
+        self.root = root
+        self.parents: Dict[int, Tuple[int, int]] = {}
+        self.chains: List[Tuple[int, ...]] = []
+
+    def fold(self, seed: int, data: int, out: int) -> None:
+        self.parents[out] = (seed, data)
+
+    def generator(self, seed: int) -> None:
+        """Record ``seed``'s chain; the caller makes an ordinary generator."""
+        chain = []
+        while seed != self.root:
+            if seed not in self.parents:
+                return             # not the step's: another thread's seed
+            seed, data = self.parents[seed]
+            chain.append(data)
+        self.chains.append(tuple(reversed(chain)))
+
+
+def plan_seeds(chains: Sequence[Tuple[int, ...]], root: int) -> List[int]:
+    """The seed of each planned ``make_generator`` call of the step whose root is ``root``."""
+    seeds = []
+    for chain in chains:
+        seed = root
+        for data in chain:
+            seed = fold_in(seed, data)
+        seeds.append(seed)
+    return seeds
+
+
+class StepGenerators:
+    """While a step is captured: ``make_generator(seed)`` returns the next
+    unused one of ``generators`` planned for that seed (``seeds[k]`` is
+    ``generators[k]``'s), in call order. A seed asked for more often than
+    planned gets an ordinary generator, which raises if it draws inside the
+    capture; :meth:`check` raises where a planned one went unused."""
+
+    def __init__(self, seeds: Sequence[int], generators: Sequence[torch.Generator]):
+        self.unused: Dict[int, deque] = {}
+        for seed, gen in zip(seeds, generators):
+            self.unused.setdefault(seed, deque()).append(gen)
+
+    def fold(self, seed: int, data: int, out: int) -> None:
+        pass
+
+    def generator(self, seed: int) -> Optional[torch.Generator]:
+        gens = self.unused.get(seed)
+        return gens.popleft() if gens else None
+
+    def check(self) -> None:
+        left = sum(len(g) for g in self.unused.values())
+        if left:
+            raise RuntimeError(f"the captured step made {left} fewer dropout generators than its eager run")
+
+
+@contextlib.contextmanager
+def seed_hook(hook):
+    """``with seed_hook(hook):`` routes ``fold_in`` and ``make_generator``
+    through ``hook`` (a :class:`SeedRecorder` or :class:`StepGenerators`) in
+    every thread; hooks do not nest."""
+    global _seed_hook
+    if _seed_hook is not None:
+        raise RuntimeError("a seed hook is already active")
+    _seed_hook = hook
+    try:
+        yield hook
+    finally:
+        _seed_hook = None
 
 
 def tree_to(tree, **kw):

@@ -141,7 +141,9 @@ def decoder_embed(p, ids: torch.Tensor, cfg: Config, position: Optional[torch.Te
     position; without it ids are [B, T] at positions 0..T-1."""
     table = p["word"]["table"]
     if position is None:
-        word = table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, -1)
+        # embedding's CUDA backward sums a row's gradients in a fixed order
+        # (index_select's adds them with atomics), so a train step repeats bit for bit
+        word = torch.nn.functional.embedding(ids, table)
         pos = p["pos"]["table"][: ids.shape[-1]]
     else:
         word = table.index_select(0, ids)

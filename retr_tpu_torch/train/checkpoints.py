@@ -8,7 +8,12 @@ file-name template) holding two files:
   (``models/weights.to_state_dict``), the AdamW state dict without its groups'
   schedules (local functions, which cannot be pickled; :func:`load_checkpoint`
   puts the template optimizer's back), the update count ``step`` and the last
-  pre-clip ``grad_norm``, all on the CPU;
+  pre-clip ``grad_norm``, all on the CPU. The groups are written as a
+  default AdamW's, whatever the device: ``lr`` a float, ``capturable``
+  False, the step counters 0-d f32 tensors on the CPU. A load into a
+  capturable AdamW (train/state.py, on a CUDA device) keeps its groups'
+  ``lr`` tensors (filled with the saved rates) and puts the step counters
+  on the parameters' device;
 - ``retr_metadata.json``: epoch, step, losses, CIDEr and the whole config,
   the JSON keys the JAX package writes, so ``config_from_checkpoint`` replaces
   the reference's file-name sniffing.
@@ -95,12 +100,20 @@ def _state_tensors(state: TrainState, copy: bool) -> Dict[str, Any]:
             moments[i][k] = t
     return {
         "params": params,
-        "optimizer": {"state": moments,
-                      "param_groups": [{k: v for k, v in g.items() if k != "schedule"}
-                                       for g in opt["param_groups"]]},
+        "optimizer": {"state": moments, "param_groups": [_saved_group(g) for g in opt["param_groups"]]},
         "step": int(state.step),
         "grad_norm": None if state.grad_norm is None else own(state.grad_norm),
     }
+
+
+def _saved_group(group: Dict[str, Any]) -> Dict[str, Any]:
+    """A param group as a default AdamW writes it: no schedule, a float
+    ``lr``, ``capturable`` False (the file loads into either kind)."""
+    out = {k: v for k, v in group.items() if k != "schedule"}
+    if torch.is_tensor(out["lr"]):
+        out["lr"] = float(out["lr"])
+    out["capturable"] = False
+    return out
 
 
 def _path(directory: str, cfg: Config, epoch: int) -> str:
@@ -244,12 +257,20 @@ def load_checkpoint(path: str, template: TrainState) -> Tuple[TrainState, Dict[s
         for p, leaf in live:
             leaf.copy_(loaded[p])
     opt = template.opt_state
-    schedules = [g["schedule"] for g in opt.param_groups]
-    # the moments go to their parameter's device; AdamW's step counters stay
-    # on the host, where a fresh AdamW keeps them
+    kept = [(g["schedule"], g["lr"], g["capturable"]) for g in opt.param_groups]
+    # the moments go to their parameter's device; the step counters stay on
+    # the host (the saved groups are not capturable), as a default AdamW keeps them
     opt.load_state_dict(opt_sd)
-    for g, schedule in zip(opt.param_groups, schedules):
-        g["schedule"] = schedule
+    for g, (schedule, lr, capturable) in zip(opt.param_groups, kept):
+        g["schedule"], g["capturable"] = schedule, capturable
+        if torch.is_tensor(lr):
+            lr.fill_(float(g["lr"]))
+            g["lr"] = lr
+        if capturable:        # where a capturable AdamW keeps its step counters
+            for p in g["params"]:
+                st = opt.state.get(p)
+                if st and "step" in st:
+                    st["step"] = st["step"].to(device=p.device, dtype=torch.float32)
     template.step = int(blob["step"])
     gn = blob["grad_norm"]
     template.grad_norm = None if gn is None else gn.to(live[0][1].device)

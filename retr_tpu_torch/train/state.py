@@ -11,8 +11,9 @@ The optimization recipe is the reference's:
   gradients before the clip; the reference's are None or buffers).
 - The PAD row of the word embedding gets a zero gradient before the norm is
   taken (``nn.Embedding(padding_idx=...)``).
-- Global-norm clip at ``cfg.clip_max_norm``, optax's form: ``g / norm * max``
-  when the norm is not below ``max``.
+- Global-norm clip at ``cfg.clip_max_norm``, optax's form on the device:
+  ``g / where(norm >= max, norm, 1) * where(norm >= max, max, 1)``, so the
+  step reads nothing back to the host.
 - The learning rate per update count: StepLR, or cosine decay, either with an
   optional linear warm-up (``build_schedule``), as in optax.
 - Loss: softmax cross-entropy of the shifted tokens, averaged over ALL
@@ -23,6 +24,14 @@ compute type, so the f32 (parity) step has TF32 off in the backward's products
 and convolutions as well. Parameters stay f32 (master weights) in either
 compute type. The step updates the parameters in place (JAX returns new
 arrays) and returns the state.
+
+JAX compiles each step into one program (``jax.jit``); here, on a CUDA device
+with no mesh and ``CUDA_GRAPHS`` on, each step is one CUDA graph
+(ops/graphs.py): a key's first call runs eagerly, the second captures and
+replays, later calls replay. The AdamW on a CUDA device is capturable: its
+step counters live on the device, and each group's ``lr`` is a device tensor
+the host fills from the schedule before each step, so the eager step and the
+graph do the same arithmetic. On the CPU the optimizer is torch's default.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from retr_tpu_torch.config import Config
 from retr_tpu_torch.data.pipeline import Batch
 from retr_tpu_torch.masking import Masked
 from retr_tpu_torch.models import caption, layers
+from retr_tpu_torch.ops import graphs
 from retr_tpu_torch.parallel import mesh as pmesh
 from retr_tpu_torch.precision import dtype_of, matmul_precision
 
@@ -131,17 +141,39 @@ def build_schedule(cfg: Config, base_lr: float, steps_per_epoch: int):
 
 def make_optimizer(cfg: Config, params: Params, steps_per_epoch: int) -> torch.optim.AdamW:
     """AdamW over the trained leaves in two groups ("rest" at ``lr``, "backbone"
-    at ``lr_backbone``), each group carrying its schedule under "schedule"."""
+    at ``lr_backbone``), each group carrying its schedule under "schedule".
+    On a CUDA device it is capturable (step counters on the device, each
+    group's ``lr`` a 0-d f32 device tensor), so a CUDA graph can hold its step."""
     groups: Dict[str, List[torch.Tensor]] = {"rest": [], "backbone": []}
     for path, leaf in tree_leaves_with_path(params):
         label = _label_path(path)
         if label != "frozen":
             groups[label].append(leaf)
-    return torch.optim.AdamW(
-        [{"params": groups[name], "lr": base, "name": name,
+    dev = groups["rest"][0].device
+    capturable = dev.type == "cuda"
+
+    def lr(base):
+        return torch.tensor(base, dtype=torch.float32, device=dev) if capturable else base
+
+    opt = torch.optim.AdamW(
+        [{"params": groups[name], "lr": lr(base), "name": name,
           "schedule": build_schedule(cfg, base, steps_per_epoch)}
          for name, base in (("rest", cfg.lr), ("backbone", cfg.lr_backbone))],
-        betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
+        betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay, capturable=capturable)
+    opt._warned_capturable_if_run_uncaptured = True   # its eager steps are meant (warm-up, a mesh)
+    return opt
+
+
+def set_learning_rates(state: "TrainState") -> None:
+    """Each group's learning rate for update ``state.step``, from its
+    schedule: written into the group's device tensor (no host read), or set
+    as a float on the CPU."""
+    for group in state.opt_state.param_groups:
+        lr = group["schedule"](state.step)
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 @dataclasses.dataclass
@@ -283,21 +315,30 @@ def _average_gradients(state: TrainState, specs: List[pmesh.Spec]) -> None:
     _flat_all_reduce([g for g, s in zip(grads, specs) if "mp" in s], mesh.dp_group, 1.0 / mesh.dp)
 
 
+def _leaf_norms(grads: List[torch.Tensor]) -> torch.Tensor:
+    """Each leaf's norm, stacked, in f32. The CPU's f32 norm sums into one
+    running f32 value (3e-5 relative off at millions of elements, where
+    optax's is within 1e-7), so on the CPU the sums are taken in f64."""
+    wide = torch.float64 if grads[0].device.type == "cpu" else None
+    return torch.stack(torch._foreach_norm(grads, 2, dtype=wide)).float()
+
+
 def _global_norm(grads: List[torch.Tensor], specs: List[pmesh.Spec], mesh) -> torch.Tensor:
     """The norm of the whole gradient: the squares of the sharded leaves
     summed over the mp group, the replicated leaves counted once."""
     split = [g for g, s in zip(grads, specs) if "mp" in s]
     if not split:
-        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        return torch.linalg.vector_norm(_leaf_norms(grads))
     rest = [g for g, s in zip(grads, specs) if "mp" not in s]
-    sq_split = pmesh.all_reduce(torch.stack(torch._foreach_norm(split)).square().sum(), mesh.mp_group)
-    sq_rest = torch.stack(torch._foreach_norm(rest)).square().sum() if rest else torch.zeros_like(sq_split)
+    sq_split = pmesh.all_reduce(_leaf_norms(split).square().sum(), mesh.mp_group)
+    sq_rest = _leaf_norms(rest).square().sum() if rest else torch.zeros_like(sq_split)
     return torch.sqrt(sq_rest + sq_split)
 
 
-def _update(cfg: Config, state: TrainState) -> None:
+def _update(cfg: Config, state: TrainState) -> torch.Tensor:
     """dp gradient mean (under a mesh), PAD-row zero, global-norm clip, AdamW
-    at the scheduled learning rates."""
+    at the learning rates the groups hold (:func:`set_learning_rates`).
+    Returns the pre-clip global norm; reads nothing back to the host."""
     trained = _trained(state)
     for p in trained:
         if p.grad is None:
@@ -305,17 +346,16 @@ def _update(cfg: Config, state: TrainState) -> None:
     specs = trained_specs(state)
     if state.mesh is not None:
         _average_gradients(state, specs)
-    state.params["transformer"]["embeddings"]["word"]["table"].grad[cfg.pad_token_id] = 0.0
+    state.params["transformer"]["embeddings"]["word"]["table"].grad[cfg.pad_token_id].zero_()
     grads = [p.grad for p in trained]
-    state.grad_norm = _global_norm(grads, specs, state.mesh)
-    norm = float(state.grad_norm)
-    if cfg.clip_max_norm > 0 and norm >= cfg.clip_max_norm:
-        torch._foreach_div_(grads, norm)                 # optax's form: (g / norm) * max_norm
-        torch._foreach_mul_(grads, cfg.clip_max_norm)
-    for group in state.opt_state.param_groups:
-        group["lr"] = group["schedule"](state.step)
+    norm = _global_norm(grads, specs, state.mesh)
+    if cfg.clip_max_norm > 0:
+        # optax's form, (g / norm) * max_norm, where norm >= max_norm; g / 1 * 1 = g below
+        over = norm >= cfg.clip_max_norm
+        torch._foreach_div_(grads, torch.where(over, norm, 1.0))
+        torch._foreach_mul_(grads, torch.where(over, cfg.clip_max_norm, 1.0))
     state.opt_state.step()
-    state.step += 1
+    return norm
 
 
 def _split(batch: Batch, n: int) -> List[Batch]:
@@ -324,6 +364,43 @@ def _split(batch: Batch, n: int) -> List[Batch]:
         raise ValueError(f"batch {b} not divisible by accum_steps {n}")
     m = b // n
     return [Batch(*(None if x is None else x[i * m:(i + 1) * m] for x in batch)) for i in range(n)]
+
+
+# On a CUDA device with no mesh, make_train_step's and make_eval_step's steps
+# replay a CUDA graph per key (ops/graphs.py); off, they run eagerly (the
+# card's tests and chip_smoke.py compare the two).
+CUDA_GRAPHS = True
+
+
+def _graphed(device: torch.device, mesh) -> bool:
+    """Whether a step on ``device`` runs as a CUDA graph: ``CUDA_GRAPHS`` on,
+    a CUDA device and no mesh (its collectives run over gloo or NCCL from the
+    host, which a graph cannot hold)."""
+    return CUDA_GRAPHS and device.type == "cuda" and mesh is None
+
+
+def step_seed(seed: int, state: TrainState) -> int:
+    """The root of a step's dropout seeds: ``fold_in(seed, state.step)``, with
+    the dp rank folded in under a mesh with dp > 1."""
+    root = layers.fold_in(seed, state.step)
+    if state.mesh is not None and state.mesh.dp > 1:
+        root = layers.fold_in(root, state.mesh.dp_rank)
+    return root
+
+
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor a captured train step reads or writes in place: the
+    parameters, each optimizer-state tensor and each group's ``lr`` tensor."""
+    opt = state.opt_state
+    out = [t for _, t in tree_leaves_with_path(state.params)]
+    out += [t for p in _trained(state) for t in opt.state.get(p, {}).values() if torch.is_tensor(t)]
+    return out + [g["lr"] for g in opt.param_groups if torch.is_tensor(g["lr"])]
+
+
+def train_session_key(cfg: Config, state: TrainState, batch: Batch, compute_dtype, accum_steps: int) -> tuple:
+    """The graph session key of a train step on ``state`` and ``batch``."""
+    return graphs.step_session_key("train", batch.images.device, compute_dtype, batch, accum_steps=accum_steps,
+                                   cfg=cfg, tensors=state_tensors(state), extra=(CE_IMPL,))
 
 
 def make_train_step(cfg: Config, *, compute_dtype=None, accum_steps: Optional[int] = None) -> Callable:
@@ -339,25 +416,29 @@ def make_train_step(cfg: Config, *, compute_dtype=None, accum_steps: Optional[in
     1/accum_steps before the one update: the mean of equal-size micro-batch
     gradients is the full batch's gradient.
 
-    Under ``state.mesh`` the batch is this dp rank's rows: the step runs with
-    the mesh active (the mp-sharded blocks' collectives), folds the dp rank
-    into the step seed where dp > 1, averages the gradients (and the returned
-    loss) over dp after the backward and any accumulation, and clips by the
-    global norm of the sharded gradient."""
+    On a CUDA device with no mesh the step is a CUDA graph (``CUDA_GRAPHS``;
+    ops/graphs.py ``run_step``), keyed by :func:`train_session_key`: every
+    micro-batch's forward and backward, the PAD-row zero, the clip, AdamW and
+    the in-place update. Only the learning rates (written before) and
+    ``state.step`` (counted after) are the host's. The returned loss and
+    ``state.grad_norm`` are copies, which later steps do not overwrite.
+
+    Under ``state.mesh`` the batch is this dp rank's rows and the step runs
+    eagerly: with the mesh active (the mp-sharded blocks' collectives), the
+    dp rank folded into the step seed where dp > 1, the gradients (and the
+    returned loss) averaged over dp after the backward and any accumulation,
+    and the clip by the global norm of the sharded gradient."""
     dt = dtype_of(cfg.compute_dtype if compute_dtype is None else compute_dtype)
     accum = cfg.grad_accum_steps if accum_steps is None else accum_steps
 
-    def step(state: TrainState, batch: Batch, seed: int) -> Tuple[TrainState, torch.Tensor]:
+    def grads_and_update(state: TrainState, batch: Batch, root: int) -> Tuple[torch.Tensor, torch.Tensor]:
         micro = _split(batch, accum)
         mesh = state.mesh
-        step_seed = layers.fold_in(seed, state.step)
-        if mesh is not None and mesh.dp > 1:
-            step_seed = layers.fold_in(step_seed, mesh.dp_rank)
         state.opt_state.zero_grad(set_to_none=True)
         total = None
         with pmesh.active(mesh), matmul_precision(dt):
             for i, mb in enumerate(micro):
-                loss = loss_fn(state.params, cfg, mb, step_seed if accum == 1 else layers.fold_in(step_seed, i),
+                loss = loss_fn(state.params, cfg, mb, root if accum == 1 else layers.fold_in(root, i),
                                train=True, compute_dtype=dt)
                 loss.backward()
                 total = loss.detach() if total is None else total + loss.detach()
@@ -368,18 +449,45 @@ def make_train_step(cfg: Config, *, compute_dtype=None, accum_steps: Optional[in
             total = total * (1.0 / accum)
         if mesh is not None:
             total = pmesh.all_reduce(total.clone(), mesh.dp_group) / mesh.dp
-        _update(cfg, state)
-        return state, total
+        return total, _update(cfg, state)
+
+    def step(state: TrainState, batch: Batch, seed: int) -> Tuple[TrainState, torch.Tensor]:
+        _split(batch, accum)     # a batch that does not split raises before any session is made
+        root = step_seed(seed, state)
+        set_learning_rates(state)
+        dev = batch.images.device
+        if _graphed(dev, state.mesh):
+            loss, norm = graphs.run_step(
+                lambda: (train_session_key(cfg, state, batch, dt, accum), state_tensors(state)), batch,
+                lambda b, r: grads_and_update(state, b, r), device=dev, root=root, owner=state.opt_state)
+        else:
+            loss, norm = grads_and_update(state, batch, root)
+        state.grad_norm = norm
+        state.step += 1
+        return state, loss
 
     return step
 
 
 def make_eval_step(cfg: Config, *, compute_dtype=None) -> Callable:
-    """Validation loss ``step(params, batch) -> loss``: no gradient, no dropout."""
+    """Validation loss ``step(params, batch) -> loss``: no gradient, no dropout.
+    On a CUDA device with no active mesh, a CUDA graph per key (the
+    parameters' identities, the batch's shapes: a ragged last batch has its
+    own), as :func:`make_train_step`'s."""
     dt = dtype_of(cfg.compute_dtype if compute_dtype is None else compute_dtype)
 
-    def step(params: Params, batch: Batch) -> torch.Tensor:
+    def forward(params: Params, batch: Batch) -> torch.Tensor:
         with torch.no_grad(), matmul_precision(dt):
             return loss_fn(params, cfg, batch, None, train=False, compute_dtype=dt)
+
+    def step(params: Params, batch: Batch) -> torch.Tensor:
+        dev = batch.images.device
+        if not _graphed(dev, pmesh.current()):
+            return forward(params, batch)
+        leaves = [t for _, t in tree_leaves_with_path(params)]
+        key = graphs.step_session_key("eval", dev, dt, batch, accum_steps=1, cfg=cfg, tensors=leaves,
+                                      extra=(CE_IMPL,))
+        (loss,) = graphs.run_step(lambda: (key, leaves), batch, lambda b, _: (forward(params, b),), device=dev)
+        return loss
 
     return step

@@ -14,7 +14,10 @@ the split blocks' partial (tensor-parallel) mode at the tiny and the served
 width; the decode loop replayed as CUDA graphs against the eager loop
 (greedy stacked and trio, prefix completion, beam with the top-k head off
 and on, sampling; bit-equal buffers and equal launch counts) and sampling's
-replayed draws in distribution.
+replayed draws in distribution; the train and eval steps replayed as CUDA
+graphs against the eager steps (bit-equal states, losses and grad norms at
+dropout 0.1 with accumulation and remat; the eval graph's 18 fused_attention
+launches; a checkpoint resumed between two replays).
 Run on the card with
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -1001,7 +1004,8 @@ def test_train_epoch_and_eval_model_on_cuda(dev, tmp_path):
 def test_checkpoint_moves_between_the_card_and_the_cpu(dev, tmp_path):
     """A checkpoint saved from the card loads with device "cpu" to the same
     parameters, AdamW moments, step and grad_norm, and one saved from the CPU
-    loads on the card alike; AdamW's step counters stay on the host."""
+    loads on the card alike; AdamW's step counters go where a fresh one keeps
+    them (on the card: it is capturable)."""
     from retr_tpu_torch.models import caption
     from retr_tpu_torch.train import checkpoints as ckpt
 
@@ -1208,3 +1212,136 @@ def test_graph_sampling_draws_in_distribution(dev, graph_flags, temperature, top
         assert draws.numel() == 20000 and float((freq - want).abs().max()) <= 0.015, (freq, want)
         assert set(draws.unique().tolist()) <= set(want.nonzero().flatten().tolist())
     assert not torch.equal(runs[1], runs[2]) and torch.equal(runs[1], runs[3])
+
+
+# ---------------------------------------------------------------------------------
+# The train and eval steps as CUDA graphs (train/state.py, ops/graphs.py run_step)
+# ---------------------------------------------------------------------------------
+
+
+@pytest.fixture
+def step_graphs():
+    """No session before the test or after it; state.CUDA_GRAPHS restored.
+    cuDNN is held to its deterministic algorithms: its default f32
+    weight-gradient kernels add with atomics, so an f32 step does not repeat
+    bit for bit even eagerly (chip_smoke.py's train_graphs lines record it)."""
+    old = tstate.CUDA_GRAPHS, torch.backends.cudnn.deterministic
+    graphs.clear()
+    torch.backends.cudnn.deterministic = True
+    yield
+    tstate.CUDA_GRAPHS, torch.backends.cudnn.deterministic = old
+    graphs.clear()
+
+
+def _step_batches(cfg, dev, rows, n, seed):
+    """``n`` caption-like batches of ``rows`` at the config's image size and
+    caption length: a padded image band on every other row, BOS, 4..12
+    tokens, then PAD."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    size, t = cfg.image_size, cfg.max_position_embeddings + 1
+    out = []
+    for _ in range(n):
+        masks = torch.zeros(rows, size, size, dtype=torch.bool, device=dev)
+        masks[1::2, :, size * 3 // 4:] = True
+        caps = torch.randint(3, cfg.vocab_size, (rows, t), generator=gen, device=dev, dtype=torch.int32)
+        lens = torch.randint(5, 14, (rows, 1), generator=gen, device=dev)
+        caps = torch.where(torch.arange(t, device=dev)[None, :] >= lens, 0, caps).to(torch.int32)
+        caps[:, 0] = 1
+        out.append(Batch(torch.randn(rows, 3, size, size, generator=gen, device=dev), masks, caps, caps == 0))
+    return out
+
+
+def _train_run(cfg, params, dev, batches, graphed, seed=3):
+    """Steps over ``batches`` from a fresh state: (state, losses, grad norms)."""
+    tstate.CUDA_GRAPHS = graphed
+    st = tstate.create_train_state(cfg, params, device=dev)
+    step = tstate.make_train_step(cfg)
+    losses, norms = [], []
+    for b in batches:
+        st, loss = step(st, b, seed)
+        losses.append(loss)
+        norms.append(st.grad_norm)
+    torch.cuda.synchronize()
+    return st, losses, norms
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_train_graph_equals_the_eager_step(dev, step_graphs, dtype):
+    """SERVE_CFG (width 256, 1 + 2 layers) at dropout 0.1, remat and
+    accumulation 2, 4 rows: four steps on four batches eagerly
+    (state.CUDA_GRAPHS off) and through the graph session (the warm-up, the
+    capture and its replay, two replays) leave the same parameters, AdamW
+    moments and step counters and give the same losses and grad norms, bit
+    for bit. One session, one graph, a registered generator for each of the
+    plan's 16 make_generator calls (2 micro-batches x (5 + 3 recomputed));
+    each returned loss is a tensor of its own."""
+    cfg = Config(**{**SERVE_CFG, "dropout": 0.1, "remat": True, "grad_accum_steps": 2, "compute_dtype": dtype})
+    torch.manual_seed(0)
+    params = weights.to_params(weights.reference_module(cfg).state_dict(), cfg, device=dev)
+    batches = _step_batches(cfg, dev, 4, 4, seed=5)
+    eager = _train_run(cfg, params, dev, batches, graphed=False)
+    assert graphs.sessions() == []
+    graph = _train_run(cfg, params, dev, batches, graphed=True)
+    (session,) = graphs.sessions()
+    assert isinstance(session, graphs.StepSession) and session.kind == "train" and list(session.graphs) == [0]
+    assert len(session.plan) == len(session.generators) == 16
+    assert chip_smoke.state_differences(eager[0], graph[0]) == []
+    for a, b in zip(eager[1] + eager[2], graph[1] + graph[2]):
+        assert _bits_equal(a, b)
+    assert len({x.data_ptr() for x in graph[1]}) == 4
+
+
+def test_eval_graph_with_the_attention_kernel(dev, step_graphs):
+    """The served model at full width (ResNet-50 dilated, 6 + 6 layers),
+    bf16, use_pallas_attention: three calls on a batch of 4 (the warm-up,
+    the capture and its replay, a replay) each launch fused_attention 18
+    times and give the eager step's loss bit for bit; a ragged batch of 3
+    gets a session of its own."""
+    cfg = Config(backbone="ResNet50", dilation=True, vocab_size=30522, dropout=0.1, compute_dtype="bfloat16",
+                 use_pallas_attention=True)
+    torch.manual_seed(0)
+    params = weights.to_params(weights.reference_module(cfg).state_dict(), cfg, device=dev)
+    batch, ragged = _step_batches(cfg, dev, 4, 1, seed=6)[0], _step_batches(cfg, dev, 3, 1, seed=7)[0]
+    step = tstate.make_eval_step(cfg)
+    tstate.CUDA_GRAPHS = False
+    want, want_ragged = step(params, batch), step(params, ragged)
+    tstate.CUDA_GRAPHS = True
+    for _ in range(3):
+        torch.cuda.synchronize()
+        dk.reset_launches()
+        got = step(params, batch)
+        torch.cuda.synchronize()
+        assert dk.LAUNCHES["fused_attention"] == 18 and _bits_equal(got, want)
+    assert _bits_equal(step(params, ragged), want_ragged) and _bits_equal(step(params, ragged), want_ragged)
+    kinds = sorted((s.kind, s.inputs[0].shape[0], len(s.graphs)) for s in graphs.sessions())
+    assert kinds == [("eval", 3, 1), ("eval", 4, 1)]
+
+
+def test_resume_between_replays_equals_the_run_without_it(dev, step_graphs, tmp_path):
+    """Five graph steps at dropout 0.1, and the same five with a checkpoint
+    saved after the third and loaded back into the state (which replaces
+    AdamW's moments: a new key, its session warmed up and captured anew, the
+    stale one dropped): the same parameters, moments, losses and grad
+    norms, bit for bit."""
+    from retr_tpu_torch.train import checkpoints as ckpt
+
+    cfg = Config(**{**SERVE_CFG, "dropout": 0.1})
+    torch.manual_seed(0)
+    params = weights.to_params(weights.reference_module(cfg).state_dict(), cfg, device=dev)
+    batches = _step_batches(cfg, dev, 4, 5, seed=8)
+    straight = _train_run(cfg, params, dev, batches, graphed=True)
+    graphs.clear()
+    st, losses, norms = _train_run(cfg, params, dev, batches[:3], graphed=True)
+    path = ckpt.save_checkpoint(str(tmp_path), st, cfg, epoch=0)
+    st, _ = ckpt.load_checkpoint(path, st)
+    assert all(torch.is_tensor(g["lr"]) and g["capturable"] for g in st.opt_state.param_groups)
+    assert all(s["step"].device.type == "cuda" for s in st.opt_state.state.values())
+    step = tstate.make_train_step(cfg)
+    for b in batches[3:]:
+        st, loss = step(st, b, 3)
+        losses.append(loss)
+        norms.append(st.grad_norm)
+    torch.cuda.synchronize()
+    assert [s.owner is st.opt_state for s in graphs.sessions()] == [True]
+    assert chip_smoke.state_differences(straight[0], st) == []
+    assert all(_bits_equal(a, b) for a, b in zip(straight[1] + straight[2], losses + norms))
