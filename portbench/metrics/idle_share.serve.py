@@ -1,0 +1,12 @@
+"""Share of the traced serving window in which no operation ran on the card,
+in percent: 100 * (1 - busy / span) of the torch.profiler CUDA intervals'
+union (portbench/profiler.py) while ``ServingQueue`` serves the cell's own
+arrivals (partial batches, the dispatcher's preprocessing, two batches in
+flight, the graph replays) for ``min(--seconds, 10)`` seconds."""
+
+
+def read(ctx):
+    prof = ctx.get("profile")
+    if not prof or prof["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - prof["busy_s"] / prof["window_s"])
