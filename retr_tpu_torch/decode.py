@@ -83,6 +83,7 @@ from retr_tpu_torch.ops import decoder_kernels as dk
 from retr_tpu_torch.ops import graphs
 from retr_tpu_torch.parallel import mesh as pmesh
 from retr_tpu_torch.precision import dtype_of, matmul_precision
+from retr_tpu_torch.utils import profiling
 
 Params = Dict[str, Any]
 
@@ -187,9 +188,12 @@ def _session_trees(tparams: Params, mlp: Params, head_p: Optional[Params]) -> li
 
 def _drive(loop, max_len: int, replay: Optional[Callable[[int], None]] = None) -> None:
     """Run the loop's chunks, the host checking the stop condition before
-    each: eagerly, or by ``replay(first step)`` of the captured chunk."""
+    each (the span ``decode.stop_check``: the host blocked on the card):
+    eagerly, or by ``replay(first step)`` of the captured chunk."""
     for i0, n in _chunks(max_len):
-        if loop.stopped(i0):
+        with profiling.span("decode.stop_check"):
+            stopped = loop.stopped(i0)
+        if stopped:
             break
         if replay is None:
             loop.chunk(i0, n)
@@ -400,11 +404,12 @@ def greedy_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, *,
 
 
 def _encode_for_decode(params, cfg, samples, global_samples, loc_feats, compute_dtype, filler_idx):
-    memory, mem_mask, pos = caption.encode(
-        params, cfg, samples, global_samples=global_samples, loc_feats=loc_feats,
-        compute_dtype=compute_dtype, filler_idx=filler_idx,
-    )
-    params, memory, pos = _cast_for_decode(params, memory, pos, compute_dtype)
+    with profiling.span("decode.encode", rows=samples.tensors.shape[0]):
+        memory, mem_mask, pos = caption.encode(
+            params, cfg, samples, global_samples=global_samples, loc_feats=loc_feats,
+            compute_dtype=compute_dtype, filler_idx=filler_idx,
+        )
+        params, memory, pos = _cast_for_decode(params, memory, pos, compute_dtype)
     return params, memory, mem_mask, pos
 
 

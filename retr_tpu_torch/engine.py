@@ -22,6 +22,11 @@ device with no mesh the steps of ``train/state.py`` replay CUDA graphs
 (``data/pipeline.device_batch``, which the JAX package compiles apart) are
 dispatched op by op between two steps.
 
+Spans (``utils/profiling.py``): ``train.loader_wait`` and
+``train.device_batch`` per training step; ``eval.<phase>`` for each of
+``eval_model``'s PhaseTimer phases and ``eval.collect`` per batch (the
+fetch, pruning, detokenizing and the references).
+
 Under a ``parallel.mesh.Mesh`` every rank is a process, as in JAX's
 multi-host runs: a training batch is this rank's own loader rows (``main``
 shards the loader by dp rank), jittered from a seed that folds in the dp
@@ -53,6 +58,7 @@ from retr_tpu_torch.models import layers
 from retr_tpu_torch.parallel import mesh as pmesh
 from retr_tpu_torch.precision import dtype_of
 from retr_tpu_torch.train.state import TrainState, make_eval_step, tree_leaves_with_path
+from retr_tpu_torch.utils import profiling
 from retr_tpu_torch.utils.logging import MetricLogger
 from retr_tpu_torch.utils.profiling import PhaseTimer
 
@@ -98,6 +104,20 @@ def _check_mesh(mesh) -> Optional[pmesh.Mesh]:
 
 def _device_of(params) -> torch.device:
     return next(leaf for _, leaf in tree_leaves_with_path(params)).device
+
+
+def _loader_batches(loader):
+    """The loader's host batches, the wait for each a ``train.loader_wait``
+    span (the wait that finds the loader exhausted is not kept)."""
+    it = iter(loader)
+    while True:
+        with profiling.span("train.loader_wait") as s:
+            host_batch = next(it, None)
+            if host_batch is None:
+                s.cancel()
+        if host_batch is None:
+            return
+        yield host_batch
 
 
 def _staged_batches(loader, make_batch, device: torch.device, depth: int = 2):
@@ -224,13 +244,14 @@ def train_one_epoch(
             logger.log("train_step", step=i, loss=loss_value, epoch=epoch)
 
     def make_batch(i, host_batch):
-        gen = layers.make_generator(layers.fold_in(aug_seed, i), device)
-        return device_batch(host_batch, device, train=True, generator=gen)
+        with profiling.span("train.device_batch", step=step0 + i + 1):
+            gen = layers.make_generator(layers.fold_in(aug_seed, i), device)
+            return device_batch(host_batch, device, train=True, generator=gen)
 
     if stage_uploads:
-        batches = _staged_batches(loader, make_batch, device, depth=2)
+        batches = _staged_batches(_loader_batches(loader), make_batch, device, depth=2)
     else:
-        batches = (make_batch(i, hb) for i, hb in enumerate(loader))
+        batches = (make_batch(i, hb) for i, hb in enumerate(_loader_batches(loader)))
 
     for batch in batches:
         state, loss = step_fn(state, batch, epoch_seed)
@@ -377,22 +398,23 @@ def eval_model(
 
     def collect(entry):
         ids_dev, host_batch = entry
-        with timer.phase("fetch"):
-            token_ids = ids_dev.cpu().tolist()
-            if mesh is not None:
-                token_ids = [row for part in pmesh.all_gather_object(token_ids, mesh.dp_group) for row in part]
-        token_ids = token_ids[: len(host_batch.ann_ids)]  # drop the padded rows
+        with profiling.span("eval.collect", rows=len(host_batch.ann_ids)):
+            with timer.phase("fetch"):
+                token_ids = ids_dev.cpu().tolist()
+                if mesh is not None:
+                    token_ids = [row for part in pmesh.all_gather_object(token_ids, mesh.dp_group) for row in part]
+            token_ids = token_ids[: len(host_batch.ann_ids)]  # drop the padded rows
 
-        pruned = decode_mod.prune_token_ids(token_ids, clean=True, pad_token=special["pad"],
-                                            bos_token=special["bos"], eos_token=special["eos"])
-        hyps = tokenizer.batch_decode(pruned)
-        hypotheses.extend(hyps)
-        ids_hyps = [{"ann_id": int(i), "expression": h} for i, h in zip(host_batch.ann_ids.tolist(), hyps)]
-        ids_hypotheses.extend(ids_hyps)
-        if print_samples and (mesh is None or mesh.rank == 0):
-            print(*ids_hyps, sep="\n")
-        refs = [annotations[int(i)] for i in host_batch.ann_ids]
-        references.extend([normalize_with_tokenizer(r, tokenizer) for r in rs] for rs in refs)
+            pruned = decode_mod.prune_token_ids(token_ids, clean=True, pad_token=special["pad"],
+                                                bos_token=special["bos"], eos_token=special["eos"])
+            hyps = tokenizer.batch_decode(pruned)
+            hypotheses.extend(hyps)
+            ids_hyps = [{"ann_id": int(i), "expression": h} for i, h in zip(host_batch.ann_ids.tolist(), hyps)]
+            ids_hypotheses.extend(ids_hyps)
+            if print_samples and (mesh is None or mesh.rank == 0):
+                print(*ids_hyps, sep="\n")
+            refs = [annotations[int(i)] for i in host_batch.ann_ids]
+            references.extend([normalize_with_tokenizer(r, tokenizer) for r in rs] for rs in refs)
 
     pending: deque = deque()
     it = iter(loader)

@@ -12,7 +12,8 @@
 - ``--store_results`` writes the generated expressions and the metrics as JSON
   under ``<project_data_path>/results/``.
 - ``--profile_dir`` records the evaluation under torch.profiler
-  (``utils/profiling.trace``).
+  (``utils/profiling.trace``): ``DIR/trace.json`` shows the program's spans
+  (``eval.*``, ``decode.*``) above the kernels.
 """
 
 from __future__ import annotations

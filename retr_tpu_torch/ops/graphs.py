@@ -44,6 +44,11 @@ session's static inputs, captures the graph with the dropout generators of
 that plan registered, and replays it; later calls copy and replay. Outputs
 are copied out of the graph's after each replay. Train and eval sessions
 share the registry, and ``MAX_SESSIONS``, with the decode's.
+
+Counters (``utils/profiling.py``, read by ``ServingQueue.stats()``, so
+``/healthz``): ``graphs.captures`` (one per :meth:`Session.capture`) and
+``graphs.evictions`` (a session dropped past ``MAX_SESSIONS``). A replay
+adds its kernels to ``decoder_kernels.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ import torch
 
 from retr_tpu_torch.models import layers
 from retr_tpu_torch.ops import decoder_kernels as dk
+from retr_tpu_torch.utils import profiling
 
 # sessions kept at once, decode and step ones together; the least recently used
 # goes first. Six hold an epoch of main's: the train step, the validation
@@ -116,6 +122,7 @@ class Session:
 
     def capture(self, chunks: List[Tuple[int, Callable[[], None]]]) -> None:
         """One graph per ``(start, body)`` of ``chunks``, in order, in one pool."""
+        profiling.count("graphs.captures")
         t0 = time.perf_counter()
         before = torch.cuda.memory_reserved(self.device)
         pool = torch.cuda.graph_pool_handle()
@@ -166,6 +173,7 @@ def session(key: tuple, make: Callable[[], Session]) -> Session:
         _sessions[key] = s
         while len(_sessions) > MAX_SESSIONS:
             _drop(_sessions.popitem(last=False)[1])
+            profiling.count("graphs.evictions")
         return s
 
 

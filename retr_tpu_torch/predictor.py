@@ -31,6 +31,7 @@ batch's tokens and detokenizes. Admission is bounded; over the bound
 from __future__ import annotations
 
 import contextlib
+import itertools
 import queue
 import threading
 import time
@@ -51,6 +52,7 @@ from retr_tpu_torch.masking import Masked
 from retr_tpu_torch.models import layers, weights
 from retr_tpu_torch.precision import dtype_of
 from retr_tpu_torch.train import checkpoints
+from retr_tpu_torch.utils import profiling
 
 
 def _to_host(ids: torch.Tensor):
@@ -282,6 +284,11 @@ class ServingQueue:
     preprocessing in the C++ core and the collector's wait release it. Both threads run on the predictor's device.
     Batch ``n`` of the queue's life samples with seed ``(0, n)``.
 
+    Spans (``utils/profiling.py``, attributes ``batch``, ``request``,
+    ``rows``): ``serve.queue_wait`` per request (submit to its batch
+    closed), and per batch ``serve.preprocess`` and ``serve.dispatch``
+    (collate, upload, the decode's enqueue).
+
         q = ServingQueue(pred)
         futs = [q.submit(img, bbox) for img, bbox in requests]
         texts = [f.result() for f in futs]
@@ -304,6 +311,8 @@ class ServingQueue:
         self._close_lock = threading.Lock()  # makes the closed check and the enqueue atomic
         self._accepted = 0
         self._rejected = 0
+        self._batches = 0   # batches dispatched
+        self._rows = 0      # their real rows (requests preprocessed without error)
         # EMA of the per-batch service time (collect to collect), seeded with the window
         self._batch_s = max_wait_s
         self._last_collect_t: Optional[float] = None
@@ -338,12 +347,15 @@ class ServingQueue:
                 self._rejected += 1
                 raise ServingOverloaded(self._retry_after_estimate())
             fut: "Future[str]" = Future()
-            self._q.put((image, bbox, fut))
+            self._q.put((image, bbox, fut, self._accepted, profiling.now()))
             self._accepted += 1
         return fut
 
     def stats(self) -> dict:
-        """Admission and serving counters."""
+        """Admission and serving counters; ``graph_captures`` and
+        ``graph_evictions`` are the process's (``graphs.captures``,
+        ``graphs.evictions``)."""
+        graph = profiling.counters()
         return {
             "accepted": self._accepted,
             "rejected": self._rejected,
@@ -351,6 +363,10 @@ class ServingQueue:
             "in_flight_batches": self._flight.qsize(),
             "batch_service_s": self._batch_s,
             "max_queued": self.max_queued,
+            "batches": self._batches,
+            "rows": self._rows,
+            "graph_captures": graph.get("graphs.captures", 0),
+            "graph_evictions": graph.get("graphs.evictions", 0),
         }
 
     def close(self, *, wait: bool = True) -> None:
@@ -364,8 +380,10 @@ class ServingQueue:
             self._dispatcher.join()
             self._collector.join()
 
-    def _next_batch(self) -> Optional[list]:
-        """Block for the first request, then coalesce until full or max_wait_s."""
+    def _next_batch(self, b: int) -> Optional[list]:
+        """Block for the first request, then coalesce batch ``b`` until full
+        or max_wait_s; its requests' ``serve.queue_wait`` spans end when it
+        closes."""
         first = self._q.get()
         if first is None:
             return None
@@ -380,6 +398,10 @@ class ServingQueue:
                 self._q.put(None)  # re-post the sentinel: the worker exits next round
                 break
             batch.append(item)
+        if profiling.recording():
+            closed = profiling.now()
+            for item in batch:
+                profiling.record("serve.queue_wait", item[4], closed, request=item[3], batch=b)
         return batch
 
     def _dispatch_loop(self) -> None:
@@ -387,9 +409,8 @@ class ServingQueue:
             self._dispatch_batches()
 
     def _dispatch_batches(self) -> None:
-        chunk = 0
-        while True:
-            batch = self._next_batch()
+        for b in itertools.count():
+            batch = self._next_batch(b)
             if batch is None:
                 # nothing can land behind the sentinel (the submit lock), but
                 # fail anything left rather than leave a future unresolved
@@ -403,21 +424,24 @@ class ServingQueue:
                 self._flight.put(None)  # collector shutdown
                 return
             samples, ok_futs = [], []
-            for image, bbox, fut in batch:
-                try:
-                    samples.append(self.predictor._preprocess_one(image, bbox))
-                    ok_futs.append(fut)
-                except Exception as exc:  # this request's input is at fault: fail it alone
-                    fut.set_exception(exc)
+            with profiling.span("serve.preprocess", batch=b, rows=len(batch)):
+                for image, bbox, fut, _, _ in batch:
+                    try:
+                        samples.append(self.predictor._preprocess_one(image, bbox))
+                        ok_futs.append(fut)
+                    except Exception as exc:  # this request's input is at fault: fail it alone
+                        fut.set_exception(exc)
             if not samples:
                 continue
             try:
-                pending, true_n = self.predictor._dispatch_samples(samples, self.decoder, chunk=chunk)
-                chunk += 1
+                with profiling.span("serve.dispatch", batch=b, rows=len(samples)):
+                    pending, true_n = self.predictor._dispatch_samples(samples, self.decoder, chunk=self._batches)
             except Exception as exc:  # a device failure fails the whole batch
                 for f in ok_futs:
                     f.set_exception(exc)
                 continue
+            self._batches += 1
+            self._rows += true_n
             self._flight.put((pending, true_n, ok_futs))  # blocks at depth: back-pressure
 
     def _collect_loop(self) -> None:
