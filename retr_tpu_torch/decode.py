@@ -72,7 +72,7 @@ import functools
 import threading
 import weakref
 from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -403,14 +403,29 @@ def greedy_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, *,
                       eos_token=eos_token, head_p=head_p, cuda_graphs=cuda_graphs)
 
 
-def _encode_for_decode(params, cfg, samples, global_samples, loc_feats, compute_dtype, filler_idx):
+class Encoded(NamedTuple):
+    """The encoder's output as the decode loop takes it (:func:`_encode_for_decode`):
+    the params cast for the loop, the memory, its mask and positions.
+    :func:`greedy`, :func:`greedy_with_prefix`, :func:`sample` and
+    :func:`beam_search` take one in place of their samples: they then skip
+    the encode and decode with its params, not their own. So a caller can
+    enqueue a batch's encode and run its decode later, on another thread."""
+    params: Params
+    memory: torch.Tensor
+    mem_mask: torch.Tensor
+    pos: torch.Tensor
+
+
+def _encode_for_decode(params, cfg, samples, global_samples, loc_feats, compute_dtype, filler_idx) -> Encoded:
+    if isinstance(samples, Encoded):
+        return samples
     with profiling.span("decode.encode", rows=samples.tensors.shape[0]):
         memory, mem_mask, pos = caption.encode(
             params, cfg, samples, global_samples=global_samples, loc_feats=loc_feats,
             compute_dtype=compute_dtype, filler_idx=filler_idx,
         )
         params, memory, pos = _cast_for_decode(params, memory, pos, compute_dtype)
-    return params, memory, mem_mask, pos
+    return Encoded(params, memory, mem_mask, pos)
 
 
 def greedy(params: Params, cfg: Config, samples: Masked, *,
@@ -418,7 +433,7 @@ def greedy(params: Params, cfg: Config, samples: Masked, *,
            max_len: int = 128, bos_token: int = 101, eos_token: int = 102,
            compute_dtype=torch.float32, filler_idx=None) -> torch.Tensor:
     """Batched greedy decoding: encode once, then the KV-cached loop. Runs on the
-    device the samples are on."""
+    device the samples are on; ``samples`` may be their :class:`Encoded`."""
     params, memory, mem_mask, pos = _encode_for_decode(params, cfg, samples, global_samples, loc_feats,
                                                        compute_dtype, filler_idx)
     return greedy_from_memory(params, cfg, memory, mem_mask, pos, max_len=max_len,
@@ -784,7 +799,7 @@ def beam_search(params: Params, cfg: Config, samples: Masked, *,
                 length_penalty: float = 1.0, compute_dtype=torch.float32, early_stop: bool = True,
                 filler_idx=None):
     """Batched beam search: encode once, then the KV-cached beam loop. Runs on
-    the device the samples are on."""
+    the device the samples are on; ``samples`` may be their :class:`Encoded`."""
     params, memory, mem_mask, pos = _encode_for_decode(params, cfg, samples, global_samples, loc_feats,
                                                        compute_dtype, filler_idx)
     return beam_search_from_memory(params, cfg, memory, mem_mask, pos, max_len=max_len,

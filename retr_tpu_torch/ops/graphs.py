@@ -24,8 +24,8 @@ stream (:meth:`Session.warm_up`): that creates what a capture cannot, the
 kernels' libraries and their ``cudaFuncSetAttribute`` calls and cuBLAS's
 handle and workspace for the stream. Then :meth:`Session.capture` records one
 graph per chunk start (0, 16, ..., 112 at ``max_len`` 128), all in one memory
-pool, with ``capture_error_mode="thread_local"``: the ServingQueue's collector
-thread synchronises events while its dispatcher may be capturing. A session's
+pool, with ``capture_error_mode="thread_local"``: while the ServingQueue's
+collector captures, its dispatcher enqueues the next batch's encoder. A session's
 lock keeps two threads from replaying one set of buffers at once. A capture or
 replay that fails raises.
 

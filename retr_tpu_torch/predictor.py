@@ -23,9 +23,10 @@ runs the loop eagerly and captures it, later batches replay it. Sampling draws f
 of ``fold_in(key(seed), chunk)``.
 
 :class:`ServingQueue` batches concurrent requests on two threads: a dispatcher
-that preprocesses and launches decodes, and a collector that waits for each
-batch's tokens and detokenizes. Admission is bounded; over the bound
-``submit`` raises :class:`ServingOverloaded` with a Retry-After estimate.
+that preprocesses and enqueues each batch's encode, and a collector that runs
+its decode loop, waits for its tokens and detokenizes. Admission is bounded;
+over the bound ``submit`` raises :class:`ServingOverloaded` with a
+Retry-After estimate.
 """
 
 from __future__ import annotations
@@ -215,25 +216,40 @@ class Predictor:
                     compute_dtype=dtype_of(self.cfg.compute_dtype))
 
     def _dispatch_samples(self, samples, decoder: str, *, seed: int = 0, chunk: int = 0):
-        """Decode already preprocessed samples (see :meth:`_preprocess_one`).
-        Returns (pending ids, true_n): on the card the ids' copy to pinned host
-        memory is queued with an event behind it, so :meth:`_collect` waits for
-        this batch only. The loop itself checks the device every
-        ``decode.CHECK_EVERY`` steps, so this returns near the decode's end."""
-        true_n = len(samples)
+        """Decode already preprocessed samples (see :meth:`_preprocess_one`):
+        :meth:`_encode_samples`, then :meth:`_decode_encoded`. Returns
+        (pending ids, true_n) for :meth:`_collect`."""
+        return self._decode_encoded(self._encode_samples(samples), decoder, seed=seed, chunk=chunk)
+
+    def _encode_samples(self, samples) -> tuple:
+        """A batch's encode half: collate, upload and enqueue the encoder.
+        Returns (``decode.Encoded``, the decoders' keyword arguments, true_n)
+        for :meth:`_decode_encoded`."""
         batch = self._device_batch(samples)
-        imgs = Masked(batch.images, batch.image_masks)
         common = self._common(batch)
+        encoded = decode_mod._encode_for_decode(
+            self.params, self.cfg, Masked(batch.images, batch.image_masks), common["global_samples"],
+            common["loc_feats"], common["compute_dtype"], None)
+        return encoded, common, len(samples)
+
+    def _decode_encoded(self, encoded_batch: tuple, decoder: str, *, seed: int = 0, chunk: int = 0):
+        """A batch's decode half: the decoder from the output of
+        :meth:`_encode_samples`. Returns (pending ids, true_n): on the card
+        the ids' copy to pinned host memory is queued with an event behind it,
+        so :meth:`_collect` waits for this batch only. The loop itself checks
+        the device every ``decode.CHECK_EVERY`` steps, so this returns near
+        the decode's end."""
+        encoded, common, true_n = encoded_batch
         if decoder == "beam":
-            tokens, _ = decode_mod.beam_search(self.params, self.cfg, imgs, beam_size=self.cfg.beam_size,
+            tokens, _ = decode_mod.beam_search(self.params, self.cfg, encoded, beam_size=self.cfg.beam_size,
                                                length_penalty=self.cfg.length_penalty, **common)
             ids = tokens[:, 0]
         elif decoder == "sample":
             gen = layers.make_generator(layers.fold_in(seed, chunk), self.device)
-            ids = decode_mod.sample(self.params, self.cfg, imgs, gen, temperature=self.cfg.sample_temperature,
+            ids = decode_mod.sample(self.params, self.cfg, encoded, gen, temperature=self.cfg.sample_temperature,
                                     top_k=self.cfg.sample_top_k, top_p=self.cfg.sample_top_p, **common)
         else:
-            ids = decode_mod.greedy(self.params, self.cfg, imgs, **common)
+            ids = decode_mod.greedy(self.params, self.cfg, encoded, **common)
         return _to_host(ids[:true_n]), true_n
 
     def _collect(self, pending, true_n: int) -> List[str]:
@@ -274,20 +290,28 @@ class ServingQueue:
     Retry-After estimate.
 
     The DISPATCHER preprocesses each request (a malformed one fails only its own
-    future) and runs the decode; the COLLECTOR waits for each batch's tokens,
-    detokenizes and resolves the futures. Up to ``pipeline_depth`` batches wait
-    between them; a full pipeline blocks the dispatcher, whose next batch then
-    keeps filling. The decode loop runs on the dispatcher's thread: on a CUDA
-    device it replays captured graphs, one host call per ``decode.CHECK_EVERY``
-    steps (the first batch of a decoder captures them, under the session's
-    lock), eagerly elsewhere, holding the GIL between torch calls;
-    preprocessing in the C++ core and the collector's wait release it. Both threads run on the predictor's device.
-    Batch ``n`` of the queue's life samples with seed ``(0, n)``.
+    future), collates, uploads and enqueues the encoder
+    (``Predictor._encode_samples``); the COLLECTOR runs the decode loop from
+    that encoder output (``Predictor._decode_encoded``), waits for the
+    batch's tokens, detokenizes and resolves the futures. So the card decodes
+    batch n while the dispatcher coalesces, preprocesses and encodes batch
+    n+1; both enqueue on the one stream, which runs the work in that order.
+    Up to ``pipeline_depth`` encoded batches wait between them; a full
+    pipeline blocks the dispatcher, whose next batch then keeps filling. On a
+    CUDA device the loop replays captured graphs, one host call per
+    ``decode.CHECK_EVERY`` steps (the first batch of a decoder captures them,
+    under the session's lock and thread-local, while the dispatcher may
+    encode), eagerly elsewhere. Both threads run on the predictor's device.
+    Batch ``n`` of the queue's life (counted as the dispatcher hands it on)
+    samples with seed ``(0, n)``; a batch whose encode or decode fails fails
+    its own futures.
 
     Spans (``utils/profiling.py``, attributes ``batch``, ``request``,
     ``rows``): ``serve.queue_wait`` per request (submit to its batch
-    closed), and per batch ``serve.preprocess`` and ``serve.dispatch``
-    (collate, upload, the decode's enqueue).
+    closed); per batch ``serve.coalesce`` (its first request taken to its
+    close), ``serve.preprocess`` and ``serve.dispatch`` (collate, upload, the
+    encoder's enqueue) on the dispatcher, ``serve.decode`` (the loop, its
+    ``decode.stop_check`` spans inside) on the collector.
 
         q = ServingQueue(pred)
         futs = [q.submit(img, bbox) for img, bbox in requests]
@@ -311,8 +335,10 @@ class ServingQueue:
         self._close_lock = threading.Lock()  # makes the closed check and the enqueue atomic
         self._accepted = 0
         self._rejected = 0
-        self._batches = 0   # batches dispatched
+        self._batches = 0   # batches encoded and handed to the collector
         self._rows = 0      # their real rows (requests preprocessed without error)
+        self._decoded = 0   # batches whose decode half has returned or raised
+        self._decoded_behind = 0   # batches begun while an earlier one was still to decode
         # EMA of the per-batch service time (collect to collect), seeded with the window
         self._batch_s = max_wait_s
         self._last_collect_t: Optional[float] = None
@@ -352,9 +378,11 @@ class ServingQueue:
         return fut
 
     def stats(self) -> dict:
-        """Admission and serving counters; ``graph_captures`` and
-        ``graph_evictions`` are the process's (``graphs.captures``,
-        ``graphs.evictions``)."""
+        """Admission and serving counters; ``decoded_behind`` counts the
+        batches whose first request was taken while an earlier batch was
+        still to decode (how often the dispatcher works beside a decode);
+        ``graph_captures`` and ``graph_evictions`` are the process's
+        (``graphs.captures``, ``graphs.evictions``)."""
         graph = profiling.counters()
         return {
             "accepted": self._accepted,
@@ -365,6 +393,7 @@ class ServingQueue:
             "max_queued": self.max_queued,
             "batches": self._batches,
             "rows": self._rows,
+            "decoded_behind": self._decoded_behind,
             "graph_captures": graph.get("graphs.captures", 0),
             "graph_evictions": graph.get("graphs.evictions", 0),
         }
@@ -380,13 +409,17 @@ class ServingQueue:
             self._dispatcher.join()
             self._collector.join()
 
-    def _next_batch(self, b: int) -> Optional[list]:
+    def _next_batch(self, b: int) -> tuple:
         """Block for the first request, then coalesce batch ``b`` until full
-        or max_wait_s; its requests' ``serve.queue_wait`` spans end when it
-        closes."""
+        or max_wait_s; its ``serve.coalesce`` span and its requests'
+        ``serve.queue_wait`` spans end when it closes. Returns the batch (None
+        once closed) and whether an earlier batch was still to decode when
+        its first request was taken."""
         first = self._q.get()
         if first is None:
-            return None
+            return None, False
+        behind = self._decoded < self._batches
+        started = profiling.now()
         batch = [first]
         t_end = time.monotonic() + self.max_wait_s
         while len(batch) < self.predictor.max_batch:
@@ -400,9 +433,10 @@ class ServingQueue:
             batch.append(item)
         if profiling.recording():
             closed = profiling.now()
+            profiling.record("serve.coalesce", started, closed, batch=b)
             for item in batch:
                 profiling.record("serve.queue_wait", item[4], closed, request=item[3], batch=b)
-        return batch
+        return batch, behind
 
     def _dispatch_loop(self) -> None:
         with self._on_device():
@@ -410,7 +444,7 @@ class ServingQueue:
 
     def _dispatch_batches(self) -> None:
         for b in itertools.count():
-            batch = self._next_batch(b)
+            batch, behind = self._next_batch(b)
             if batch is None:
                 # nothing can land behind the sentinel (the submit lock), but
                 # fail anything left rather than leave a future unresolved
@@ -435,14 +469,24 @@ class ServingQueue:
                 continue
             try:
                 with profiling.span("serve.dispatch", batch=b, rows=len(samples)):
-                    pending, true_n = self.predictor._dispatch_samples(samples, self.decoder, chunk=self._batches)
+                    encoded = self.predictor._encode_samples(samples)
             except Exception as exc:  # a device failure fails the whole batch
                 for f in ok_futs:
                     f.set_exception(exc)
                 continue
+            chunk = self._batches
             self._batches += 1
-            self._rows += true_n
-            self._flight.put((pending, true_n, ok_futs))  # blocks at depth: back-pressure
+            self._rows += len(samples)
+            self._decoded_behind += behind
+            self._flight.put((b, chunk, encoded, ok_futs))  # blocks at depth: back-pressure
+
+    def _decode(self, b: int, chunk: int, encoded: tuple, futs: list):
+        """The collector's decode half of batch ``b``; returns (pending ids, true_n)."""
+        try:
+            with profiling.span("serve.decode", batch=b, rows=len(futs)):
+                return self.predictor._decode_encoded(encoded, self.decoder, chunk=chunk)
+        finally:
+            self._decoded += 1
 
     def _collect_loop(self) -> None:
         with self._on_device():
@@ -450,10 +494,10 @@ class ServingQueue:
                 item = self._flight.get()
                 if item is None:
                     return
-                pending, true_n, futs = item
+                b, chunk, encoded, futs = item
                 try:
-                    texts = self.predictor._collect(pending, true_n)
-                except Exception as exc:
+                    texts = self.predictor._collect(*self._decode(b, chunk, encoded, futs))
+                except Exception as exc:  # a device failure fails the whole batch
                     for f in futs:
                         f.set_exception(exc)
                     continue

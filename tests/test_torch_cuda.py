@@ -13,9 +13,10 @@ the one card over gloo, whose two f32 train steps equal the world of one's;
 the split blocks' partial (tensor-parallel) mode at the tiny and the served
 width; the decode loop replayed as CUDA graphs against the eager loop
 (greedy stacked and trio, prefix completion, beam with the top-k head off
-and on, sampling; bit-equal buffers and equal launch counts) and sampling's
-replayed draws in distribution; the train and eval steps replayed as CUDA
-graphs against the eager steps (bit-equal states, losses and grad norms at
+and on, sampling; bit-equal buffers and equal launch counts), sampling's
+replayed draws in distribution, and a ServingQueue whose collector captures
+while its dispatcher encodes the next batch; the train and eval steps
+replayed as CUDA graphs against the eager steps (bit-equal states, losses and grad norms at
 dropout 0.1 with accumulation and remat; the eval graph's 18 fused_attention
 launches; a checkpoint resumed between two replays).
 Run on the card with
@@ -1212,6 +1213,66 @@ def test_graph_sampling_draws_in_distribution(dev, graph_flags, temperature, top
         assert draws.numel() == 20000 and float((freq - want).abs().max()) <= 0.015, (freq, want)
         assert set(draws.unique().tolist()) <= set(want.nonzero().flatten().tolist())
     assert not torch.equal(runs[1], runs[2]) and torch.equal(runs[1], runs[3])
+
+
+def test_serving_queue_captures_while_the_dispatcher_encodes(dev, graph_flags, monkeypatch):
+    """A fresh greedy decoder's first batch captures its session on the
+    ServingQueue's collector while the dispatcher enqueues the next
+    batch's encoder: the capture's first chunk waits until that encode has
+    been enqueued, and that encode waits until the capture has begun. One
+    capture; both batches' texts equal predict_batch's, which replays the
+    session after. bf16 at the served width, batches of 4."""
+    import threading
+
+    import numpy as np
+
+    from retr_tpu_torch.data.tokenizer import prepare_tokenizer
+    from retr_tpu_torch.predictor import Predictor, ServingQueue
+    from retr_tpu_torch.utils import profiling
+
+    tok, _, _ = prepare_tokenizer()
+    cfg = Config(**{**SERVE_CFG, "vocab_size": tok.vocab_size, "compute_dtype": "bfloat16"})
+    torch.manual_seed(0)
+    pred = Predictor(weights.reference_module(cfg).state_dict(), cfg, tok, max_batch=4, device=dev)
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (80, 90, 3), dtype=np.uint8) for _ in range(8)]
+    boxes = [[5, 5, 40 + i, 30] for i in range(8)]
+    capturing, encoded, encodes = threading.Event(), threading.Event(), []
+    real_capture, real_encode = graphs.Session.capture, pred._encode_samples
+
+    def capture(self, chunks):
+        (i0, body), rest = chunks[0], chunks[1:]
+
+        def held():
+            capturing.set()
+            encoded.wait(120)
+            body()
+
+        return real_capture(self, [(i0, held), *rest])
+
+    def encode(samples):
+        later = bool(encodes)
+        if later:
+            capturing.wait(120)
+        out = real_encode(samples)
+        encodes.append(1)
+        if later:
+            encoded.set()
+        return out
+
+    monkeypatch.setattr(graphs.Session, "capture", capture)
+    monkeypatch.setattr(pred, "_encode_samples", encode)
+    before = profiling.counters()
+    q = ServingQueue(pred, max_wait_s=0.5)
+    got = [f.result(timeout=300) for f in [q.submit(im, bb) for im, bb in zip(imgs, boxes)]]
+    q.close()
+    after = profiling.counters()
+    monkeypatch.undo()
+    assert capturing.is_set() and encoded.is_set() and len(encodes) == 2
+    assert after.get("graphs.captures", 0) - before.get("graphs.captures", 0) == 1
+    assert q.stats()["decoded_behind"] == 1
+    assert got == pred.predict_batch(imgs, boxes)
+    assert profiling.counters().get("graphs.captures", 0) == after.get("graphs.captures", 0)
 
 
 # ---------------------------------------------------------------------------------

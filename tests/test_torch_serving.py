@@ -12,7 +12,12 @@
 - ServingQueue and the HTTP server, as tests/test_predictor.py holds the JAX
   ones: batching equal to the synchronous API, error propagation, isolation of a
   bad request, reject after close, shedding with Retry-After, concurrent submit
-  and close, 200 / 400 / 404 / 503, /healthz, the image_path allowlist.
+  and close, 200 / 400 / 404 / 503, /healthz, the image_path allowlist;
+- the queue's two stages (the dispatcher encodes, the collector decodes):
+  greedy, sampling and beam equal to ``predict_batch``, a decode failure
+  fails its batch alone, back-pressure bounded at ``pipeline_depth`` + 2
+  batches, ``close()`` drains every stage, ``decoded_behind`` and the
+  ``serve.coalesce`` and ``serve.decode`` spans.
 
 f32 throughout, small configs (ResNet18, 32-64 px, 1-2 layers, hidden 64).
 """
@@ -382,6 +387,165 @@ def test_serving_queue_concurrent_submit_and_close(port):
     assert len(futs) + len(rejected) == 48 and futs
     assert all(f.done() for f in futs)
     assert sum(f.exception() is None for f in futs) >= 1
+
+
+# The two stages: the dispatcher (preprocess, collate, upload, the encoder's
+# enqueue) and the collector (the decode loop, the wait, detokenizing).
+
+
+@pytest.fixture(scope="module")
+def sampling_port():
+    """The port's Predictor with sampling that draws (temperature 1, top-k 8)."""
+    return _pair(sample_temperature=1.0, sample_top_k=8)[1]
+
+
+def _until(cond, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, "timed out"
+        time.sleep(0.005)
+
+
+def _hold_collector(pred, monkeypatch):
+    """Hold the collector inside its first batch until the returned event is set."""
+    release = threading.Event()
+    real = pred._collect
+
+    def collect(pending, true_n):
+        release.wait(120)
+        return real(pending, true_n)
+
+    monkeypatch.setattr(pred, "_collect", collect)
+    return release
+
+
+@pytest.mark.parametrize("decoder", ["greedy", "sample", "beam"])
+def test_serving_queue_decoders_match_predict_batch(sampling_port, decoder):
+    """Each decoder through the dispatcher's encode and the collector's decode gives
+    predict_batch's strings request for request: five requests close as its
+    chunks do (2, 2 and 1 rows), and batch n samples with seed (0, n) as
+    chunk n does."""
+    imgs, boxes = _requests(5)
+    want = sampling_port.predict_batch(imgs, boxes, decoder=decoder)
+    q = ServingQueue(sampling_port, max_wait_s=0.5, decoder=decoder)
+    got = [f.result(timeout=120) for f in [q.submit(im, bb) for im, bb in zip(imgs, boxes)]]
+    q.close()
+    assert got == want
+    assert q.stats()["batches"] == 3 and q.stats()["rows"] == 5
+
+
+def test_serving_queue_decode_failure_fails_its_batch_alone(port, monkeypatch):
+    """A decode half that raises on batch 0 fails exactly batch 0's futures;
+    batch 1 resolves to predict_batch's strings."""
+    imgs, boxes = _requests(4)
+    want = port.predict_batch(imgs, boxes)
+    real = port._decode_encoded
+
+    def decode_half(encoded, decoder, *, seed=0, chunk=0):
+        if chunk == 0:
+            raise RuntimeError("decode failed")
+        return real(encoded, decoder, seed=seed, chunk=chunk)
+
+    monkeypatch.setattr(port, "_decode_encoded", decode_half)
+    q = ServingQueue(port, max_wait_s=0.5)
+    futs = [q.submit(im, bb) for im, bb in zip(imgs, boxes)]
+    for f in futs[:2]:
+        with pytest.raises(RuntimeError, match="decode failed"):
+            f.result(timeout=120)
+    assert [f.result(timeout=120) for f in futs[2:]] == want[2:]
+    q.close()
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_serving_queue_back_pressure_is_bounded(port, monkeypatch, depth):
+    """With the collector held, the dispatcher takes pipeline_depth + 2
+    batches and no more: one held by the collector, ``pipeline_depth`` on
+    ``_flight``, one held by the dispatcher. The rest stand in the queue
+    until the collector is released; then every request resolves."""
+    img, bb = _img(), [5, 5, 30, 30]
+    want = port.predict(img, bb)
+    release = _hold_collector(port, monkeypatch)
+    bound = depth + 2
+    q = ServingQueue(port, max_wait_s=0.5, pipeline_depth=depth, max_queued=64)
+    futs = [q.submit(img, bb) for _ in range(2 * bound + 6)]
+    try:
+        _until(lambda: q.stats()["batches"] == bound and q.stats()["in_flight_batches"] == depth)
+        time.sleep(0.3)  # time to take a batch more, were the dispatcher free to
+        st = q.stats()
+        assert st["batches"] == bound and st["queued"] == len(futs) - 2 * bound
+        assert not any(f.done() for f in futs)
+    finally:
+        release.set()
+    assert [f.result(timeout=120) for f in futs] == [want] * len(futs)
+    q.close()
+
+
+def test_serving_queue_close_drains_every_stage(port, monkeypatch):
+    """close() while requests stand in the queue and in every stage (the
+    collector held) resolves every future with its text, and both threads
+    end."""
+    img, bb = _img(), [5, 5, 30, 30]
+    want = port.predict(img, bb)
+    release = _hold_collector(port, monkeypatch)
+    q = ServingQueue(port, max_wait_s=0.5, pipeline_depth=1, max_queued=64)
+    futs = [q.submit(img, bb) for _ in range(10)]   # 3 batches in the stages, 2 queued
+    try:
+        _until(lambda: q.stats()["batches"] == 3 and q.stats()["in_flight_batches"] == 1)
+        assert q.stats()["queued"] == 4
+        q.close(wait=False)
+    finally:
+        release.set()
+    workers = (q._dispatcher, q._collector)
+    for t in workers:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in workers)
+    assert [f.result(timeout=0) for f in futs] == [want] * len(futs)
+
+
+def test_serving_queue_counts_overlap_and_spans_the_decode(port, monkeypatch):
+    """Batch 0's decode half is held until batch 2 is encoded: batches 1 and
+    2 are begun while batch 0 is still to decode, so ``decoded_behind``
+    counts 2. Each batch has a ``serve.coalesce`` and a ``serve.decode`` span
+    with its ``batch`` (the decode also its ``rows``); the stop checks nest
+    under the decode, the encode under ``serve.dispatch``; the benchmark's
+    ``decode_overlap.serve`` reads 100."""
+    from portbench import harness
+    from retr_tpu_torch.utils import profiling
+
+    imgs, boxes = _requests(6)
+    want = port.predict_batch(imgs, boxes)
+    real = port._decode_encoded
+    q = None
+
+    def decode_half(encoded, decoder, *, seed=0, chunk=0):
+        if chunk == 0:
+            _until(lambda: q is not None and q.stats()["batches"] == 3)
+        return real(encoded, decoder, seed=seed, chunk=chunk)
+
+    monkeypatch.setattr(port, "_decode_encoded", decode_half)
+    profiling.reset()
+    profiling.enable()
+    try:
+        q = ServingQueue(port, max_wait_s=0.5)
+        got = [f.result(timeout=120) for f in [q.submit(im, bb) for im, bb in zip(imgs, boxes)]]
+        q.close()
+        behind = q.stats()["decoded_behind"]
+        spans = profiling.spans()
+        overlap = harness.load_module(f"{harness.HERE}/metrics/decode_overlap.serve.py", "overlap_serving_test")
+        assert overlap.read({}) == pytest.approx(100.0)
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert got == want and behind == 2
+    ids = {s["id"]: s for s in spans}
+    decodes = {s["attrs"]["batch"]: s["attrs"]["rows"] for s in spans if s["name"] == "serve.decode"}
+    assert decodes == {0: 2, 1: 2, 2: 2}
+    assert sorted(s["attrs"]["batch"] for s in spans if s["name"] == "serve.coalesce") == [0, 1, 2]
+    checks = [s for s in spans if s["name"] == "decode.stop_check"]
+    encodes = [s for s in spans if s["name"] == "decode.encode"]
+    assert checks and len(encodes) == 3
+    assert all(ids[s["parent"]]["name"] == "serve.decode" for s in checks)
+    assert all(ids[s["parent"]]["name"] == "serve.dispatch" for s in encodes)
 
 
 # ---------------------------------------------------------------------------------

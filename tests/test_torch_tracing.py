@@ -16,8 +16,11 @@ counters the program records with it.
   ``eval.input`` / ``decode`` / ``fetch`` / ``collect`` span per batch,
   ``decode.encode`` per batch, the PhaseTimer's counts;
 - ``ServingQueue`` on a tiny CPU ``Predictor``: one ``serve.queue_wait`` per
-  answered request, in a batch that has a ``serve.dispatch``; a malformed
-  request fails alone and is not in ``stats()["rows"]``;
+  answered request, in a batch that has a ``serve.coalesce``, a
+  ``serve.dispatch`` and a ``serve.decode``; a malformed request fails alone
+  and is not in ``stats()["rows"]``; the benchmark's ``decode_overlap.serve``
+  reader on hand-made spans: overlapping batches read 100, batches in series
+  0, no ``serve.decode`` span None;
 - ``train_one_epoch`` inline and staged: one ``train.loader_wait`` and one
   ``train.device_batch`` per step.
 
@@ -300,12 +303,14 @@ def test_serving_queue_spans_and_counts(predictor):
     assert {s["attrs"]["batch"] for s in waits} == set(dispatched)
     assert sum(dispatched.values()) == 5
     names = _names(spans)
-    for per_batch in ("serve.preprocess", "decode.encode"):
+    for per_batch in ("serve.coalesce", "serve.preprocess", "decode.encode", "serve.decode"):
         assert names[per_batch] == len(dispatched), per_batch
     ids = {s["id"]: s for s in spans}
     for s in spans:
-        if s["name"] in ("decode.encode", "decode.stop_check"):
+        if s["name"] == "decode.encode":
             assert ids[s["parent"]]["name"] == "serve.dispatch"
+        if s["name"] == "decode.stop_check":
+            assert ids[s["parent"]]["name"] == "serve.decode"
     st = q.stats()
     assert st["batches"] == len(dispatched) and st["rows"] == 5 and st["accepted"] == 5
     assert st["graph_captures"] == st["graph_evictions"] == 0  # CPU decodes run eagerly
@@ -322,6 +327,48 @@ def test_serving_queue_counts_no_row_for_a_malformed_request(predictor):
     st = q.stats()
     assert st["rows"] == len(answered) == 2 and st["accepted"] == 3
     assert profiling.spans() == []  # off: the queue kept no span
+
+
+MS = 1_000_000  # ns
+
+
+def _overlap_reading(monkeypatch, spans):
+    from portbench import harness
+    from portbench import spans as program
+
+    monkeypatch.setattr(program, "recorded", lambda: spans)
+    return harness.load_module(f"{harness.HERE}/metrics/decode_overlap.serve.py", "overlap_tracing_test").read({})
+
+
+def _batch(b, coalesce_ms, decode_ms):
+    """Batch ``b``'s ``serve.coalesce`` and ``serve.decode`` spans, (start, end) in ms."""
+    return [{"name": name, "start_ns": int(a * MS), "end_ns": int(z * MS), "id": 2 * b + k, "parent": None,
+             "thread": 1 + k, "attrs": {"batch": b, "rows": 2}}
+            for k, (name, (a, z)) in enumerate([("serve.coalesce", coalesce_ms), ("serve.decode", decode_ms)])]
+
+
+@pytest.mark.parametrize("case,want", [
+    # each batch is begun while the previous batch decodes
+    ("overlap", 100.0),
+    # each batch is begun after the previous decode ended
+    ("series", 0.0),
+    # batch 1 (all its requests malformed) has no spans: 3 follows 2, 2 follows 0; one of two overlaps
+    ("gap", 50.0),
+    # the parent's program: its dispatcher decodes, no serve.decode span
+    ("parent", None),
+])
+def test_decode_overlap_reader(monkeypatch, case, want):
+    spans = {
+        "overlap": _batch(0, (0, 10), (10, 60)) + _batch(1, (12, 40), (60, 110)) + _batch(2, (62, 90), (110, 160)),
+        "series": _batch(0, (0, 10), (10, 60)) + _batch(1, (61, 90), (90, 140)) + _batch(2, (141, 170), (170, 220)),
+        "gap": _batch(0, (0, 10), (10, 60)) + _batch(2, (70, 90), (90, 140)) + _batch(3, (100, 120), (140, 190)),
+        "parent": _batch(0, (0, 60), (0, 0))[:1] + _batch(1, (61, 120), (0, 0))[:1],   # serve.coalesce alone
+    }[case]
+    got = _overlap_reading(monkeypatch, spans)
+    if want is None:
+        assert got is None
+    else:
+        assert got == pytest.approx(want)
 
 
 @pytest.mark.parametrize("stage_uploads", [False, True])
