@@ -138,6 +138,30 @@ class Config:
     # the reference declares it but its training loop writes per-epoch files instead)
     checkpoint: str = ""
 
+    # --- the decoder (port-only knobs) -----------------------------------------------
+    # "retr": RE:TR's 6-layer transformer decoder and MLP head. "lm": a DeepSeek-V3
+    # block language model (models/lm.py) decodes after the encoder's memory,
+    # projected to lm_hidden_size, as its prefix. The lm_* widths default to
+    # Kimi-VL-A3B-Instruct's language model; only decoder_kind "lm" reads them,
+    # and RE:TR configs serialize without them (to_dict), as the JAX package's do.
+    decoder_kind: str = "retr"
+    lm_hidden_size: int = 2048
+    lm_layers: int = 27
+    lm_heads: int = 16
+    lm_kv_lora_rank: int = 512
+    lm_qk_nope_head_dim: int = 128
+    lm_qk_rope_head_dim: int = 64
+    lm_v_head_dim: int = 128
+    lm_intermediate_size: int = 11264        # the leading dense layers' SiLU-gated width
+    lm_moe_intermediate_size: int = 1408     # one routed expert's width
+    lm_n_routed_experts: int = 64
+    lm_n_shared_experts: int = 2
+    lm_num_experts_per_tok: int = 6
+    lm_first_k_dense_replace: int = 1        # how many leading layers are dense
+    lm_routed_scaling_factor: float = 2.446
+    lm_rms_norm_eps: float = 1e-5
+    lm_rope_theta: float = 800000.0
+
     def __post_init__(self) -> None:
         if not self.ref_dir:
             object.__setattr__(self, "ref_dir", join(self.ref_base, self.prefix))
@@ -159,11 +183,30 @@ class Config:
             raise ValueError(f"unsupported lr_schedule {self.lr_schedule!r}")
         if self.warmup_steps < 0:
             raise ValueError("warmup_steps must be >= 0")
+        if self.decoder_kind not in ("retr", "lm"):
+            raise ValueError(f"unsupported decoder_kind {self.decoder_kind!r}")
+        if self.decoder_kind == "lm":
+            sizes = {f: getattr(self, f) for f in LM_FIELDS
+                     if f.endswith(("_size", "_dim", "_rank", "layers", "heads", "_tok")) or f == "lm_n_routed_experts"}
+            if min(sizes.values()) <= 0:
+                raise ValueError(f"lm sizes must be positive: {sizes}")
+            if self.lm_qk_rope_head_dim % 2:
+                raise ValueError("lm_qk_rope_head_dim must be even (RoPE rotates pairs)")
+            if self.lm_num_experts_per_tok > self.lm_n_routed_experts:
+                raise ValueError("lm_num_experts_per_tok exceeds lm_n_routed_experts")
+            if not 0 <= self.lm_first_k_dense_replace <= self.lm_layers:
+                raise ValueError("lm_first_k_dense_replace must lie in [0, lm_layers]")
 
     # -- serialization (checkpoints embed the config instead of the reference's
     #    filename-substring sniffing, eval_model.py:49-82) --------------------------
     def to_dict(self) -> dict[str, Any]:
-        return dataclasses.asdict(self)
+        """Every field; a RE:TR config leaves out the decoder's keys (all at
+        their defaults), so its JSON is the JAX package's."""
+        d = dataclasses.asdict(self)
+        if self.decoder_kind == "retr":
+            for k in ("decoder_kind", *LM_FIELDS):
+                del d[k]
+        return d
 
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), indent=2, sort_keys=True)
@@ -199,3 +242,5 @@ class Config:
     def num_patches(self) -> int:
         return self.feature_hw * self.feature_hw
 
+
+LM_FIELDS = tuple(f.name for f in dataclasses.fields(Config) if f.name.startswith("lm_"))

@@ -54,6 +54,17 @@ eager loop's. The loop stays eager:
 - with the module flag ``CUDA_GRAPHS`` off, so that the two paths can be
   compared on one card.
 
+Under ``Config.decoder_kind`` "lm" the token loop decodes with the language
+model of ``models/lm.py``: its prologue prefills the projected encoder memory
+into the latent cache (the span ``decode.prefill``), each step is one
+MLA + MoE step of every row, and the head is the LM's (final norm, vocabulary
+product, argmax). Greedy, ``greedy_with_prefix`` and sampling run it, eager or
+as graphs alike: :func:`_decoder` picks the loop's decoder object
+(:class:`_RetrDecoder` or :class:`_LMDecoder`) once a run. Beam search,
+sequence scores, attention maps and meshes raise ``NotImplementedError``.
+Where the tracer records, the experts' tokens of a batch are read once after
+its loop (``moe.pairs``, ``moe.max_expert_tokens``).
+
 Under an active mesh whose mp slices the tree (``parallel/mesh.shard_params``)
 the decoder runs tensor-parallel (``models/transformer.decode_step``) and
 the MLP head's last layer gives this rank's vocabulary columns; the choices
@@ -78,7 +89,7 @@ import torch
 
 from retr_tpu_torch.config import Config
 from retr_tpu_torch.masking import Masked
-from retr_tpu_torch.models import caption, transformer
+from retr_tpu_torch.models import caption, lm, transformer
 from retr_tpu_torch.ops import decoder_kernels as dk
 from retr_tpu_torch.ops import graphs
 from retr_tpu_torch.parallel import mesh as pmesh
@@ -150,15 +161,21 @@ _packed = _Memo(dk.pack_head)
 
 
 def _cast_for_decode(params: Params, memory, pos, compute_dtype):
-    """Storage type of the decode loop: in bf16 mode the transformer and head
+    """Storage type of the decode loop: in bf16 mode the decoder's and head's
     weights (kept across calls, ``_cast``), the encoder memory and (allocated
-    from it) the cross K/V and self caches are bf16; f32 parity mode returns
-    everything unchanged. LayerNorm and softmax still compute in f32 inside
-    the kernels."""
+    from it) the decode state are bf16; f32 parity mode returns everything
+    unchanged. LayerNorm and softmax still compute in f32 inside the
+    kernels."""
     dt = dtype_of(compute_dtype)
     if dt == torch.float32:
         return params, memory, pos
-    params = {**params, "transformer": _cast(params["transformer"], dt), "mlp": _cast(params["mlp"], dt)}
+
+    def cast(tree):
+        # kept across calls only where it is a copy: an entry whose leaves are
+        # the caller's would hold them after the caller dropped its tree
+        return _cast(tree, dt) if any(t.is_floating_point() and t.dtype != dt for t in _leaves(tree)) else tree
+
+    params = {**params, **{k: cast(params[k]) for k in ("transformer", "mlp", "lm") if k in params}}
     return params, memory.to(dt), pos.to(dt)
 
 
@@ -237,19 +254,98 @@ def _run(new_loop: Callable, start: Callable, *, max_len: int, key: Optional[tup
         return loop.result(owned=False)
 
 
+class _RetrDecoder:
+    """RE:TR's decoder on the token loop: the prepared decoder layers, whose
+    state is the self caches and the cross K/V of the memory, and the MLP
+    head (packed for the head kernel with ``packed_head``)."""
+
+    def __init__(self, params: Params, cfg: Config, packed_head: bool = False):
+        if cfg.decoder_kind != "retr":     # the token loop's runs take _LMDecoder; beam search has no other
+            raise NotImplementedError("beam search with the LM decoder (ROADMAP L1: LM beam search)")
+        self.cfg, self.tree, self.mlp = cfg, _decoder_tree(params["transformer"]), params["mlp"]
+        self.head_p = _packed_head(self.mlp, cfg) if packed_head else None
+        self.trees = _session_trees(self.tree, self.mlp, self.head_p)
+
+    def alloc(self, rows: int, mem_len: int, max_len: int, dtype, device) -> tuple:
+        return transformer.alloc_decode_state(self.tree, self.cfg, rows, mem_len, max_len, dtype, device)
+
+    def prefill(self, cache, cross, memory, mem_mask, pos, max_len: int) -> None:
+        transformer.init_decode_state(self.tree, memory, mem_mask, pos, self.cfg, max_len, out=(cache, cross))
+
+    def step(self, cache, cross, tokens, step, mem_len: int) -> torch.Tensor:
+        return transformer.decode_step(self.tree, cache, cross, tokens, step, self.cfg)[0]
+
+    def argmax(self, hs) -> torch.Tensor:
+        if self.head_p is not None:
+            return dk.mlp_head_argmax(self.head_p, hs)
+        return _argmax_head(self.mlp, self.cfg, hs)
+
+    def logits(self, hs) -> torch.Tensor:
+        return _head_logits(self.mlp, self.cfg, hs)
+
+    def finish(self, cache) -> None:
+        pass
+
+
+class _LMDecoder:
+    """The language model of ``models/lm.py`` on the token loop: its state is
+    the latent cache (``lm.LatentState``; no cross state), its prologue the
+    prefix's prefill (the span ``decode.prefill``), its head the final norm's
+    vocabulary product. One card only: meshes raise."""
+
+    def __init__(self, params: Params, cfg: Config, packed_head: bool = False):
+        if pmesh.current() is not None:
+            raise NotImplementedError("the LM decoder under a dp/mp mesh (ROADMAP L3: LM under dp/mp)")
+        self.cfg, self.p = cfg, params["lm"]
+        self.trees = [self.p]
+
+    def alloc(self, rows: int, mem_len: int, max_len: int, dtype, device) -> tuple:
+        return lm.alloc_state(self.cfg, rows, mem_len, max_len, dtype, device), ()
+
+    def prefill(self, cache, cross, memory, mem_mask, pos, max_len: int) -> None:
+        with profiling.span("decode.prefill", rows=memory.shape[0], tokens=memory.shape[0] * memory.shape[1]):
+            lm.prefill(self.p, memory, mem_mask, self.cfg, cache)
+
+    def step(self, cache, cross, tokens, step, mem_len: int) -> torch.Tensor:
+        return lm.decode_step(self.p, cache, tokens, step, mem_len, self.cfg)
+
+    def argmax(self, hs) -> torch.Tensor:
+        return lm.logits(self.p, hs).argmax(dim=-1).to(torch.int32)
+
+    def logits(self, hs) -> torch.Tensor:
+        return lm.logits(self.p, hs).float()
+
+    def finish(self, cache) -> None:
+        """The batch's expert tallies, read once after its loop where the
+        tracer records: ``moe.pairs``, the pairs routed, and
+        ``moe.max_expert_tokens``, the busiest [layer, expert]'s pairs over
+        the mean of all (a ratio a batch; the counter sums it over batches)."""
+        if profiling.recording():
+            tally = cache.tally
+            profiling.count("moe.pairs", int(tally.sum()))
+            profiling.count("moe.max_expert_tokens", float(tally.max() / tally.float().mean().clamp_min(1e-9)))
+
+
+def _decoder(params: Params, cfg: Config, packed_head: bool = False):
+    """The token loop's decoder of ``cfg.decoder_kind``."""
+    return (_LMDecoder if cfg.decoder_kind == "lm" else _RetrDecoder)(params, cfg, packed_head)
+
+
 class _TokenLoop:
     """The carries of greedy, prefix completion and sampling, which
-    :meth:`chunk` updates in place: the [B, max_len] token buffer, the self
-    caches and cross K/V, the finished flags, the prefix lengths and the
-    step index the kernels read. ``choose(loop, i, hs)`` gives the [B] int32
-    tokens of slot i+1 from the hidden states of position i (and
-    ``loop.captions``, ``loop.prefix_lens``, ``loop.generator``)."""
+    :meth:`chunk` updates in place: the [B, max_len] token buffer, the
+    decoder's state (``cache`` and ``cross``: RE:TR's self caches and cross
+    K/V, the LM's latent cache), the finished flags, the prefix lengths and
+    the step index the kernels read. ``choose(loop, i, hs)`` gives the [B]
+    int32 tokens of slot i+1 from the hidden states of position i (and
+    ``loop.decoder``, ``loop.captions``, ``loop.prefix_lens``,
+    ``loop.generator``)."""
 
-    def __init__(self, tparams: Params, cfg: Config, choose: Callable, *, rows: int, mem_len: int, max_len: int,
-                 eos_token: int, dtype, device, generator=None):
-        self.tparams, self.cfg, self.choose, self.eos = tparams, cfg, choose, eos_token
-        self.max_len, self.dtype, self.generator = max_len, dtype, generator
-        self.cache, self.cross = transformer.alloc_decode_state(tparams, cfg, rows, mem_len, max_len, dtype, device)
+    def __init__(self, decoder, choose: Callable, *, rows: int, mem_len: int, max_len: int, eos_token: int, dtype,
+                 device, generator=None):
+        self.decoder, self.choose, self.eos = decoder, choose, eos_token
+        self.mem_len, self.max_len, self.dtype, self.generator = mem_len, max_len, dtype, generator
+        self.cache, self.cross = decoder.alloc(rows, mem_len, max_len, dtype, device)
         self.captions = torch.zeros((rows, max_len), dtype=torch.int32, device=device)
         self.prefix_lens = torch.zeros(rows, dtype=torch.int32, device=device)
         self.finished = torch.zeros(rows, dtype=torch.bool, device=device)
@@ -259,11 +355,10 @@ class _TokenLoop:
         return [*self.cache, *self.cross, self.captions, self.prefix_lens, self.finished, self.step]
 
     def start(self, memory, mem_mask, pos, bos_token: int, captions=None, prefix_lens=None) -> None:
-        """The prologue: the cross K/V of this memory, BOS in slot 0 of the
-        token buffer (or of ``captions``, a preset buffer of forced tokens),
-        no row finished, step 0."""
-        transformer.init_decode_state(self.tparams, memory, mem_mask, pos, self.cfg, self.max_len,
-                                      out=(self.cache, self.cross))
+        """The prologue: the decoder's state of this memory, BOS in slot 0 of
+        the token buffer (or of ``captions``, a preset buffer of forced
+        tokens), no row finished, step 0."""
+        self.decoder.prefill(self.cache, self.cross, memory, mem_mask, pos, self.max_len)
         if captions is None:
             self.captions.zero_()
         else:
@@ -283,8 +378,7 @@ class _TokenLoop:
         write and stop rules apply to the chosen tokens."""
         with matmul_precision(self.dtype):
             for i in range(i0, i0 + n):
-                hs, _ = transformer.decode_step(self.tparams, self.cache, self.cross, self.captions[:, i], self.step,
-                                                self.cfg)
+                hs = self.decoder.step(self.cache, self.cross, self.captions[:, i], self.step, self.mem_len)
                 tok = self.choose(self, i, hs)
                 self.finished |= tok == self.eos
                 write = ~self.finished.all()  # all just finished: the reference skips this write
@@ -292,26 +386,28 @@ class _TokenLoop:
                 self.step += 1
 
     def result(self, owned: bool) -> torch.Tensor:
-        """The token buffer; a copy where the buffer is a session's."""
+        """The token buffer; a copy where the buffer is a session's. The
+        decoder reads what it tallied here, once a batch."""
+        self.decoder.finish(self.cache)
         return self.captions if owned else self.captions.clone()
 
 
 def _token_run(kind: str, params: Params, cfg: Config, memory, mem_mask, pos, choose: Callable, *, max_len: int,
                bos_token: int, eos_token: int, captions=None, prefix_lens=None, generator=None,
-               head_p: Optional[Params] = None, extra: tuple = (), cuda_graphs: bool = True) -> torch.Tensor:
+               packed_head: bool = False, extra: tuple = (), cuda_graphs: bool = True) -> torch.Tensor:
     """Greedy, prefix completion or sampling (``kind``) on the token loop:
     eager, or the graphs of the session of its key (the module's docstring)."""
     b, s = memory.shape[:2]
-    tparams = _decoder_tree(params["transformer"])
+    decoder = _decoder(params, cfg, packed_head)
 
     def new_loop(gen):
-        return _TokenLoop(tparams, cfg, choose, rows=b, mem_len=s, max_len=max_len, eos_token=eos_token,
+        return _TokenLoop(decoder, choose, rows=b, mem_len=s, max_len=max_len, eos_token=eos_token,
                           dtype=memory.dtype, device=memory.device, generator=gen)
 
     def start(loop):
         loop.start(memory, mem_mask, pos, bos_token, captions, prefix_lens)
 
-    key, trees = None, _session_trees(tparams, params["mlp"], head_p)
+    key, trees = None, decoder.trees
     if cuda_graphs and _graphed(memory.device):
         key = graphs.session_key(kind, memory, rows=b, beams=1, max_len=max_len, trees=trees,
                                  extra=(cfg, eos_token, CHECK_EVERY, *extra))
@@ -393,14 +489,12 @@ def greedy_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, *,
     """Greedy decode given the encoder output; returns the [B, max_len] int32
     token buffer (on memory's device). ``cuda_graphs=False`` keeps the loop
     eager (``greedy_with_attention``)."""
-    mlp = params["mlp"]
-    head_p = _packed_head(mlp, cfg) if dk.HEAD_KERNEL else None
 
     def choose(loop, i, hs):
-        return dk.mlp_head_argmax(head_p, hs) if head_p is not None else _argmax_head(mlp, cfg, hs)
+        return loop.decoder.argmax(hs)
 
     return _token_run("greedy", params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
-                      eos_token=eos_token, head_p=head_p, cuda_graphs=cuda_graphs)
+                      eos_token=eos_token, packed_head=dk.HEAD_KERNEL, cuda_graphs=cuda_graphs)
 
 
 class Encoded(NamedTuple):
@@ -458,11 +552,10 @@ def greedy_with_prefix(params: Params, cfg: Config, samples: Masked, prefix: tor
     captions = torch.zeros((b, max_len), dtype=torch.int32, device=memory.device)
     cols = torch.arange(p, device=memory.device)[None, :]
     captions[:, 1:p + 1] = torch.where(cols < prefix_lens[:, None], prefix.to(torch.int32), 0)
-    mlp = params["mlp"]
 
     def choose(loop, i, hs):
         forced = i + 1 <= loop.prefix_lens            # position i+1 is in the prefix
-        return torch.where(forced, loop.captions[:, i + 1], _argmax_head(mlp, cfg, hs))
+        return torch.where(forced, loop.captions[:, i + 1], loop.decoder.argmax(hs))
 
     return _token_run("prefix", params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
                       eos_token=eos_token, captions=captions, prefix_lens=prefix_lens)
@@ -556,10 +649,9 @@ def sample_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, gener
                        max_len: int, bos_token: int, eos_token: int, temperature: float = 1.0, top_k: int = 0,
                        top_p: float = 1.0, noise_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """:func:`sample` given the encoder output."""
-    mlp = params["mlp"]
 
     def choose(loop, i, hs):
-        return sample_tokens(_head_logits(mlp, cfg, hs), loop.generator, temperature=temperature, top_k=top_k,
+        return sample_tokens(loop.decoder.logits(hs), loop.generator, temperature=temperature, top_k=top_k,
                              top_p=top_p, noise_rows=noise_rows)
 
     return _token_run("sample", params, cfg, memory, mem_mask, pos, choose, max_len=max_len, bos_token=bos_token,
@@ -774,19 +866,17 @@ def beam_search_from_memory(params: Params, cfg: Config, memory, mem_mask, pos, 
     the loop then runs eagerly).
     """
     b, s = memory.shape[:2]
-    tparams = _decoder_tree(params["transformer"])
-    mlp = params["mlp"]
-    head_p = _packed_head(mlp, cfg) if dk.BEAM_TOPK_KERNEL else None
+    dec = _RetrDecoder(params, cfg, dk.BEAM_TOPK_KERNEL)
 
     def new_loop(gen):
-        return _BeamLoop(tparams, mlp, head_p, cfg, rows=b, beams=beam_size, mem_len=s, max_len=max_len,
+        return _BeamLoop(dec.tree, dec.mlp, dec.head_p, cfg, rows=b, beams=beam_size, mem_len=s, max_len=max_len,
                          eos_token=eos_token, length_penalty=length_penalty, early_stop=early_stop,
                          dtype=memory.dtype, device=memory.device, margins=margins)
 
     def start(loop):
         loop.start(memory, mem_mask, pos, bos_token)
 
-    key, trees = None, _session_trees(tparams, mlp, head_p)
+    key, trees = None, dec.trees
     if margins is None and _graphed(memory.device, collectives=True):
         key = graphs.session_key("beam", memory, rows=b, beams=beam_size, max_len=max_len, trees=trees,
                                  extra=(cfg, eos_token, length_penalty, early_stop, CHECK_EVERY))

@@ -31,6 +31,8 @@ Params = Dict[str, Any]
 def init(gen: torch.Generator, cfg: Config) -> Params:
     """Fresh parameters on the host (retr_tpu/models/caption.py:37): input_proj,
     the MLP head and loc_proj at nn.Linear's (and nn.Conv2d's) default init."""
+    if cfg.decoder_kind == "lm":
+        raise NotImplementedError("training with the LM decoder (ROADMAP L2: LM training)")
     if cfg.use_global_features and not cfg.use_location_features:
         raise NotImplementedError()  # raised before anything is built
     nc, d = cfg.backbone_num_channels, cfg.hidden_dim
@@ -160,6 +162,8 @@ def forward(params: Params, cfg: Config, samples: Masked, target_exp: torch.Tens
     ``return_attention`` (keys ``enc_tc_self_att``, ``dec_exp_self_att``,
     ``dec_exp_tc_cross_att``, each [layers, B, T, S]). ``train`` turns on
     dropout (generators from ``seed``) and detaches the frozen backbone prefix."""
+    if "lm" in params:
+        raise NotImplementedError("the teacher-forced forward of the LM decoder (ROADMAP L2: LM training)")
     enc = build_encoder_input(params, cfg, samples, global_samples, loc_feats,
                               compute_dtype=compute_dtype, filler_idx=filler_idx,
                               stop_prefix_gradient=train)

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from retr_tpu_torch.config import Config
+from retr_tpu_torch.models import lm
 from retr_tpu_torch.models.layers import tree_to
 from retr_tpu_torch.models.resnet import BN_EPS, fold_bn, resnet_structure
 
@@ -87,6 +88,8 @@ def to_state_dict(params: Mapping, cfg: Config) -> StateDict:
     (retr_tpu/models/torch_export.py). Each folded BatchNorm is written as
     ``weight=scale, bias=bias, running_mean=0, running_var=1-eps``, which
     :func:`to_params` folds back to the same bits."""
+    if "lm" in params:
+        raise NotImplementedError("to_state_dict of an LM-decoder tree (ROADMAP L2: LM training)")
     out: StateDict = {}
     bb = params["backbone"]
     out["backbone.body.conv1.weight"] = _t(bb["conv1"]["w"])
@@ -175,8 +178,12 @@ def _bn(sd, name) -> Params:
 def to_params(state_dict: Mapping[str, torch.Tensor], cfg: Config, device=None) -> Params:
     """Reference-named state dict -> parameter tree (f32) on ``device``. The
     BatchNorm folds run on the host, so the tree has the same bits on every
-    device."""
-    sd = {k: v.detach().to(device="cpu", dtype=torch.float32) for k, v in state_dict.items()}
+    device. Under ``decoder_kind`` "lm" the tree has no RE:TR decoder or MLP
+    head; its ``lm`` subtree (the projector and the language model,
+    ``models/lm.py``) keeps the state dict's leaves, dtypes and storage where
+    they are already on ``device``."""
+    sd = {k: v.detach().to(device="cpu", dtype=torch.float32) for k, v in state_dict.items()
+          if not k.startswith(lm.STATE_PREFIXES)}
     block_type, plan = resnet_structure(cfg.backbone, cfg.dilation)
     n_convs = 3 if block_type == "bottleneck" else 2
     pre = "backbone.body."
@@ -200,19 +207,7 @@ def to_params(state_dict: Mapping[str, torch.Tensor], cfg: Config, device=None) 
         "encoder": {"layers": [
             {"self_attn": _att(sd, f"{t}encoder.layers.{i}.self_attn"),
              "ff": _ff(sd, f"{t}encoder.layers.{i}.ff")}
-            for i in range(cfg.enc_layers)]},
-        "decoder": {"layers": [
-            {"self_attn": _att(sd, f"{t}decoder.layers.{i}.tgt_self_attn"),
-             "cross_attn": _att(sd, f"{t}decoder.layers.{i}.tgt_src_cross_attn"),
-             "ff": _ff(sd, f"{t}decoder.layers.{i}.ff")}
-            for i in range(cfg.dec_layers)],
-            "norm": _norm(sd, f"{t}decoder.norm")},
-        "embeddings": {
-            "word": {"table": sd[f"{t}embeddings.word_embeddings.weight"]},
-            "pos": {"table": sd[f"{t}embeddings.position_embeddings.weight"]},
-            "norm": _norm(sd, f"{t}embeddings.LayerNorm"),
-        },
-    }
+            for i in range(cfg.enc_layers)]}}
     if f"{t}encoder.norm.weight" in sd:
         transformer["encoder"]["norm"] = _norm(sd, f"{t}encoder.norm")
     if f"{SRC_POS}.embedding.weight" in sd:
@@ -223,10 +218,23 @@ def to_params(state_dict: Mapping[str, torch.Tensor], cfg: Config, device=None) 
         "backbone": backbone,
         "input_proj": {"w": conv_w[:, :, 0, 0].t().contiguous(), "b": sd["input_proj.bias"]},
         "transformer": transformer,
-        "mlp": {"layers": [_lin(sd, f"mlp.layers.{i}") for i in range(3)]},
     }
     if "loc_proj.weight" in sd:
         params["loc_proj"] = _lin(sd, "loc_proj")
+    if cfg.decoder_kind == "lm":
+        return {**tree_to(params, device=device), "lm": lm.params_from_state(state_dict, cfg, device=device)}
+    transformer["decoder"] = {"layers": [
+        {"self_attn": _att(sd, f"{t}decoder.layers.{i}.tgt_self_attn"),
+         "cross_attn": _att(sd, f"{t}decoder.layers.{i}.tgt_src_cross_attn"),
+         "ff": _ff(sd, f"{t}decoder.layers.{i}.ff")}
+        for i in range(cfg.dec_layers)],
+        "norm": _norm(sd, f"{t}decoder.norm")}
+    transformer["embeddings"] = {
+        "word": {"table": sd[f"{t}embeddings.word_embeddings.weight"]},
+        "pos": {"table": sd[f"{t}embeddings.position_embeddings.weight"]},
+        "norm": _norm(sd, f"{t}embeddings.LayerNorm"),
+    }
+    params["mlp"] = {"layers": [_lin(sd, f"mlp.layers.{i}") for i in range(3)]}
     return tree_to(params, device=device)
 
 

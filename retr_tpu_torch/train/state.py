@@ -206,6 +206,8 @@ def create_train_state(cfg: Config, params: Params, device=None,
     ``device`` that is not the mesh's raises) as f32 leaves, and build the
     optimizer. Under ``mesh`` the full tree is cut to this rank's slices
     first."""
+    if cfg.decoder_kind == "lm":
+        raise NotImplementedError("training with the LM decoder (ROADMAP L2: LM training)")
     if mesh is None:
         dev = device_mod.resolve(device)
     elif device is not None and not _same_device(torch.device(device), mesh.device):
@@ -428,6 +430,8 @@ def make_train_step(cfg: Config, *, compute_dtype=None, accum_steps: Optional[in
     dp rank folded into the step seed where dp > 1, the gradients (and the
     returned loss) averaged over dp after the backward and any accumulation,
     and the clip by the global norm of the sharded gradient."""
+    if cfg.decoder_kind == "lm":
+        raise NotImplementedError("training with the LM decoder (ROADMAP L2: LM training)")
     dt = dtype_of(cfg.compute_dtype if compute_dtype is None else compute_dtype)
     accum = cfg.grad_accum_steps if accum_steps is None else accum_steps
 
@@ -474,6 +478,8 @@ def make_eval_step(cfg: Config, *, compute_dtype=None) -> Callable:
     On a CUDA device with no active mesh, a CUDA graph per key (the
     parameters' identities, the batch's shapes: a ragged last batch has its
     own), as :func:`make_train_step`'s."""
+    if cfg.decoder_kind == "lm":
+        raise NotImplementedError("training with the LM decoder (ROADMAP L2: LM training)")
     dt = dtype_of(cfg.compute_dtype if compute_dtype is None else compute_dtype)
 
     def forward(params: Params, batch: Batch) -> torch.Tensor:

@@ -102,7 +102,7 @@ class Tracer:
         self._lock = threading.Lock()
         self._ids = itertools.count(1)
         self._local = threading.local()
-        self._counters: Dict[str, int] = {}
+        self._counters: Dict[str, float] = {}
 
     def recording(self) -> bool:
         return self.on or _autograd_profiler._is_profiler_enabled
@@ -119,7 +119,7 @@ class Tracer:
         if self.recording():
             self._keep((name, start_ns, end_ns, next(self._ids), None, threading.get_ident(), attrs))
 
-    def count(self, name: str, n: int = 1) -> None:
+    def count(self, name: str, n: float = 1) -> None:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + n
 
@@ -129,7 +129,7 @@ class Tracer:
         return [{"name": n, "start_ns": s, "end_ns": e, "id": i, "parent": p, "thread": t, "attrs": a}
                 for n, s, e, i, p, t, a in kept]
 
-    def counters(self) -> Dict[str, int]:
+    def counters(self) -> Dict[str, float]:
         with self._lock:
             return dict(self._counters)
 

@@ -142,7 +142,7 @@ def test_steps_read_only_slots_written_in_the_same_call(model, kind):
     out = []
     for garbage in (False, True):
         if kind == "greedy":
-            loop = decode._TokenLoop(tparams, cfg, lambda lp, i, hs: decode._argmax_head(tp["mlp"], cfg, hs), rows=6,
+            loop = decode._TokenLoop(decode._RetrDecoder(tp, cfg), lambda lp, i, hs: lp.decoder.argmax(hs), rows=6,
                                      mem_len=memory.shape[1], max_len=21, eos_token=-1, dtype=memory.dtype,
                                      device=memory.device)
         else:
